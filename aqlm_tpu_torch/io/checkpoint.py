@@ -6,7 +6,7 @@ norm, lm_head) and one ``layer_{i}.npz`` per block with flat
 ``name.field -> array`` entries. bf16 arrays are stored as a uint16 view
 under a ``::bf16``-suffixed key. Layers are canonical AQLM weights
 (reference mode) or materialized runtime layouts; of the latter the port
-reads the tiled codes-mode layout.
+reads the tiled codes-mode and the int8 layouts.
 """
 
 from __future__ import annotations
@@ -49,9 +49,15 @@ def _layer_from_flat(arrays: dict, meta: dict, device) -> dict:
     get = lambda key: arrays[key].to(device) if key in arrays else None
     layer = {}
     for name, m in meta.items():
-        if m["kind"] == "runtime":
+        if m["kind"] == "runtime" and m["mode"] == "int8":
+            layer[name] = QuantizedLinear(
+                codes=None, codebooks=None, scales=get(f"{name}.scales"), bias=get(f"{name}.bias"),
+                scheme=AqlmScheme.parse(m["scheme"]), mode="int8", w8=get(f"{name}.w8"),
+                w8_scale=get(f"{name}.w8_scale"),
+            )
+        elif m["kind"] == "runtime":
             if m["mode"] != "codes":
-                raise not_ported(f"materialized {m['mode']} checkpoints", "B9-B11")
+                raise not_ported(f"materialized {m['mode']} checkpoints", "B11")
             if f"{name}.codes_tl" not in arrays:
                 raise not_ported("codes checkpoints without the tiled layout (one-hot kernel)", "B15")
             scheme = AqlmScheme.parse(m["scheme"])

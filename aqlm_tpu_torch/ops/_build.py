@@ -64,6 +64,10 @@ KERNELS = {
         "flash_decode_write", "aqlm_tpu_torch/ops/csrc/flash_decode.cu",
         "aqlm_tpu/ops/flash_decode.py:358", (),
     ),
+    "int8_matmul": KernelInfo(
+        "int8_matmul", "aqlm_tpu_torch/ops/csrc/int8_matmul.cu",
+        "aqlm_tpu/ops/int8_matmul.py:231", ("aqlm_tpu/ops/int8_matmul.py:85",),
+    ),
 }
 
 
@@ -141,7 +145,9 @@ def _declare(lib) -> None:
     lib.lut_gemv_launch.argtypes = [P] * 8 + [I] * 10 + [P]
     lib.gather_prefill_launch.argtypes = [P] * 8 + [I] * 8 + [P]
     lib.flash_decode_write_launch.argtypes = [P] * 11 + [I] * 7 + [ctypes.c_float, P]
-    for fn in (lib.lut_gemv_launch, lib.gather_prefill_launch, lib.flash_decode_write_launch):
+    lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 6 + [P]
+    for fn in (lib.lut_gemv_launch, lib.gather_prefill_launch, lib.flash_decode_write_launch,
+               lib.int8_matmul_launch):
         fn.restype = I
 
 

@@ -7,6 +7,9 @@ covers:
   scales and 128-aligned out_features: codes stay resident in the tiled
   layout; batch <= 8 runs the LUT-GEMV kernel (K1), larger batches the
   gather-dequant prefill kernel (K2);
+- "int8" (W8A16): the dequantized weight re-quantized per output channel
+  to int8 at load, [OUT, IN_pad] with ``aqlm_tpu``'s padding; every batch
+  runs the int8 kernel (``ops/int8_matmul``);
 - "reference": plain dequantize-then-matmul, the oracle.
 
 Everything else raises ``NotImplementedError`` naming the ROADMAP item that
@@ -21,12 +24,13 @@ from typing import ClassVar
 import torch
 
 from aqlm_tpu_torch.config import AqlmScheme
-from aqlm_tpu_torch.ops.dequant import AqlmWeight, aqlm_matmul_reference
+from aqlm_tpu_torch.ops.dequant import AqlmWeight, aqlm_matmul_reference, dequantize_weight
 from aqlm_tpu_torch.ops.gather_prefill import (
     gather_prefill_matmul,
     gather_prefill_matmul_grouped_indexed,
     gather_prefill_matmul_indexed,
 )
+from aqlm_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_indexed, quantize_int8
 from aqlm_tpu_torch.ops.lut_gemv import (
     LUT_GEMV_MAX_BATCH,
     lut_gemv_kx8_grouped_indexed,
@@ -49,7 +53,7 @@ __all__ = [
 ]
 
 MODES = ("codes", "int8", "int4", "reference")
-PORTED_MODES = ("codes", "reference")
+PORTED_MODES = ("codes", "int8", "reference")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -70,6 +74,9 @@ class QuantizedLinear:
     reference mode: codes [OG, IG, K], codebooks [K, S, ogs, igs], scales.
     codes mode:     codes_tl [NT, K*IG, tn] uint8 (tiled), codebooks
                     [K, S, igs] bf16, scales [OUT] f32.
+    int8 mode:      w8 [OUT, IN_pad] int8 (IN padded per
+                    ``int8_matmul.pad_in_features``), w8_scale [OUT] f32,
+                    scales ones.
     bias [OUT] or None. Stacked serving params carry a leading L axis.
     """
 
@@ -80,8 +87,11 @@ class QuantizedLinear:
     scheme: AqlmScheme
     mode: str
     codes_tl: torch.Tensor | None = None
+    w8: torch.Tensor | None = None
+    w8_scale: torch.Tensor | None = None
 
-    data_fields: ClassVar[tuple] = ("codes", "codebooks", "scales", "bias", "codes_tl")
+    data_fields: ClassVar[tuple] = ("codes", "codebooks", "scales", "bias", "codes_tl", "w8",
+                                    "w8_scale")
 
     @staticmethod
     def from_aqlm(w: AqlmWeight, mode: str = "codes") -> "QuantizedLinear":
@@ -94,7 +104,10 @@ class QuantizedLinear:
             return QuantizedLinear(codes=w.codes, codebooks=w.codebooks, scales=scales,
                                    bias=w.bias, scheme=scheme, mode=mode)
         if mode == "int8":
-            raise not_ported("int8 mode (W8A16)", "B9-B10")
+            w8, w8_scale = quantize_int8(dequantize_weight(w, dtype=torch.float32))
+            return QuantizedLinear(codes=None, codebooks=None, scales=torch.ones_like(scales),
+                                   bias=w.bias, scheme=scheme, mode=mode, w8=w8,
+                                   w8_scale=w8_scale)
         if mode == "int4":
             raise not_ported("int4 mode (W4A16)", "B11")
         if scheme.out_group_size != 1:
@@ -118,7 +131,7 @@ class QuantizedLinear:
 
 def _check_ported(q: QuantizedLinear) -> None:
     if q.mode not in PORTED_MODES:
-        raise not_ported(f"{q.mode} mode", "B9-B11")
+        raise not_ported(f"{q.mode} mode", "B11")
     if q.mode == "codes" and q.codes_tl is None:
         raise not_ported("codes mode without the tiled layout (one-hot kernel)", "B15")
 
@@ -130,6 +143,8 @@ def quantized_matmul(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
         w = AqlmWeight(codes=q.codes, codebooks=q.codebooks, scales=q.scales,
                        bias=q.bias, scheme=q.scheme)
         return aqlm_matmul_reference(x, w)
+    if q.mode == "int8":
+        return int8_matmul(x, q.w8, q.w8_scale, q.bias)
     g = q.scheme.in_group_size
     if _batch(x) <= LUT_GEMV_MAX_BATCH:
         return lut_gemv_kx8_tiled(x, q.codes_tl, q.codebooks, q.scales, q.bias, group=g)
@@ -149,7 +164,8 @@ def _slice_layer(q: QuantizedLinear, idx: int) -> QuantizedLinear:
     pick = lambda a: None if a is None else a[idx]
     return QuantizedLinear(codes=pick(q.codes), codebooks=pick(q.codebooks),
                            scales=pick(q.scales), bias=pick(q.bias), scheme=q.scheme,
-                           mode=q.mode, codes_tl=pick(q.codes_tl))
+                           mode=q.mode, codes_tl=pick(q.codes_tl), w8=pick(q.w8),
+                           w8_scale=pick(q.w8_scale))
 
 
 def quantized_matmul_indexed(x: torch.Tensor, iq: IndexedQuantizedLinear) -> torch.Tensor:
@@ -157,6 +173,8 @@ def quantized_matmul_indexed(x: torch.Tensor, iq: IndexedQuantizedLinear) -> tor
     _check_ported(q)
     if q.mode == "reference":
         return quantized_matmul(x, _slice_layer(q, iq.idx))
+    if q.mode == "int8":
+        return int8_matmul_indexed(x, q.w8, q.w8_scale, iq.idx, q.bias)
     g = q.scheme.in_group_size
     if _batch(x) <= LUT_GEMV_MAX_BATCH:
         return lut_gemv_kx8_indexed(x, q.codes_tl, q.codebooks, q.scales, iq.idx, q.bias, group=g)

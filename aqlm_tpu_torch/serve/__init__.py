@@ -2,7 +2,11 @@
 
 from aqlm_tpu_torch.models.stacked import KVCache, forward_stacked, init_kv_cache, stack_layer_params
 from aqlm_tpu_torch.serve.engine import Engine, Request, ServeConfig
-from aqlm_tpu_torch.serve.fuse import fuse_projections_codes
+from aqlm_tpu_torch.serve.fuse import (
+    fuse_projections,
+    fuse_projections_codes,
+    quantize_lm_head_int8,
+)
 from aqlm_tpu_torch.serve.sampler import SamplingParams, sample_tokens
 
 __all__ = [
@@ -13,7 +17,9 @@ __all__ = [
     "Engine",
     "Request",
     "ServeConfig",
+    "fuse_projections",
     "fuse_projections_codes",
+    "quantize_lm_head_int8",
     "SamplingParams",
     "sample_tokens",
 ]

@@ -9,8 +9,8 @@
   already sits in another slot's cache rows copies them instead of
   recomputing (prefix cache).
 
-Speculative decoding, ``decode_chunk > 1`` and ``lm_head_int8`` are not
-ported yet and raise ``NotImplementedError``.
+Speculative decoding and ``decode_chunk > 1`` are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,10 +26,14 @@ from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.models import llama
 from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache, stack_layer_params
 from aqlm_tpu_torch.ops.runtime import not_ported
-from aqlm_tpu_torch.serve.fuse import fuse_projections_codes
+from aqlm_tpu_torch.serve.fuse import (
+    fuse_projections,
+    fuse_projections_codes,
+    quantize_lm_head_int8,
+)
 from aqlm_tpu_torch.serve.sampler import SamplingParams, sample_tokens
 
-__all__ = ["ServeConfig", "Engine", "Request"]
+__all__ = ["ServeConfig", "Engine", "Request", "serving_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,9 +43,20 @@ class ServeConfig:
     prefill_buckets: tuple = (64, 256, 1024)
     kv_quantized: bool = False  # int8 KV cache
     top_k: int = 0  # top-k bound for the sampler
-    lm_head_int8: bool = False  # not ported (int8 mode)
+    fuse_projections: bool = True  # QKV / gate+up fusion of int8 and codes layers
+    lm_head_int8: bool = False  # int8-quantize the output head
     min_prefix: int = 16  # smallest prefix worth a copy instead of recompute
     decode_chunk: int = 1  # >1 not ported
+
+
+def serving_params(params: dict, cfg: llama.ModelConfig, serve: ServeConfig) -> dict:
+    """The Engine's load-time transforms, in ``aqlm_tpu``'s order: int8
+    fusion, codes fusion, the int8 lm_head, then stacking the layers."""
+    if serve.fuse_projections:
+        params = fuse_projections_codes(fuse_projections(params, cfg), cfg)
+    if serve.lm_head_int8:
+        params = quantize_lm_head_int8(params)
+    return stack_layer_params(params)
 
 
 @dataclasses.dataclass
@@ -57,9 +72,10 @@ class Request:
 
 class Engine:
     """Continuous-batching engine. ``params``: Llama params (projections
-    DenseLinear or QuantizedLinear) on ``device`` (None = the card); codes
-    projections sharing an input are fused (q/k/v, gate/up) and every layer
-    stacked once at construction."""
+    DenseLinear or QuantizedLinear) on ``device`` (None = the card); int8 and
+    codes projections sharing an input are fused (q/k/v, gate/up), the head
+    quantized to int8 if asked, and every layer stacked once at
+    construction (``serving_params``)."""
 
     def __init__(self, params: dict, cfg: llama.ModelConfig, serve: ServeConfig = ServeConfig(),
                  *, device=None, draft_params: dict | None = None):
@@ -67,8 +83,6 @@ class Engine:
             raise not_ported("speculative decoding", "A8")
         if serve.decode_chunk > 1:
             raise not_ported("decode_chunk > 1", "A6")
-        if serve.lm_head_int8:
-            raise not_ported("the int8 lm_head", "B9")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, engine on {self.device}")
@@ -80,7 +94,7 @@ class Engine:
                 prefill_buckets=tuple(sorted({min(b, serve.max_len) for b in serve.prefill_buckets})),
             )
         self.serve = serve
-        self.params = stack_layer_params(fuse_projections_codes(params, cfg))
+        self.params = serving_params(params, cfg, serve)
         with torch.inference_mode():
             self.cache = init_kv_cache(cfg, serve.max_batch, serve.max_len,
                                        quantized=serve.kv_quantized, device=self.device)

@@ -8,16 +8,20 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the time to build the CUDA kernels from csrc/;
 2. checks: each kernel (K1 LUT-GEMV, K2 gather-prefill, K3 fused KV write +
-   flash decode) against its plain PyTorch version on the card, at the
-   Llama-2-7B shapes of the serving path (K1 at every decode batch bucket of
-   phase 4's ServeConfig, K2 at every prefill bucket), with its time, the
-   plain version's time and the least time the card could take (bound);
-3. reference: a 2-layer model at full Llama-2-7B width, kernels on the card
-   against the plain versions on the CPU, prefill and decode logits;
-4. engine: Engine.generate serving Llama-2-7B-shaped 2x8 codes (32 layers,
-   random weights from a seed, int8 KV cache) on 6 prompts of 64-1500
-   tokens, 64 new tokens each, greedy; launch counts of every kernel over
-   that run, which must all be non-zero;
+   flash decode, the W8A16 int8 matmul) against its plain PyTorch version on
+   the card, at the Llama-2-7B shapes of the serving paths (K1 at every
+   decode batch bucket of phase 4's ServeConfig, K2 at every prefill bucket,
+   the int8 kernel at both for the four projections and the lm_head), with
+   its time, the plain version's time, the least time the card could take
+   (bound) and, where one PyTorch call computes the same function, its time;
+3. reference: a 2-layer model at full Llama-2-7B width, in codes mode and in
+   int8 mode (int8 lm_head), kernels on the card against the plain versions
+   on the CPU, prefill and decode logits;
+4. engine: two Engine.generate runs at Llama-2-7B width and depth (32
+   layers, random weights from a seed, int8 KV cache) on 6 prompts of
+   64-1500 tokens, 64 new tokens each, greedy: 2x8 codes, then int8 with the
+   int8 lm_head. Launch counts are reset before and read after each run;
+   each run must launch the kernels of its own path and none of the other's;
 5. the kernel list, then {"ok": true, "device": {...}} as the last line.
 
 Writes chiprun_out/chip_smoke.json with every record and
@@ -131,11 +135,12 @@ def _codes_bytes(rows, out_f, in_f, P, nt, kig, tn):
     return nt * kig * tn + rows * in_f * 2 + rows * out_f * 2 + P * 2 * 256 * 8 * 2 + out_f * 4
 
 
-def main_path_rows(serve) -> dict:
-    """The row counts the Engine hands each kernel under ``serve``: K1 gets
-    the decode batch buckets (powers of two up to max_batch), plus the
-    kernel's largest batch; K2 gets every prefill bucket, clamped to max_len
-    as the Engine clamps it."""
+def main_path_rows(serve) -> tuple[list, list]:
+    """(decode, prefill): the row counts the Engine hands a projection's
+    kernel under ``serve``. Decode: the batch buckets (powers of two up to
+    max_batch) plus the decode kernels' largest batch; prefill: every
+    prefill bucket, clamped to max_len as the Engine clamps it. K1 takes the
+    decode rows, K2 the prefill rows, the int8 kernel both."""
     from aqlm_tpu_torch.ops.lut_gemv import LUT_GEMV_MAX_BATCH
 
     decode, b = set(), 1
@@ -144,7 +149,7 @@ def main_path_rows(serve) -> dict:
         b *= 2
     decode |= {serve.max_batch, LUT_GEMV_MAX_BATCH}
     prefill = {min(t, serve.max_len) for t in serve.prefill_buckets}
-    return {"lut_gemv": sorted(decode), "gather_prefill": sorted(prefill)}
+    return sorted(decode), sorted(prefill)
 
 
 def check_k1_k2(gen, dev, failures):
@@ -152,7 +157,8 @@ def check_k1_k2(gen, dev, failures):
     from aqlm_tpu_torch.ops import lut_gemv as lg
 
     reps = {}
-    rows_of = main_path_rows(engine_serve_config())
+    decode, prefill = main_path_rows(engine_serve_config("codes"))
+    rows_of = {"lut_gemv": decode, "gather_prefill": prefill}
     rep_rows = {"lut_gemv": 4, "gather_prefill": max(rows_of["gather_prefill"])}
     for name, sizes, in_f in PROJS:
         codes, cb, scales, pm, (nt, kig, tn, P) = _proj_inputs(gen, sizes, in_f, dev)
@@ -185,6 +191,56 @@ def check_k1_k2(gen, dev, failures):
                 if name == "qkv" and rows == rep_rows[kernel]:
                     reps[kernel] = rec
         del codes, cb, scales
+        torch.cuda.empty_cache()
+    return reps
+
+
+# (name, out_features, in_features): the int8 path's launches of a block, and its head
+INT8_PROJS = [("qkv", 12288, 4096), ("o", 4096, 4096), ("gate_up", 22016, 4096),
+              ("down", 4096, 11008), ("lm_head", 32000, 4096)]
+
+
+def check_int8(gen, dev, failures):
+    from aqlm_tpu_torch.ops import int8_matmul as im
+
+    reps = {}
+    for name, out_f, in_f in INT8_PROJS:
+        ld = im.pad_in_features(in_f)
+        w8 = torch.randint(-127, 128, (N_LAYERS_TIMED, out_f, ld), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        w8[..., in_f:] = 0  # aqlm_tpu's padding columns
+        scale = torch.rand((N_LAYERS_TIMED, out_f), generator=gen, device=dev) / (127 * in_f ** 0.5)
+        # yardstick only: PyTorch's W8A16 op takes [OUT, IN] weights and bf16 scales
+        w_lib = w8[..., :in_f].contiguous()
+        s_lib = scale.to(torch.bfloat16)
+        for rows in sum(main_path_rows(engine_serve_config("int8")), []):
+            x = torch.randn((N_LAYERS_TIMED, rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+            run = lambda i=0: im.launch(x[i % N_LAYERS_TIMED], w8[i % N_LAYERS_TIMED],
+                                        scale[i % N_LAYERS_TIMED])
+            plain = lambda i=0: im.plain(x[0], w8[0], scale[0])
+            cmp = compare(run(0), plain(0))
+            ms = time_ms(run, 50)
+            plain_ms = time_ms(plain, 3)
+            b_ms, b_by = bound(out_f * in_f + rows * in_f * 2 + rows * out_f * 2 + out_f * 4,
+                               2.0 * rows * out_f * in_f)
+            library_ms = library_error = None
+            try:
+                library = lambda i=0: torch._weight_int8pack_mm(
+                    x[i % N_LAYERS_TIMED], w_lib[i % N_LAYERS_TIMED], s_lib[i % N_LAYERS_TIMED])
+                library_ms = time_ms(library, 50 if rows <= 8 else 10)
+            except Exception as exc:  # the yardstick only: recorded, never on the port's path
+                library_error = str(exc).strip().splitlines()[0][:200]
+            rec = {"phase": "check", "kernel": "int8_matmul", "proj": name, "rows": rows,
+                   "out_features": out_f, "in_features": in_f, "row_stride": ld, **cmp,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library": "torch._weight_int8pack_mm", "library_ms": library_ms,
+                   "library_error": library_error, "host_ms": host_ms(run)}
+            emit(rec)
+            if not cmp["ok"]:
+                failures.append(rec)
+            if name == "qkv" and rows == 4:
+                reps["int8_matmul"] = rec
+        del w8, scale, w_lib, s_lib
         torch.cuda.empty_cache()
     return reps
 
@@ -276,19 +332,26 @@ def _to(node, dev):
     return node
 
 
-def reference_check(cfg, dev):
+def reference_check(cfg, dev, mode):
+    """Codes: max_len 256 (flash decode: K3 on the card, its plain version on
+    the CPU). int8: the int8 lm_head, max_len 1024, where the flash rule
+    takes int8 layers too."""
     from aqlm_tpu_torch.config import SCHEME_2X8
     from aqlm_tpu_torch.models.quantize import random_quantized_params
-    from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache, stack_layer_params
-    from aqlm_tpu_torch.serve.fuse import fuse_projections_codes
+    from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache
+    from aqlm_tpu_torch.serve import ServeConfig
+    from aqlm_tpu_torch.serve.engine import serving_params
 
     cfg2 = dataclasses.replace(cfg, num_layers=2)
-    params = random_quantized_params(torch.Generator(device=dev).manual_seed(1), cfg2, SCHEME_2X8)
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(1), cfg2, SCHEME_2X8,
+                                     mode=mode)
+    serve = ServeConfig(lm_head_int8=mode == "int8")
+    max_len = 1024 if mode == "int8" else 256
     ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 23))
     outs = {}
     for d in (dev, torch.device("cpu")):
-        st = stack_layer_params(fuse_projections_codes(_to(params, d), cfg2))
-        cache = init_kv_cache(cfg2, 1, 256, quantized=True, device=d)
+        st = serving_params(_to(params, d), cfg2, serve)
+        cache = init_kv_cache(cfg2, 1, max_len, quantized=True, device=d)
         logits = []
         with torch.inference_mode():
             x = torch.from_numpy(ids).to(d)
@@ -302,7 +365,8 @@ def reference_check(cfg, dev):
     scale = outs["cpu"].abs().max().item()
     ok = bool(torch.isfinite(outs["cuda"]).all()) and err <= 3e-2 * scale
     agree = (outs["cuda"].argmax(-1) == outs["cpu"].argmax(-1)).float().mean().item()
-    return {"phase": "reference", "layers": 2, "hidden": cfg.hidden_size, "prefill_tokens": 20,
+    return {"phase": "reference", "mode": mode, "lm_head_int8": serve.lm_head_int8, "layers": 2,
+            "hidden": cfg.hidden_size, "max_len": max_len, "prefill_tokens": 20,
             "decode_steps": 3, "kv": "int8", "max_abs_err": err, "max_rel_err": err / scale,
             "tol": "max|cuda - cpu| <= 3e-2 * max|cpu|", "argmax_agree": agree, "ok": ok}
 
@@ -311,13 +375,18 @@ def reference_check(cfg, dev):
 # phase 4: Engine.generate at full Llama-2-7B width and depth
 # ---------------------------------------------------------------------------
 
-def engine_serve_config():
+# the kernels each engine run must launch; the other path's must stay at 0
+PATH_KERNELS = {"codes": ("lut_gemv", "gather_prefill", "flash_decode_write"),
+                "int8": ("int8_matmul", "flash_decode_write")}
+
+
+def engine_serve_config(mode):
     from aqlm_tpu_torch.serve import ServeConfig
 
-    return ServeConfig(max_batch=4, max_len=2048, kv_quantized=True)
+    return ServeConfig(max_batch=4, max_len=2048, kv_quantized=True, lm_head_int8=mode == "int8")
 
 
-def engine_run(cfg, dev):
+def engine_run(cfg, dev, mode):
     from aqlm_tpu_torch.config import SCHEME_2X8
     from aqlm_tpu_torch.models.quantize import random_quantized_params
     from aqlm_tpu_torch.ops import _build
@@ -325,12 +394,15 @@ def engine_run(cfg, dev):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg, SCHEME_2X8)
-    serve = engine_serve_config()
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg, SCHEME_2X8,
+                                     mode=mode)
+    serve = engine_serve_config(mode)
     engine = Engine(params, cfg, serve)
     del params
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
 
     lengths = [64, 200, 700, 1100, 1500, 333]  # 1100 and 1500 prefill in chunks of 1024
     rng = np.random.default_rng(0)
@@ -367,20 +439,25 @@ def engine_run(cfg, dev):
     launches = {k: v.launches for k, v in _build.KERNELS.items()}
 
     ok = all(len(o) == new_tokens and all(0 <= t < cfg.vocab_size for t in o) for o in out)
+    ran = all(launches[k] > 0 for k in PATH_KERNELS[mode])
+    others = all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS[mode])
     decode_steps = [s for s in steps if s[1] and s[2] > 0]
     decode_tok = sum(s[2] for s in decode_steps)
     decode_s = sum(s[0] for s in decode_steps)
     rec = {"phase": "engine", "model": "llama2_7b", "layers": cfg.num_layers, "scheme": "2x8g8",
-           "mode": "codes", "kv": "int8", "max_batch": serve.max_batch, "max_len": serve.max_len,
+           "mode": mode, "lm_head_int8": serve.lm_head_int8, "kv": "int8",
+           "max_batch": serve.max_batch, "max_len": serve.max_len,
            "prompt_lengths": lengths, "new_tokens": new_tokens, "build_s": build_s,
            "prefill_tok_s": sum(lengths) / prefill_s, "prefill_s": prefill_s,
            "decode_tok_s": decode_tok / decode_s if decode_s else None,
            "decode_steps_timed": len(decode_steps), "decode_tokens_timed": decode_tok,
            "generate_s": total_s, "steps": len(steps),
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "build_peak_mem_gib": build_peak_gib,
+           "serve_peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "launches": launches, "prefix_hits": engine.prefix_stats["hits"],
-           "first_tokens": [o[:4] for o in out], "ok": ok and all(v > 0 for v in launches.values())}
+           "first_tokens": [o[:4] for o in out], "ok": ok and ran and others}
     rec["profile"] = profile_decode(engine, cfg, rng)
+    del engine.step  # the timing wrapper closes over the engine: a cycle that would keep it alive
     del engine
     torch.cuda.empty_cache()
     return rec
@@ -441,29 +518,36 @@ def main() -> int:
     with torch.inference_mode():
         reps = check_k1_k2(gen, dev, failures)
         reps.update(check_k3(gen, dev, failures))
+        reps.update(check_int8(gen, dev, failures))
     if failures:
         print(f"chip_smoke: {len(failures)} kernel checks out of tolerance", file=sys.stderr)
         return 2
 
     cfg = ModelConfig.llama2_7b()
-    ref = reference_check(cfg, dev)
-    emit(ref)
-    if not ref["ok"]:
-        print("chip_smoke: kernels disagree with the CPU reference", file=sys.stderr)
-        return 3
+    for mode in PATH_KERNELS:
+        ref = reference_check(cfg, dev, mode)
+        emit(ref)
+        if not ref["ok"]:
+            print(f"chip_smoke: {mode} kernels disagree with the CPU reference", file=sys.stderr)
+            return 3
 
-    eng = engine_run(cfg, dev)
-    emit(eng)
-    if not eng["ok"]:
-        print("chip_smoke: the engine run failed its checks", file=sys.stderr)
-        return 4
+    runs = {}
+    for mode in PATH_KERNELS:
+        runs[mode] = engine_run(cfg, dev, mode)
+        emit(runs[mode])
+        if not runs[mode]["ok"]:
+            print(f"chip_smoke: the {mode} engine run failed its checks", file=sys.stderr)
+            return 4
 
     kernels = []
     for name, info in _build.KERNELS.items():
         r = reps[name]
+        by_run = {mode: run["launches"][name] for mode, run in runs.items()
+                  if name in PATH_KERNELS[mode]}
         kernels.append({"name": name, "route": "cuda", "source": info.source,
                         "replaces": info.replaces, "also_replaces": list(info.also_replaces),
-                        "launches": eng["launches"][name], "max_abs_err": r["max_abs_err"],
+                        "launches": sum(by_run.values()), "launches_by_run": by_run,
+                        "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": {k: r[k] for k in r if k in (

@@ -19,8 +19,11 @@ from aqlm_tpu_torch.models.quantize import random_quantized_params
 from aqlm_tpu_torch.ops import _build
 from aqlm_tpu_torch.ops import flash_decode as fd
 from aqlm_tpu_torch.ops import gather_prefill as gp
+from aqlm_tpu_torch.ops import int8_matmul as im
 from aqlm_tpu_torch.ops import lut_gemv as lg
 from aqlm_tpu_torch.serve import Engine, SamplingParams, ServeConfig
+
+CODES_KERNELS = ("lut_gemv", "gather_prefill", "flash_decode_write")
 
 pytestmark = pytest.mark.cuda
 
@@ -128,4 +131,69 @@ def test_engine_on_the_card_launches_every_kernel(dev):
     _build.reset_launch_counts()
     out = engine.generate([np.arange(5), np.arange(40)], SamplingParams(max_new_tokens=4))
     assert [len(o) for o in out] == [4, 4]
-    assert all(k.launches > 0 for k in _build.KERNELS.values())
+    assert all(_build.KERNELS[k].launches > 0 for k in CODES_KERNELS)
+    assert _build.KERNELS["int8_matmul"].launches == 0
+
+
+def _int8(gen, dev, L, out_f=520, in_f=11008):
+    """Stacked int8 weights [L, OUT, IN_pad] with aqlm_tpu's padding (11008 ->
+    11264, zero columns), scales, bias; OUT=520 leaves ragged row tiles."""
+    w8 = torch.randint(-127, 128, (L, out_f, im.pad_in_features(in_f)), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    w8[..., in_f:] = 0
+    scale = torch.rand((L, out_f), generator=gen, device=dev) / (127 * in_f ** 0.5)
+    bias = torch.randn((L, out_f), generator=gen, device=dev)
+    return w8, scale, bias
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 64, 200])
+def test_int8_matmul_kernel_matches_plain(dev, rows):
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    w8, scale, bias = _int8(gen, dev, 3)
+    x = torch.randn((rows, 11008), generator=gen, device=dev).to(torch.bfloat16)
+    before = _build.KERNELS["int8_matmul"].launches
+    got = im.int8_matmul_indexed(x, w8, scale, 1, bias)
+    assert _build.KERNELS["int8_matmul"].launches == before + 1
+    want = im.plain(x, w8[1], scale[1]) + bias[1].to(torch.bfloat16)
+    _close(got, want)
+
+
+def test_int8_matmul_kernel_is_deterministic(dev):
+    """The split-contraction reduction adds the splits in a fixed order."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w8, scale, _ = _int8(gen, dev, 1, out_f=4096)
+    for rows in (4, 64):
+        x = torch.randn((rows, 11008), generator=gen, device=dev).to(torch.bfloat16)
+        assert torch.equal(im.int8_matmul(x, w8[0], scale[0]), im.int8_matmul(x, w8[0], scale[0]))
+
+
+def test_int8_matmul_wrapper_raises(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w8, scale, _ = _int8(gen, dev, 1, out_f=256, in_f=1024)
+    x = torch.randn((4, 1024), generator=gen, device=dev)
+    with pytest.raises(ValueError, match="bf16"):  # f32 activations stay a CPU-plain limit
+        im.int8_matmul(x, w8[0], scale[0])
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        im.launch(xb, w8[0].t().contiguous().t(), scale[0])
+    with pytest.raises(ValueError, match="int8 weights"):
+        im.int8_matmul(xb, w8[0].to(torch.int16), scale[0])
+    with pytest.raises(ValueError, match="f32 scales"):
+        im.int8_matmul(xb, w8[0], scale[0].to(torch.bfloat16))
+
+
+def test_int8_engine_on_the_card_launches_its_kernels(dev):
+    """int8 layers and head run on the int8 kernel; decode attention on K3
+    (max_len >= 1024 takes the flash rule for int8 layers)."""
+    cfg = llama.ModelConfig.tiny(num_layers=2, hidden_size=256, intermediate_size=256,
+                                 num_heads=4, num_kv_heads=2)
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg, SCHEME_2X8,
+                                     mode="int8")
+    engine = Engine(params, cfg, ServeConfig(max_batch=2, max_len=1024, prefill_buckets=(16, 32),
+                                             kv_quantized=True, lm_head_int8=True))
+    _build.reset_launch_counts()
+    out = engine.generate([np.arange(5), np.arange(40)], SamplingParams(max_new_tokens=4))
+    assert [len(o) for o in out] == [4, 4]
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    assert launches["int8_matmul"] > 0 and launches["flash_decode_write"] > 0
+    assert launches["lut_gemv"] == launches["gather_prefill"] == 0

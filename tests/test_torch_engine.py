@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import to_numpy_tree
+from torch_parity import run_engine, to_numpy_tree
 
 from aqlm_tpu.config import SCHEME_2X8
 from aqlm_tpu.io.checkpoint import save_quantized_model
@@ -40,33 +40,17 @@ def _params(mode="codes", dtype=jnp.float32):
                                            dtype=dtype)
 
 
-def _requests():
-    rng = np.random.default_rng(5)
-    p0 = rng.integers(0, 256, 24)
-    p1 = rng.integers(0, 256, 40)  # longer than the largest bucket: two prefill chunks
-    p2 = np.concatenate([p0[:20], rng.integers(0, 256, 10)])  # shares a 20-token prefix with p0
-    return [(p0, 8), (p1, 4), (p2, 5)]
-
-
-def _run(engine, sampling_cls):
-    rids = [engine.submit(p, sampling_cls(max_new_tokens=n)) for p, n in _requests()]
-    while engine._pending or engine._active:
-        engine.step()
-    reqs = [engine.get_request(r) for r in rids]
-    return [r.generated for r in reqs], [r.logprobs for r in reqs]
-
-
 @pytest.mark.parametrize("kv_quantized", [True, False])
 def test_engine_generate_matches_jax_greedy(kv_quantized):
     jcfg, jparams = _params()
     kw = dict(max_batch=2, max_len=128, prefill_buckets=(16, 32), kv_quantized=kv_quantized)
     jengine = JEngine(jparams, jcfg, JServe(**kw))
-    want, want_lp = _run(jengine, JSampling)
+    want, want_lp = run_engine(jengine, JSampling)
 
     cfg = llama.ModelConfig.tiny(**CFG)
     engine = Engine(params_from_numpy(to_numpy_tree(jparams), device="cpu"), cfg,
                     ServeConfig(**kw), device="cpu")
-    got, got_lp = _run(engine, SamplingParams)
+    got, got_lp = run_engine(engine, SamplingParams)
     assert got == want
     assert [len(g) for g in got] == [8, 4, 5]
     for g, w in zip(got_lp, want_lp):
@@ -130,9 +114,7 @@ def test_port_engine_runs_on_its_own_random_params():
     assert all(0 <= tok < cfg.vocab_size for o in out for tok in o)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(decode_chunk=4), "A6"), (dict(lm_head_int8=True), "B9"),
-])
+@pytest.mark.parametrize("kw,item", [(dict(decode_chunk=4), "A6")])
 def test_unported_engine_options_raise(kw, item):
     cfg = llama.ModelConfig.tiny(**CFG)
     params = random_quantized_params(torch.Generator().manual_seed(0), cfg,

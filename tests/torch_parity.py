@@ -64,3 +64,23 @@ def f32(x) -> np.ndarray:
 
 def assert_close(got, want, tol=2e-3):
     np.testing.assert_allclose(f32(got), f32(want), rtol=tol, atol=tol)
+
+
+def engine_requests():
+    """Three prompts for the engine parity tests: one longer than the largest
+    bucket (two prefill chunks) and one sharing a 20-token prefix with the
+    first; with their new-token budgets."""
+    rng = np.random.default_rng(5)
+    p0 = rng.integers(0, 256, 24)
+    p1 = rng.integers(0, 256, 40)
+    p2 = np.concatenate([p0[:20], rng.integers(0, 256, 10)])
+    return [(p0, 8), (p1, 4), (p2, 5)]
+
+
+def run_engine(engine, sampling_cls):
+    """Submit ``engine_requests`` and step until done: (tokens, logprobs)."""
+    rids = [engine.submit(p, sampling_cls(max_new_tokens=n)) for p, n in engine_requests()]
+    while engine._pending or engine._active:
+        engine.step()
+    reqs = [engine.get_request(r) for r in rids]
+    return [r.generated for r in reqs], [r.logprobs for r in reqs]
