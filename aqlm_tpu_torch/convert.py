@@ -4,7 +4,7 @@
 arrays in which each weight object is a dict with a ``"__class__"`` key
 (``"QuantizedLinear"``, ``"DenseLinear"`` or ``"FusedCodesLinear"``) and
 its fields, the scheme given by name (``"2x8g8"``); a QuantizedLinear is
-in reference, codes (tiled) or int8 mode. A bf16 array arrives as
+in reference, codes (tiled), int8 or int4 mode. A bf16 array arrives as
 its uint16 view wrapped in ``{"__bf16__": array}`` and becomes
 ``torch.bfloat16``. Tiled codes copy across as they are.
 """
@@ -54,8 +54,11 @@ def _convert(node, dev):
         if mode == "int8":
             return QuantizedLinear(codes=None, codebooks=None, scales=t("scales"), bias=t("bias"),
                                    scheme=scheme, mode=mode, w8=t("w8"), w8_scale=t("w8_scale"))
+        if mode == "int4":
+            return QuantizedLinear(codes=None, codebooks=None, scales=t("scales"), bias=t("bias"),
+                                   scheme=scheme, mode=mode, w4=t("w4"), w4_gscale=t("w4_gscale"))
         if mode != "codes":
-            raise not_ported(f"{mode} mode", "B11")
+            raise ValueError(f"unknown QuantizedLinear mode {mode!r}")
         if node.get("codes_tl") is None:
             raise not_ported("codes mode without the tiled layout (one-hot kernel)", "B15")
         return QuantizedLinear(codes=None, codebooks=t("codebooks"), scales=t("scales"),

@@ -6,7 +6,7 @@ norm, lm_head) and one ``layer_{i}.npz`` per block with flat
 ``name.field -> array`` entries. bf16 arrays are stored as a uint16 view
 under a ``::bf16``-suffixed key. Layers are canonical AQLM weights
 (reference mode) or materialized runtime layouts; of the latter the port
-reads the tiled codes-mode and the int8 layouts.
+reads the tiled codes-mode, the int8 and the int4 layouts.
 """
 
 from __future__ import annotations
@@ -55,9 +55,15 @@ def _layer_from_flat(arrays: dict, meta: dict, device) -> dict:
                 scheme=AqlmScheme.parse(m["scheme"]), mode="int8", w8=get(f"{name}.w8"),
                 w8_scale=get(f"{name}.w8_scale"),
             )
+        elif m["kind"] == "runtime" and m["mode"] == "int4":
+            layer[name] = QuantizedLinear(
+                codes=None, codebooks=None, scales=get(f"{name}.scales"), bias=get(f"{name}.bias"),
+                scheme=AqlmScheme.parse(m["scheme"]), mode="int4", w4=get(f"{name}.w4"),
+                w4_gscale=get(f"{name}.w4_gscale"),
+            )
         elif m["kind"] == "runtime":
             if m["mode"] != "codes":
-                raise not_ported(f"materialized {m['mode']} checkpoints", "B11")
+                raise ValueError(f"unknown runtime mode {m['mode']!r} in the checkpoint")
             if f"{name}.codes_tl" not in arrays:
                 raise not_ported("codes checkpoints without the tiled layout (one-hot kernel)", "B15")
             scheme = AqlmScheme.parse(m["scheme"])

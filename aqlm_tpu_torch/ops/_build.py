@@ -68,6 +68,10 @@ KERNELS = {
         "int8_matmul", "aqlm_tpu_torch/ops/csrc/int8_matmul.cu",
         "aqlm_tpu/ops/int8_matmul.py:231", ("aqlm_tpu/ops/int8_matmul.py:85",),
     ),
+    "int4_matmul": KernelInfo(
+        "int4_matmul", "aqlm_tpu_torch/ops/csrc/int4_matmul.cu",
+        "aqlm_tpu/ops/int4_matmul.py:253", ("aqlm_tpu/ops/int4_matmul.py:178",),
+    ),
 }
 
 
@@ -146,8 +150,9 @@ def _declare(lib) -> None:
     lib.gather_prefill_launch.argtypes = [P] * 8 + [I] * 8 + [P]
     lib.flash_decode_write_launch.argtypes = [P] * 11 + [I] * 7 + [ctypes.c_float, P]
     lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 6 + [P]
+    lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 6 + [P]
     for fn in (lib.lut_gemv_launch, lib.gather_prefill_launch, lib.flash_decode_write_launch,
-               lib.int8_matmul_launch):
+               lib.int8_matmul_launch, lib.int4_matmul_launch):
         fn.restype = I
 
 

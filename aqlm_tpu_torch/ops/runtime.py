@@ -10,6 +10,10 @@ covers:
 - "int8" (W8A16): the dequantized weight re-quantized per output channel
   to int8 at load, [OUT, IN_pad] with ``aqlm_tpu``'s padding; every batch
   runs the int8 kernel (``ops/int8_matmul``);
+- "int4" (W4A16): the dequantized weight re-quantized at load to 4 bits
+  with one f32 scale per 128-column group (MSE-clipped), packed
+  block-locally as ``aqlm_tpu`` packs it; every batch runs the int4 kernel
+  (``ops/int4_matmul``);
 - "reference": plain dequantize-then-matmul, the oracle.
 
 Everything else raises ``NotImplementedError`` naming the ROADMAP item that
@@ -30,6 +34,7 @@ from aqlm_tpu_torch.ops.gather_prefill import (
     gather_prefill_matmul_grouped_indexed,
     gather_prefill_matmul_indexed,
 )
+from aqlm_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_indexed, quantize_int4
 from aqlm_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_indexed, quantize_int8
 from aqlm_tpu_torch.ops.lut_gemv import (
     LUT_GEMV_MAX_BATCH,
@@ -53,7 +58,6 @@ __all__ = [
 ]
 
 MODES = ("codes", "int8", "int4", "reference")
-PORTED_MODES = ("codes", "int8", "reference")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -77,6 +81,9 @@ class QuantizedLinear:
     int8 mode:      w8 [OUT, IN_pad] int8 (IN padded per
                     ``int8_matmul.pad_in_features``), w8_scale [OUT] f32,
                     scales ones.
+    int4 mode:      w4 [OUT, IN_pad/2] uint8 (block-local nibbles, IN
+                    padded per ``int4_matmul.pad_in_features_int4``),
+                    w4_gscale [IN_pad/128, OUT] f32, scales ones.
     bias [OUT] or None. Stacked serving params carry a leading L axis.
     """
 
@@ -89,9 +96,11 @@ class QuantizedLinear:
     codes_tl: torch.Tensor | None = None
     w8: torch.Tensor | None = None
     w8_scale: torch.Tensor | None = None
+    w4: torch.Tensor | None = None
+    w4_gscale: torch.Tensor | None = None
 
     data_fields: ClassVar[tuple] = ("codes", "codebooks", "scales", "bias", "codes_tl", "w8",
-                                    "w8_scale")
+                                    "w8_scale", "w4", "w4_gscale")
 
     @staticmethod
     def from_aqlm(w: AqlmWeight, mode: str = "codes") -> "QuantizedLinear":
@@ -109,7 +118,12 @@ class QuantizedLinear:
                                    bias=w.bias, scheme=scheme, mode=mode, w8=w8,
                                    w8_scale=w8_scale)
         if mode == "int4":
-            raise not_ported("int4 mode (W4A16)", "B11")
+            dense = dequantize_weight(w, dtype=torch.float32)
+            w4, w4_gscale = quantize_int4(dense)
+            del dense  # the f32 dense and the clip search's candidates go before the next projection
+            return QuantizedLinear(codes=None, codebooks=None, scales=torch.ones_like(scales),
+                                   bias=w.bias, scheme=scheme, mode=mode, w4=w4,
+                                   w4_gscale=w4_gscale)
         if scheme.out_group_size != 1:
             raise NotImplementedError("codes mode requires out_group_size == 1")
         if scales.ndim != 1:
@@ -130,8 +144,6 @@ class QuantizedLinear:
 
 
 def _check_ported(q: QuantizedLinear) -> None:
-    if q.mode not in PORTED_MODES:
-        raise not_ported(f"{q.mode} mode", "B11")
     if q.mode == "codes" and q.codes_tl is None:
         raise not_ported("codes mode without the tiled layout (one-hot kernel)", "B15")
 
@@ -145,6 +157,8 @@ def quantized_matmul(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
         return aqlm_matmul_reference(x, w)
     if q.mode == "int8":
         return int8_matmul(x, q.w8, q.w8_scale, q.bias)
+    if q.mode == "int4":
+        return int4_matmul(x, q.w4, q.w4_gscale, q.bias)
     g = q.scheme.in_group_size
     if _batch(x) <= LUT_GEMV_MAX_BATCH:
         return lut_gemv_kx8_tiled(x, q.codes_tl, q.codebooks, q.scales, q.bias, group=g)
@@ -165,7 +179,8 @@ def _slice_layer(q: QuantizedLinear, idx: int) -> QuantizedLinear:
     return QuantizedLinear(codes=pick(q.codes), codebooks=pick(q.codebooks),
                            scales=pick(q.scales), bias=pick(q.bias), scheme=q.scheme,
                            mode=q.mode, codes_tl=pick(q.codes_tl), w8=pick(q.w8),
-                           w8_scale=pick(q.w8_scale))
+                           w8_scale=pick(q.w8_scale), w4=pick(q.w4),
+                           w4_gscale=pick(q.w4_gscale))
 
 
 def quantized_matmul_indexed(x: torch.Tensor, iq: IndexedQuantizedLinear) -> torch.Tensor:
@@ -175,6 +190,8 @@ def quantized_matmul_indexed(x: torch.Tensor, iq: IndexedQuantizedLinear) -> tor
         return quantized_matmul(x, _slice_layer(q, iq.idx))
     if q.mode == "int8":
         return int8_matmul_indexed(x, q.w8, q.w8_scale, iq.idx, q.bias)
+    if q.mode == "int4":
+        return int4_matmul_indexed(x, q.w4, q.w4_gscale, iq.idx, q.bias)
     g = q.scheme.in_group_size
     if _batch(x) <= LUT_GEMV_MAX_BATCH:
         return lut_gemv_kx8_indexed(x, q.codes_tl, q.codebooks, q.scales, iq.idx, q.bias, group=g)

@@ -43,15 +43,15 @@ class ServeConfig:
     prefill_buckets: tuple = (64, 256, 1024)
     kv_quantized: bool = False  # int8 KV cache
     top_k: int = 0  # top-k bound for the sampler
-    fuse_projections: bool = True  # QKV / gate+up fusion of int8 and codes layers
+    fuse_projections: bool = True  # QKV / gate+up fusion of int8, int4 and codes layers
     lm_head_int8: bool = False  # int8-quantize the output head
     min_prefix: int = 16  # smallest prefix worth a copy instead of recompute
     decode_chunk: int = 1  # >1 not ported
 
 
 def serving_params(params: dict, cfg: llama.ModelConfig, serve: ServeConfig) -> dict:
-    """The Engine's load-time transforms, in ``aqlm_tpu``'s order: int8
-    fusion, codes fusion, the int8 lm_head, then stacking the layers."""
+    """The Engine's load-time transforms, in ``aqlm_tpu``'s order: int8 and
+    int4 fusion, codes fusion, the int8 lm_head, then stacking the layers."""
     if serve.fuse_projections:
         params = fuse_projections_codes(fuse_projections(params, cfg), cfg)
     if serve.lm_head_int8:
@@ -72,8 +72,8 @@ class Request:
 
 class Engine:
     """Continuous-batching engine. ``params``: Llama params (projections
-    DenseLinear or QuantizedLinear) on ``device`` (None = the card); int8 and
-    codes projections sharing an input are fused (q/k/v, gate/up), the head
+    DenseLinear or QuantizedLinear) on ``device`` (None = the card); int8,
+    int4 and codes projections sharing an input are fused (q/k/v, gate/up), the head
     quantized to int8 if asked, and every layer stacked once at
     construction (``serving_params``)."""
 

@@ -3,8 +3,9 @@ counterpart of ``aqlm_tpu.serve.fuse``, tp=1).
 
 q/k/v and gate/up share their input, so their weights concatenate along OUT
 and each group runs as ONE kernel launch (7 -> 4 per block): int8 linears
-concatenate their ``w8`` rows (``fuse_projections``), tiled codes linears
-their code tiles (``fuse_projections_codes``). ``quantize_lm_head_int8``
+concatenate their ``w8`` rows and int4 linears their ``w4`` rows and
+group-scale columns (``fuse_projections``), tiled codes linears their code
+tiles (``fuse_projections_codes``). ``quantize_lm_head_int8``
 turns the output head, the largest weight read per decode step, into an
 int8 linear. The tensor-parallel interleaved layout is ROADMAP A14.
 """
@@ -15,11 +16,12 @@ import torch
 
 from aqlm_tpu_torch.config import AqlmScheme
 from aqlm_tpu_torch.models.llama import ModelConfig
+from aqlm_tpu_torch.ops.int4_matmul import quantize_int4
 from aqlm_tpu_torch.ops.int8_matmul import quantize_int8
 from aqlm_tpu_torch.ops.runtime import FusedCodesLinear, QuantizedLinear, not_ported
 
-__all__ = ["fuse_projections", "fuse_projections_codes", "int8_linear_from_dense",
-           "quantize_lm_head_int8"]
+__all__ = ["fuse_projections", "fuse_projections_codes", "int4_linear_from_dense",
+           "int8_linear_from_dense", "quantize_lm_head_int8"]
 
 _GROUPS = (("qkv_proj", ("q_proj", "k_proj", "v_proj")), ("gateup_proj", ("gate_proj", "up_proj")))
 
@@ -55,16 +57,32 @@ def _concat_int8(lins: list[QuantizedLinear]) -> QuantizedLinear:
                            w8_scale=torch.cat([l.w8_scale for l in lins]))
 
 
+def _concat_int4(lins: list[QuantizedLinear]) -> QuantizedLinear:
+    """Concatenate bias-free int4 linears along OUT: ``w4`` rows, and the
+    ``[IN_pad/128, OUT]`` group scales along their OUT axis (axis 1)."""
+    w4 = torch.cat([l.w4 for l in lins])
+    return QuantizedLinear(codes=None, codebooks=None,
+                           scales=torch.ones((w4.shape[0],), dtype=torch.float32, device=w4.device),
+                           bias=None, scheme=lins[0].scheme, mode="int4", w4=w4,
+                           w4_gscale=torch.cat([l.w4_gscale for l in lins], dim=1))
+
+
 def fuse_projections(params: dict, cfg: ModelConfig, tp: int = 1) -> dict:
     """Replace q/k/v -> qkv_proj and gate/up -> gateup_proj where all parts
-    are int8-mode QuantizedLinear (int4 fusion comes with the int4 mode,
-    ROADMAP B11). Returns a new params dict."""
+    are int8-mode QuantizedLinear, or int4-mode ones without a bias (an int4
+    group with a bias stays unfused, as in ``aqlm_tpu``). Returns a new
+    params dict."""
     if tp != 1:
         raise not_ported("the tensor-parallel fused layout", "A14")
 
+    def fusible(lins, mode):
+        return all(isinstance(l, QuantizedLinear) and l.mode == mode for l in lins)
+
     def concat(lins):
-        if all(isinstance(l, QuantizedLinear) and l.mode == "int8" for l in lins):
+        if fusible(lins, "int8"):
             return _concat_int8(lins)
+        if fusible(lins, "int4") and all(l.bias is None for l in lins):
+            return _concat_int4(lins)
         return None
 
     return _fuse_groups(params, concat)
@@ -78,6 +96,16 @@ def int8_linear_from_dense(weight: torch.Tensor, bias=None) -> QuantizedLinear:
                            scales=torch.ones((w8.shape[0],), dtype=torch.float32, device=w8.device),
                            bias=None if bias is None else bias.float(), scheme=AqlmScheme(),
                            mode="int8", w8=w8, w8_scale=w8_scale)
+
+
+def int4_linear_from_dense(weight: torch.Tensor, bias=None) -> QuantizedLinear:
+    """Per-group int4 quantization of a dense [OUT, IN] weight, in the
+    runtime container the AQLM int4 mode uses."""
+    w4, w4_gscale = quantize_int4(weight.float())
+    return QuantizedLinear(codes=None, codebooks=None,
+                           scales=torch.ones((w4.shape[0],), dtype=torch.float32, device=w4.device),
+                           bias=None if bias is None else bias.float(), scheme=AqlmScheme(),
+                           mode="int4", w4=w4, w4_gscale=w4_gscale)
 
 
 def quantize_lm_head_int8(params: dict) -> dict:

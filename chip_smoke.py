@@ -8,20 +8,23 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the time to build the CUDA kernels from csrc/;
 2. checks: each kernel (K1 LUT-GEMV, K2 gather-prefill, K3 fused KV write +
-   flash decode, the W8A16 int8 matmul) against its plain PyTorch version on
-   the card, at the Llama-2-7B shapes of the serving paths (K1 at every
-   decode batch bucket of phase 4's ServeConfig, K2 at every prefill bucket,
-   the int8 kernel at both for the four projections and the lm_head), with
-   its time, the plain version's time, the least time the card could take
-   (bound) and, where one PyTorch call computes the same function, its time;
-3. reference: a 2-layer model at full Llama-2-7B width, in codes mode and in
-   int8 mode (int8 lm_head), kernels on the card against the plain versions
-   on the CPU, prefill and decode logits;
-4. engine: two Engine.generate runs at Llama-2-7B width and depth (32
+   flash decode, the W8A16 int8 matmul, the W4A16 int4 matmul) against its
+   plain PyTorch version on the card, at the Llama-2-7B shapes of the
+   serving paths (K1 at every decode batch bucket of phase 4's ServeConfig,
+   K2 at every prefill bucket, the int8 kernel at both for the four
+   projections and the lm_head, the int4 kernel at both for the four
+   projections), with its time, the plain version's time, the least time
+   the card could take (bound) and, where one PyTorch call computes the same
+   function, its time;
+3. reference: a 2-layer model at full Llama-2-7B width, in codes mode, in
+   int8 mode (int8 lm_head) and in int4 mode (dense head), kernels on the
+   card against the plain versions on the CPU, prefill and decode logits;
+4. engine: three Engine.generate runs at Llama-2-7B width and depth (32
    layers, random weights from a seed, int8 KV cache) on 6 prompts of
-   64-1500 tokens, 64 new tokens each, greedy: 2x8 codes, then int8 with the
-   int8 lm_head. Launch counts are reset before and read after each run;
-   each run must launch the kernels of its own path and none of the other's;
+   64-1500 tokens, 64 new tokens each, greedy: 2x8 codes, int8 with the
+   int8 lm_head, then int4 with the dense head. Launch counts are reset
+   before and read after each run; each run must launch the kernels of its
+   own path and none of the others';
 5. the kernel list, then {"ok": true, "device": {...}} as the last line.
 
 Writes chiprun_out/chip_smoke.json with every record and
@@ -245,6 +248,75 @@ def check_int8(gen, dev, failures):
     return reps
 
 
+# (name, out_features, in_features): the int4 path's launches of a block (its head is dense)
+INT4_PROJS = INT8_PROJS[:4]
+
+
+def _int4_library(w4, gscale, in_f):
+    """The same q and s in the layout of PyTorch's tinygemm W4A16 op: [OUT, IN]
+    q with adjacent columns paired in a byte, then ``_convert_weight_to_int4pack``;
+    bf16 (scale, zero) pairs [IN/128, OUT, 2] with zero 0 (its dequant is
+    (q - 8) * scale + zero)."""
+    from aqlm_tpu_torch.ops import int4_matmul as i4
+
+    q = i4.unpack_int4(w4).reshape(w4.shape[0], -1)[:, :in_f]
+    packed = (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8)
+    w_lib = torch._convert_weight_to_int4pack(packed, 8)
+    g = -(-in_f // i4.GROUP)
+    sz = torch.stack([gscale[:g], torch.zeros_like(gscale[:g])], dim=-1).to(torch.bfloat16)
+    return w_lib, sz.contiguous()
+
+
+def check_int4(gen, dev, failures):
+    from aqlm_tpu_torch.ops import int4_matmul as i4
+
+    reps = {}
+    for name, out_f, in_f in INT4_PROJS:
+        packs = [i4.quantize_int4(torch.randn((out_f, in_f), generator=gen, device=dev) * in_f ** -0.5)
+                 for _ in range(N_LAYERS_TIMED)]
+        w4 = torch.stack([p[0] for p in packs])
+        gs = torch.stack([p[1] for p in packs])
+        del packs
+        library_error = None
+        try:  # yardstick only: recorded, never on the port's path
+            lib_args = [_int4_library(w4[i], gs[i], in_f) for i in range(N_LAYERS_TIMED)]
+        except Exception as exc:
+            lib_args, library_error = None, str(exc).strip().splitlines()[0][:200]
+        for rows in sum(main_path_rows(engine_serve_config("int4")), []):
+            x = torch.randn((N_LAYERS_TIMED, rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+            run = lambda i=0: i4.launch(x[i % N_LAYERS_TIMED], w4[i % N_LAYERS_TIMED],
+                                        gs[i % N_LAYERS_TIMED])
+            plain = lambda i=0: i4.plain(x[0], w4[0], gs[0])
+            cmp = compare(run(0), plain(0))
+            ms = time_ms(run, 50)
+            plain_ms = time_ms(plain, 3)
+            n_groups = -(-in_f // i4.GROUP)
+            b_ms, b_by = bound(out_f * in_f // 2 + 4 * out_f * n_groups + rows * in_f * 2
+                               + rows * out_f * 2, 2.0 * rows * out_f * in_f)
+            library_ms, rec_error = None, library_error
+            if lib_args is not None:
+                try:
+                    library = lambda i=0: torch._weight_int4pack_mm(
+                        x[i % N_LAYERS_TIMED], lib_args[i % N_LAYERS_TIMED][0], i4.GROUP,
+                        lib_args[i % N_LAYERS_TIMED][1])
+                    library_ms = time_ms(library, 50 if rows <= 8 else 10)
+                except Exception as exc:
+                    rec_error = str(exc).strip().splitlines()[0][:200]
+            rec = {"phase": "check", "kernel": "int4_matmul", "proj": name, "rows": rows,
+                   "out_features": out_f, "in_features": in_f, "row_bytes": w4.shape[-1], **cmp,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library": "torch._weight_int4pack_mm", "library_ms": library_ms,
+                   "library_error": rec_error, "host_ms": host_ms(run)}
+            emit(rec)
+            if not cmp["ok"]:
+                failures.append(rec)
+            if name == "qkv" and rows == 4:
+                reps["int4_matmul"] = rec
+        del w4, gs, lib_args
+        torch.cuda.empty_cache()
+    return reps
+
+
 def check_k3(gen, dev, failures):
     from aqlm_tpu_torch.ops import flash_decode as fd
 
@@ -334,8 +406,8 @@ def _to(node, dev):
 
 def reference_check(cfg, dev, mode):
     """Codes: max_len 256 (flash decode: K3 on the card, its plain version on
-    the CPU). int8: the int8 lm_head, max_len 1024, where the flash rule
-    takes int8 layers too."""
+    the CPU). int8 (with the int8 lm_head) and int4 (dense head): max_len
+    1024, where the flash rule takes their layers too."""
     from aqlm_tpu_torch.config import SCHEME_2X8
     from aqlm_tpu_torch.models.quantize import random_quantized_params
     from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache
@@ -346,7 +418,7 @@ def reference_check(cfg, dev, mode):
     params = random_quantized_params(torch.Generator(device=dev).manual_seed(1), cfg2, SCHEME_2X8,
                                      mode=mode)
     serve = ServeConfig(lm_head_int8=mode == "int8")
-    max_len = 1024 if mode == "int8" else 256
+    max_len = 256 if mode == "codes" else 1024
     ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 23))
     outs = {}
     for d in (dev, torch.device("cpu")):
@@ -375,9 +447,10 @@ def reference_check(cfg, dev, mode):
 # phase 4: Engine.generate at full Llama-2-7B width and depth
 # ---------------------------------------------------------------------------
 
-# the kernels each engine run must launch; the other path's must stay at 0
+# the kernels each engine run must launch; the other paths' must stay at 0
 PATH_KERNELS = {"codes": ("lut_gemv", "gather_prefill", "flash_decode_write"),
-                "int8": ("int8_matmul", "flash_decode_write")}
+                "int8": ("int8_matmul", "flash_decode_write"),
+                "int4": ("int4_matmul", "flash_decode_write")}
 
 
 def engine_serve_config(mode):
@@ -519,6 +592,7 @@ def main() -> int:
         reps = check_k1_k2(gen, dev, failures)
         reps.update(check_k3(gen, dev, failures))
         reps.update(check_int8(gen, dev, failures))
+        reps.update(check_int4(gen, dev, failures))
     if failures:
         print(f"chip_smoke: {len(failures)} kernel checks out of tolerance", file=sys.stderr)
         return 2

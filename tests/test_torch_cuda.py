@@ -19,6 +19,7 @@ from aqlm_tpu_torch.models.quantize import random_quantized_params
 from aqlm_tpu_torch.ops import _build
 from aqlm_tpu_torch.ops import flash_decode as fd
 from aqlm_tpu_torch.ops import gather_prefill as gp
+from aqlm_tpu_torch.ops import int4_matmul as i4
 from aqlm_tpu_torch.ops import int8_matmul as im
 from aqlm_tpu_torch.ops import lut_gemv as lg
 from aqlm_tpu_torch.serve import Engine, SamplingParams, ServeConfig
@@ -132,7 +133,7 @@ def test_engine_on_the_card_launches_every_kernel(dev):
     out = engine.generate([np.arange(5), np.arange(40)], SamplingParams(max_new_tokens=4))
     assert [len(o) for o in out] == [4, 4]
     assert all(_build.KERNELS[k].launches > 0 for k in CODES_KERNELS)
-    assert _build.KERNELS["int8_matmul"].launches == 0
+    assert _build.KERNELS["int8_matmul"].launches == _build.KERNELS["int4_matmul"].launches == 0
 
 
 def _int8(gen, dev, L, out_f=520, in_f=11008):
@@ -196,4 +197,86 @@ def test_int8_engine_on_the_card_launches_its_kernels(dev):
     assert [len(o) for o in out] == [4, 4]
     launches = {k: v.launches for k, v in _build.KERNELS.items()}
     assert launches["int8_matmul"] > 0 and launches["flash_decode_write"] > 0
-    assert launches["lut_gemv"] == launches["gather_prefill"] == 0
+    assert launches["lut_gemv"] == launches["gather_prefill"] == launches["int4_matmul"] == 0
+
+
+def _int4(gen, dev, L, out_f=520, in_f=11008):
+    """Stacked int4 weights [L, OUT, IN_pad/2] quantized from random dense
+    ones (11008 -> 11264 with aqlm_tpu's padding; 1152 -> 2048, a partial
+    256-column block), group scales [L, IN_pad/128, OUT], bias."""
+    packs = [i4.quantize_int4(torch.randn((out_f, in_f), generator=gen, device=dev) * in_f ** -0.5)
+             for _ in range(L)]
+    w4 = torch.stack([p[0] for p in packs])
+    gs = torch.stack([p[1] for p in packs])
+    bias = torch.randn((L, out_f), generator=gen, device=dev)
+    return w4, gs, bias
+
+
+@pytest.mark.parametrize("in_f", [11008, 1152])
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 64, 200])
+def test_int4_matmul_kernel_matches_plain(dev, rows, in_f):
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    w4, gs, bias = _int4(gen, dev, 3, in_f=in_f)
+    x = torch.randn((rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+    before = _build.KERNELS["int4_matmul"].launches
+    got = i4.int4_matmul_indexed(x, w4, gs, 1, bias)
+    assert _build.KERNELS["int4_matmul"].launches == before + 1
+    want = i4.plain(x, w4[1], gs[1]) + bias[1].to(torch.bfloat16)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("rows", [1, 16])
+def test_int4_matmul_kernel_nibble_order(dev, rows):
+    """x = e_c gives column c of the dequantized weight, for columns in both
+    nibbles of several packing blocks."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w4, gs, _ = _int4(gen, dev, 1, out_f=256, in_f=768)
+    oracle = i4.dequantize_int4(w4[0], gs[0]).to(torch.bfloat16)
+    for col in (0, 5, 127, 128, 200, 255, 256, 383, 384, 511, 640, 767):
+        x = torch.zeros((rows, 768), dtype=torch.bfloat16, device=dev)
+        x[:, col] = 1
+        assert torch.equal(i4.int4_matmul(x, w4[0], gs[0])[0], oracle[:, col]), col
+
+
+def test_int4_matmul_kernel_is_deterministic(dev):
+    """The split-contraction reduction adds the splits in a fixed order."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w4, gs, _ = _int4(gen, dev, 1, out_f=4096)
+    for rows in (4, 64):
+        x = torch.randn((rows, 11008), generator=gen, device=dev).to(torch.bfloat16)
+        assert torch.equal(i4.int4_matmul(x, w4[0], gs[0]), i4.int4_matmul(x, w4[0], gs[0]))
+
+
+def test_int4_matmul_wrapper_raises(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w4, gs, _ = _int4(gen, dev, 1, out_f=256, in_f=1024)
+    x = torch.randn((4, 1024), generator=gen, device=dev)
+    with pytest.raises(ValueError, match="bf16"):  # f32 activations stay a CPU-plain limit
+        i4.int4_matmul(x, w4[0], gs[0])
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        i4.launch(xb, w4[0].t().contiguous().t(), gs[0])
+    with pytest.raises(ValueError, match="uint8 packed weights"):
+        i4.int4_matmul(xb, w4[0].to(torch.int8), gs[0])
+    with pytest.raises(ValueError, match="f32 group scales"):
+        i4.int4_matmul(xb, w4[0], gs[0].to(torch.bfloat16))
+    with pytest.raises(ValueError, match="does not match"):
+        i4.int4_matmul(xb, w4[0], gs[0].t().contiguous())
+
+
+def test_int4_engine_on_the_card_launches_its_kernels(dev):
+    """int4 layers run on the int4 kernel, the head is a dense product;
+    decode attention on K3 (max_len >= 1024 takes the flash rule)."""
+    cfg = llama.ModelConfig.tiny(num_layers=2, hidden_size=256, intermediate_size=256,
+                                 num_heads=4, num_kv_heads=2)
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg, SCHEME_2X8,
+                                     mode="int4")
+    engine = Engine(params, cfg, ServeConfig(max_batch=2, max_len=1024, prefill_buckets=(16, 32),
+                                             kv_quantized=True))
+    assert engine.params["layers"]["qkv_proj"].mode == "int4"
+    _build.reset_launch_counts()
+    out = engine.generate([np.arange(5), np.arange(40)], SamplingParams(max_new_tokens=4))
+    assert [len(o) for o in out] == [4, 4]
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    assert launches["int4_matmul"] > 0 and launches["flash_decode_write"] > 0
+    assert launches["lut_gemv"] == launches["gather_prefill"] == launches["int8_matmul"] == 0

@@ -167,7 +167,6 @@ def test_flash_decode_write_attention_matches_jax(quantized, window):
 
 
 @pytest.mark.parametrize("mode,scheme,out_f,item", [
-    ("int4", "2x8g8", 128, "B11"),
     ("codes", "1x16g8", 128, "B1"), ("codes", "2x8g8", 64, "B15"),
 ])
 def test_unported_modes_raise(mode, scheme, out_f, item):
