@@ -2,11 +2,12 @@
 
 ``params_from_numpy`` takes a nested structure of dicts, lists and numpy
 arrays in which each weight object is a dict with a ``"__class__"`` key
-(``"QuantizedLinear"``, ``"DenseLinear"`` or ``"FusedCodesLinear"``) and
-its fields, the scheme given by name (``"2x8g8"``); a QuantizedLinear is
-in reference, codes (tiled), int8 or int4 mode. A bf16 array arrives as
-its uint16 view wrapped in ``{"__bf16__": array}`` and becomes
-``torch.bfloat16``. Tiled codes copy across as they are.
+(``"QuantizedLinear"``, ``"DenseLinear"``, ``"FusedCodesLinear"`` or
+``"StackedInt8Experts"``) and its fields, the scheme given by name
+(``"2x8g8"``); a QuantizedLinear is in reference, codes (tiled), int8 or
+int4 mode. A bf16 array arrives as its uint16 view wrapped in
+``{"__bf16__": array}`` and becomes ``torch.bfloat16``. Tiled codes copy
+across as they are.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from aqlm_tpu_torch.config import AqlmScheme
 from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.models.common import DenseLinear
+from aqlm_tpu_torch.models.mixtral import StackedInt8Experts
 from aqlm_tpu_torch.ops.runtime import FusedCodesLinear, QuantizedLinear, not_ported
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
@@ -40,6 +42,8 @@ def _convert(node, dev):
         t = lambda k: None if node.get(k) is None else tensor_from_numpy(node[k], dev)
         if kind == "DenseLinear":
             return DenseLinear(weight=t("weight"), bias=t("bias"))
+        if kind == "StackedInt8Experts":
+            return StackedInt8Experts(w8=t("w8"), scale=t("scale"))
         scheme = AqlmScheme.parse(node["scheme"])
         if kind == "FusedCodesLinear":
             return FusedCodesLinear(codes_tl=t("codes_tl"), codebooks=t("codebooks"),

@@ -6,7 +6,9 @@ norm, lm_head) and one ``layer_{i}.npz`` per block with flat
 ``name.field -> array`` entries. bf16 arrays are stored as a uint16 view
 under a ``::bf16``-suffixed key. Layers are canonical AQLM weights
 (reference mode) or materialized runtime layouts; of the latter the port
-reads the tiled codes-mode, the int8 and the int4 layouts.
+reads the tiled codes-mode, the int8 and the int4 layouts. ``model_family``
+in ``config.json`` picks the config class (Llama or Mixtral; a Mixtral's
+experts are flat ``experts.{e}.*`` layer entries like any projection).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from aqlm_tpu_torch.config import AqlmScheme
 from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.models.common import DenseLinear
+from aqlm_tpu_torch.models.family import config_class
 from aqlm_tpu_torch.models.llama import ModelConfig
 from aqlm_tpu_torch.ops.dequant import AqlmWeight
 from aqlm_tpu_torch.ops.runtime import QuantizedLinear, not_ported
@@ -97,17 +100,15 @@ def load_layer_checkpoint(save_dir: str, layer_index: int, device=None):
 
 
 def load_quantized_model(save_dir: str, device=None) -> tuple[dict, ModelConfig]:
-    """(params, cfg) of a Llama-family checkpoint, on ``device`` (None = the card)."""
+    """(params, cfg) of a Llama or Mixtral checkpoint, on ``device`` (None =
+    the card)."""
     dev = resolve_device(device)
     with open(os.path.join(save_dir, "config.json")) as f:
         config = json.load(f)
-    family = config.get("model_family", "llama")
-    if family != "llama":
-        raise not_ported(f"the {family} family", "A9")
     mc = dict(config["model_config"])
     if mc.get("rope_scaling") is not None:
         mc["rope_scaling"] = tuple(mc["rope_scaling"])
-    cfg = ModelConfig(**mc)
+    cfg = config_class(config.get("model_family", "llama"))(**mc)
     data = _loadz(os.path.join(save_dir, "shared.npz"))
     lm_head = None
     if "lm_head.weight" in data:

@@ -1,6 +1,7 @@
-"""Model definitions of the port: the Llama family and its stacked serving form."""
+"""Model definitions of the port: the Llama and Mixtral families, the family
+registry, and the stacked serving form."""
 
-from aqlm_tpu_torch.models import llama
+from aqlm_tpu_torch.models import family, llama, mixtral
 from aqlm_tpu_torch.models.common import (
     DenseLinear,
     apply_linear,
@@ -12,7 +13,9 @@ from aqlm_tpu_torch.models.common import (
 )
 
 __all__ = [
+    "family",
     "llama",
+    "mixtral",
     "DenseLinear",
     "apply_linear",
     "attention",

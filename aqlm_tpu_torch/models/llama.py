@@ -136,7 +136,8 @@ def init_random_params(generator: torch.Generator, cfg: ModelConfig, dtype=torch
     )
 
 
-def _block(x, layer, cfg: ModelConfig, positions):
+def attention_half(x, layer, cfg: ModelConfig, positions):
+    """The block's attention half without a cache: x + o_proj(attention)."""
     b, t, _ = x.shape
     d = cfg.dim_per_head
     res = x
@@ -146,9 +147,11 @@ def _block(x, layer, cfg: ModelConfig, positions):
     v = apply_linear(x, layer["v_proj"]).reshape(b, t, cfg.num_kv_heads, d)
     q, k = rope(q, k, positions, cfg.rope_theta, scaling=cfg.rope_scaling)
     attn = attention(q, k, v, make_causal_mask(positions, positions, window=cfg.sliding_window))
-    x = res + apply_linear(attn.reshape(b, t, -1), layer["o_proj"])
+    return res + apply_linear(attn.reshape(b, t, -1), layer["o_proj"])
 
-    res = x
+
+def _block(x, layer, cfg: ModelConfig, positions):
+    res = x = attention_half(x, layer, cfg, positions)
     xn = rms_norm(x, layer["post_attn_norm"], cfg.rms_eps, plus_one=cfg.gemma_norm)
     gate = apply_linear(xn, layer["gate_proj"])
     up = apply_linear(xn, layer["up_proj"])

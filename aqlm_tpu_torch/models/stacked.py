@@ -1,12 +1,14 @@
 """Stacked-layer model execution and the quantizable KV cache: the serving form.
 
-PyTorch counterpart of ``aqlm_tpu.models.stacked`` for the Llama family.
-Identical blocks are stacked into one set of tensors with a leading layer
-axis; ``forward_stacked`` runs a Python loop over layers and hands the
-kernels the stacked weights plus a layer index, so nothing is copied per
-layer. The KV cache is a preallocated head-major [L, B, H_kv, max_len, D]
-ring in bf16, or in int8 with per-(token, head) f32 scales, and is UPDATED
-IN PLACE: ``forward_stacked`` returns the cache object it was given.
+PyTorch counterpart of ``aqlm_tpu.models.stacked`` for the Llama and
+Mixtral families. Identical blocks are stacked into one set of tensors with
+a leading layer axis; ``forward_stacked`` runs a Python loop over layers and
+hands the kernels the stacked weights plus a layer index, so nothing is
+copied per layer. A Mixtral block's stacked experts ([L, E, ...]) go whole
+to the all-expert kernel with the layer index. The KV cache is a
+preallocated head-major [L, B, H_kv, max_len, D] ring in bf16, or in int8
+with per-(token, head) f32 scales, and is UPDATED IN PLACE:
+``forward_stacked`` returns the cache object it was given.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import dataclasses
 import torch
 
 from aqlm_tpu_torch.device import resolve_device
-from aqlm_tpu_torch.models import llama
+from aqlm_tpu_torch.models import family, llama, mixtral
 from aqlm_tpu_torch.models.common import (
     DenseLinear,
     apply_linear,
@@ -32,7 +34,6 @@ from aqlm_tpu_torch.ops.runtime import (
     IndexedFusedCodesLinear,
     IndexedQuantizedLinear,
     QuantizedLinear,
-    not_ported,
 )
 
 __all__ = ["KVCache", "init_kv_cache", "stack_layer_params", "forward_stacked"]
@@ -97,10 +98,19 @@ def _stack(vals):
     raise TypeError(f"cannot stack {type(v0).__name__}")
 
 
-def stack_layer_params(params: dict) -> dict:
-    """Stack the per-layer dicts into one dict of [L, ...] leaves."""
+def stack_layer_params(params: dict, donate: bool = False) -> dict:
+    """Stack the per-layer dicts into one dict of [L, ...] leaves.
+
+    ``donate=True`` stacks leaf by leaf and drops each leaf from the
+    per-layer dicts once its stacked copy exists: the peak is the model plus
+    its largest stacked leaf, not twice the model."""
     layers = params["layers"]
-    stacked = {name: _stack([l[name] for l in layers]) for name in layers[0]}
+    stacked = {}
+    for name in list(layers[0]):
+        stacked[name] = _stack([l[name] for l in layers])
+        if donate:
+            for l in layers:
+                l[name] = None
     return {**params, "layers": stacked}
 
 
@@ -143,19 +153,19 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor, offsets: list) -> None:
 def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tensor, *,
                     cache: KVCache | None = None, cache_offset=0,
                     positions: torch.Tensor | None = None):
-    """Causal LM forward over stacked layers. Returns (logits, cache).
+    """Causal LM forward over stacked layers (Llama or Mixtral blocks).
+    Returns (logits, cache).
 
     With a cache, K/V are written IN PLACE at [offset, offset + T) of each
     row (``cache_offset``: int or [B] int tensor) and queries attend over
     positions <= their own. Single-token steps run the fused write + flash
     attention kernel (K3) when max_len % 128 == 0 and either a codes-mode
     layer is present or max_len >= 1024; otherwise attention is the
-    plain head-major attention over the cache."""
-    if type(cfg) is not llama.ModelConfig:
-        raise not_ported(f"the {type(cfg).__name__} family", "A9")
+    plain head-major attention over the cache. A sparse-MoE block runs its
+    stacked experts through ``mixtral.moe_mlp_stacked_indexed`` or, left
+    per expert, through the per-expert loop over layer views."""
+    family.family_name(cfg)  # raises for a family the port has not got (A9)
     stacked_layers = params["layers"]
-    if "moe_gate" in stacked_layers:
-        raise not_ported("sparse-MoE blocks (mixtral)", "A9 and B12")
     b, t = input_ids.shape
     dev = input_ids.device
     offsets = torch.as_tensor(cache_offset, dtype=torch.int32, device=dev).expand(b).contiguous()
@@ -185,7 +195,9 @@ def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tenso
         mask = make_causal_mask(positions, positions, window=cfg.sliding_window)
 
     for i in range(cfg.num_layers):
-        layer = {n: _layer_view(v, i) for n, v in stacked_layers.items()}
+        # stacked experts are read in place by the all-expert kernel
+        layer = {n: _layer_view(v, i) for n, v in stacked_layers.items()
+                 if not n.startswith("experts_")}
         res = x
         xn = rms_norm(x, layer["input_norm"], cfg.rms_eps, plus_one=cfg.gemma_norm)
         if "qkv_proj" in layer:
@@ -236,6 +248,12 @@ def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tenso
         x = res + apply_linear(attn.reshape(b, t, -1), layer["o_proj"])
         res = x
         xn = rms_norm(x, layer["post_attn_norm"], cfg.rms_eps, plus_one=cfg.gemma_norm)
+        if "moe_gate" in layer:
+            if "experts_gate_proj" in stacked_layers:
+                x = res + mixtral.moe_mlp_stacked_indexed(xn, layer, stacked_layers, i, cfg)
+            else:
+                x = res + mixtral._moe_mlp(xn, layer, cfg)
+            continue
         if "gateup_proj" in layer:
             gate, up = apply_linear(xn, layer["gateup_proj"]).chunk(2, dim=-1)
         else:

@@ -72,6 +72,11 @@ KERNELS = {
         "int4_matmul", "aqlm_tpu_torch/ops/csrc/int4_matmul.cu",
         "aqlm_tpu/ops/int4_matmul.py:253", ("aqlm_tpu/ops/int4_matmul.py:178",),
     ),
+    # the int8 kernel over all experts at once: its own wrapper and count
+    "int8_moe_matmul": KernelInfo(
+        "int8_moe_matmul", "aqlm_tpu_torch/ops/csrc/int8_matmul.cu",
+        "aqlm_tpu/ops/int8_matmul.py:371", ("aqlm_tpu/ops/int8_matmul.py:294",),
+    ),
 }
 
 
@@ -149,7 +154,7 @@ def _declare(lib) -> None:
     lib.lut_gemv_launch.argtypes = [P] * 8 + [I] * 10 + [P]
     lib.gather_prefill_launch.argtypes = [P] * 8 + [I] * 8 + [P]
     lib.flash_decode_write_launch.argtypes = [P] * 11 + [I] * 7 + [ctypes.c_float, P]
-    lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 6 + [P]
+    lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 8 + [P]
     lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 6 + [P]
     for fn in (lib.lut_gemv_launch, lib.gather_prefill_launch, lib.flash_decode_write_launch,
                lib.int8_matmul_launch, lib.int4_matmul_launch):

@@ -1,10 +1,13 @@
 // W8A16 matmul: y[t, o] = bf16( w_scale[o] * sum_i x[t, i] * w8[o, i] ).
 //
 // Replaces the TPU kernels of aqlm_tpu/ops/int8_matmul.py: int8_matmul
-// (_call, pallas_call at :85; the int8 lm_head) and int8_matmul_indexed
-// (_call_indexed, :231; every projection of the stacked layers). One kernel
-// source covers both: the layer index is a pointer offset applied by the
-// caller. The TPU kernel streams int8 tiles into VMEM and widens them to bf16
+// (_call, pallas_call at :85; the int8 lm_head), int8_matmul_indexed
+// (_call_indexed, :231; every projection of the stacked layers) and the
+// all-expert MoE forms int8_moe_matmul (_call_moe, :294) and
+// int8_moe_matmul_indexed (_call_moe_indexed, :371; Mixtral's expert
+// projections). One kernel source covers all four: the layer index is a
+// pointer offset applied by the caller, and the expert is one more grid axis
+// (E = 1 for a single matrix). The TPU kernel streams int8 tiles into VMEM and widens them to bf16
 // in registers so that each weight byte leaves HBM once; the same aim holds
 // here. The bias is added outside, after the cast, as the JAX wrapper does.
 //
@@ -42,6 +45,19 @@
 //   Where the output tiles alone would not fill the card twice, the
 //   contraction is split over blocks, reduced as on the decode path. A
 //   wgmma/TMA pipeline with warp specialisation is later work.
+//
+// All experts (MoE): w8 [E, OUT, ld], w_scale [E, OUT], out [E, T, OUT]; x is
+// [T, in_features] shared by every expert (gate and up) or [E, T,
+// in_features], one slab per expert (down). One launch covers every expert:
+// the expert is the decode grid's z axis and is folded with the splits into
+// the prefill grid's z axis; each block offsets its pointers by its expert,
+// and split partial sums and tickets are per expert, so the last-block
+// reduction never mixes experts. Mixtral-8x7B decode at T = 4 reads 470 MB
+// of gate weights (0.14 ms at 3.35 TB/s): the same byte-bound GEMV, with
+// E times the blocks. The expert axis is a template flag (MOE): a single
+// matrix runs the kernels compiled without it, so its registers and code stay
+// those of the one-matrix kernel (compiled in, the offsets took the T = 1
+// GEMV from 64 registers to 94 and its split-K launches 11-13% slower).
 #include <mma.h>
 
 #include "common.cuh"
@@ -94,17 +110,30 @@ constexpr int GV_STEPS = GV_CHUNK / GV_STEP;
 // a 16-byte shared-memory phase then fall on eight different bank groups
 __device__ __forceinline__ int swz(int q) { return q ^ ((q >> 3) & 3); }
 
-template <int B>
+template <int B, bool MOE>
 __global__ void __launch_bounds__(GV_THREADS)
-int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,  // [B, in_features]
-                 const int8_t* __restrict__ w8,         // [OUT, ld] of one layer
-                 const float* __restrict__ w_scale,     // [OUT]
-                 __nv_bfloat16* __restrict__ out,       // [B, OUT]
-                 float* __restrict__ partials,          // [splits, B, OUT] when split
-                 int* __restrict__ tickets,             // [gridDim.x] zeroed, when split
-                 int out_features, int in_features, int ld, int cols_per_split) {
+int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,  // [B, in_features], or [E, B, ...]
+                 const int8_t* __restrict__ w8,         // [E, OUT, ld] of one layer
+                 const float* __restrict__ w_scale,     // [E, OUT]
+                 __nv_bfloat16* __restrict__ out,       // [E, B, OUT]
+                 float* __restrict__ partials,          // [E, splits, B, OUT] when split
+                 int* __restrict__ tickets,             // [E, gridDim.x] zeroed, when split
+                 int out_features, int in_features, int ld, int cols_per_split,
+                 int x_per_expert) {
   __shared__ __align__(16) float s_x[B][GV_CHUNK];
   __shared__ int s_last;
+
+  if (MOE) {  // the expert (blockIdx.z) is a pointer offset
+    const size_t ex = blockIdx.z;
+    x += x_per_expert ? ex * B * in_features : 0;
+    w8 += ex * out_features * ld;
+    w_scale += ex * out_features;
+    out += ex * B * out_features;
+    if (gridDim.y > 1) {
+      partials += ex * gridDim.y * B * out_features;
+      tickets += ex * gridDim.x;
+    }
+  }
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int row0 = blockIdx.x * GV_ROWS + warp * GV_R;
@@ -235,14 +264,16 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,  // [B, in_features]
   }
 }
 
-template <int B>
+template <int B, bool MOE>
 cudaError_t gemv_launch(const void* x, const void* w8, const void* w_scale, void* out,
-                        void* partials, void* tickets, int splits, int cols_per_split,
-                        int out_features, int in_features, int ld, cudaStream_t stream) {
-  const dim3 grid((out_features + GV_ROWS - 1) / GV_ROWS, splits);
-  int8_gemv_kernel<B><<<grid, GV_THREADS, 0, stream>>>(
+                        void* partials, void* tickets, int experts, int x_per_expert, int splits,
+                        int cols_per_split, int out_features, int in_features, int ld,
+                        cudaStream_t stream) {
+  const dim3 grid((out_features + GV_ROWS - 1) / GV_ROWS, splits, experts);
+  int8_gemv_kernel<B, MOE><<<grid, GV_THREADS, 0, stream>>>(
       (const __nv_bfloat16*)x, (const int8_t*)w8, (const float*)w_scale, (__nv_bfloat16*)out,
-      (float*)partials, (int*)tickets, out_features, in_features, ld, cols_per_split);
+      (float*)partials, (int*)tickets, out_features, in_features, ld, cols_per_split,
+      x_per_expert);
   return cudaGetLastError();
 }
 
@@ -278,23 +309,40 @@ struct GemmSmem {  // byte offsets in the dynamic shared memory
   }
 };
 
+template <bool MOE>
 __global__ void __launch_bounds__(GT, 2)
-int8_gemm_kernel(const __nv_bfloat16* __restrict__ x,  // [T, in_features]
-                 const int8_t* __restrict__ w8,         // [OUT, ld] of one layer
-                 const float* __restrict__ w_scale,     // [OUT]
-                 __nv_bfloat16* __restrict__ out,       // [T, OUT]
-                 float* __restrict__ partials,          // [splits, Tpad, OUT] when split
-                 int* __restrict__ tickets,             // [row tiles * col tiles] zeroed
-                 int T, int out_features, int in_features, int ld, int cols_per_split) {
+int8_gemm_kernel(const __nv_bfloat16* __restrict__ x,  // [T, in_features], or [E, T, ...]
+                 const int8_t* __restrict__ w8,         // [E, OUT, ld] of one layer
+                 const float* __restrict__ w_scale,     // [E, OUT]
+                 __nv_bfloat16* __restrict__ out,       // [E, T, OUT]
+                 float* __restrict__ partials,          // [E, splits, Tpad, OUT] when split
+                 int* __restrict__ tickets,             // [E, row tiles * col tiles] zeroed
+                 int T, int out_features, int in_features, int ld, int cols_per_split,
+                 int splits, int x_per_expert) {
   extern __shared__ __align__(128) unsigned char smem[];
   const GemmSmem L;
   __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
   int& s_last = *reinterpret_cast<int*>(smem + L.flag);
 
+  // z = expert * splits + split with MOE, the split alone without
+  const int n_splits = MOE ? splits : (int)gridDim.z;
+  const int split = MOE ? (int)blockIdx.z % splits : (int)blockIdx.z;
+  if (MOE) {  // the expert is a pointer offset
+    const size_t ex = blockIdx.z / splits;
+    x += x_per_expert ? ex * T * in_features : 0;
+    w8 += ex * out_features * ld;
+    w_scale += ex * out_features;
+    out += ex * T * out_features;
+    if (splits > 1) {
+      partials += ex * splits * gridDim.y * BM * out_features;
+      tickets += ex * gridDim.y * gridDim.x;
+    }
+  }
+
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int col0 = blockIdx.x * BN;  // first output row of W (output column of y)
   const int row0 = blockIdx.y * BM;  // first token
-  const int k_begin = blockIdx.z * cols_per_split;
+  const int k_begin = split * cols_per_split;
   const int k_end = min(in_features, k_begin + cols_per_split);
   const int n_slabs = (k_end - k_begin + BK - 1) / BK;
 
@@ -370,7 +418,7 @@ int8_gemm_kernel(const __nv_bfloat16* __restrict__ x,  // [T, in_features]
   }
 
   float* epi = reinterpret_cast<float*>(smem + L.epi) + warp * 256;
-  if (gridDim.z > 1) {
+  if (n_splits > 1) {
     // split contraction: park the f32 partial tile, the last block sums
     const int t_pad = gridDim.y * BM;
 #pragma unroll
@@ -383,14 +431,14 @@ int8_gemm_kernel(const __nv_bfloat16* __restrict__ x,  // [T, in_features]
           const int o = col0 + wn * 32 + j * 16 + e % 16;
           const int row = row0 + wm * 64 + i * 16 + e / 16;
           if (o < out_features)
-            partials[((size_t)blockIdx.z * t_pad + row) * out_features + o] = epi[e];
+            partials[((size_t)split * t_pad + row) * out_features + o] = epi[e];
         }
         __syncwarp();
       }
     __threadfence();
     __syncthreads();
     if (tid == 0)
-      s_last = atomicAdd(tickets + blockIdx.y * gridDim.x + blockIdx.x, 1) == (int)gridDim.z - 1;
+      s_last = atomicAdd(tickets + blockIdx.y * gridDim.x + blockIdx.x, 1) == n_splits - 1;
     __syncthreads();
     if (!s_last) return;
     __threadfence();
@@ -398,7 +446,7 @@ int8_gemm_kernel(const __nv_bfloat16* __restrict__ x,  // [T, in_features]
       const int r = e / BN, o = col0 + e % BN;
       if (row0 + r >= T || o >= out_features) continue;
       float v = 0.f;
-      for (int z = 0; z < (int)gridDim.z; ++z)
+      for (int z = 0; z < n_splits; ++z)
         v += __ldcg(partials + ((size_t)z * t_pad + row0 + r) * out_features + o);
       out[(size_t)(row0 + r) * out_features + o] = __float2bfloat16(v * w_scale[o]);
     }
@@ -422,49 +470,67 @@ int8_gemm_kernel(const __nv_bfloat16* __restrict__ x,  // [T, in_features]
     }
 }
 
+template <bool MOE>
 cudaError_t gemm_launch(const void* x, const void* w8, const void* w_scale, void* out,
-                        void* partials, void* tickets, int T, int splits, int cols_per_split,
-                        int out_features, int in_features, int ld, cudaStream_t stream) {
+                        void* partials, void* tickets, int experts, int x_per_expert, int T,
+                        int splits, int cols_per_split, int out_features, int in_features,
+                        int ld, cudaStream_t stream) {
   const GemmSmem L;
-  static size_t smem_set = 0;
+  static size_t smem_set = 0;  // one per instantiation
   if (L.total != smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(int8_gemm_kernel,
+    cudaError_t e = cudaFuncSetAttribute(int8_gemm_kernel<MOE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
     if (e != cudaSuccess) return e;
     smem_set = L.total;
   }
-  const dim3 grid((out_features + BN - 1) / BN, (T + BM - 1) / BM, splits);
-  int8_gemm_kernel<<<grid, GT, L.total, stream>>>(
+  const dim3 grid((out_features + BN - 1) / BN, (T + BM - 1) / BM, splits * experts);
+  int8_gemm_kernel<MOE><<<grid, GT, L.total, stream>>>(
       (const __nv_bfloat16*)x, (const int8_t*)w8, (const float*)w_scale, (__nv_bfloat16*)out,
-      (float*)partials, (int*)tickets, T, out_features, in_features, ld, cols_per_split);
+      (float*)partials, (int*)tickets, T, out_features, in_features, ld, cols_per_split, splits,
+      x_per_expert);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// T <= 8 runs the decode path, more rows the prefill path. splits > 1 splits
-// the contraction into runs of cols_per_split columns (a multiple of 1024 on
-// the decode path, of 64 on the prefill path); partials and tickets are then
-// required: decode [splits, T, OUT] f32 and [ceil(OUT/32)] int32, prefill
-// [splits, ceil(T/128)*128, OUT] f32 and [ceil(T/128) * ceil(OUT/128)] int32,
-// tickets zeroed.
-extern "C" int int8_matmul_launch(const void* x, const void* w8, const void* w_scale, void* out,
-                                  void* partials, void* tickets, int T, int splits,
-                                  int cols_per_split, int out_features, int in_features, int ld,
-                                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+template <bool MOE>
+int dispatch(const void* x, const void* w8, const void* w_scale, void* out, void* partials,
+             void* tickets, int experts, int x_per_expert, int T, int splits, int cols_per_split,
+             int out_features, int in_features, int ld, cudaStream_t st) {
   if (T > 8)
-    return gemm_launch(x, w8, w_scale, out, partials, tickets, T, splits, cols_per_split,
-                       out_features, in_features, ld, st);
-#define AQLM_INT8_CASE(NB)                                                                   \
-  case NB:                                                                                   \
-    return gemv_launch<NB>(x, w8, w_scale, out, partials, tickets, splits, cols_per_split,  \
-                           out_features, in_features, ld, st);
+    return gemm_launch<MOE>(x, w8, w_scale, out, partials, tickets, experts, x_per_expert, T,
+                            splits, cols_per_split, out_features, in_features, ld, st);
+#define AQLM_INT8_CASE(NB)                                                                    \
+  case NB:                                                                                    \
+    return gemv_launch<NB, MOE>(x, w8, w_scale, out, partials, tickets, experts, x_per_expert, \
+                                splits, cols_per_split, out_features, in_features, ld, st);
   switch (T) {
     AQLM_INT8_CASE(1) AQLM_INT8_CASE(2) AQLM_INT8_CASE(3) AQLM_INT8_CASE(4)
     AQLM_INT8_CASE(5) AQLM_INT8_CASE(6) AQLM_INT8_CASE(7) AQLM_INT8_CASE(8)
     default: return cudaErrorInvalidValue;
   }
 #undef AQLM_INT8_CASE
+}
+
+}  // namespace
+
+// T <= 8 runs the decode path, more rows the prefill path. w8 [E, OUT, ld],
+// w_scale [E, OUT], out [E, T, OUT]; x [T, in_features] shared by the
+// experts (x_per_expert = 0) or [E, T, in_features]; E = 1 for one matrix.
+// splits > 1 splits the contraction into runs of cols_per_split columns (a
+// multiple of 1024 on the decode path, of 64 on the prefill path); partials
+// and tickets are then required: decode [E, splits, T, OUT] f32 and
+// [E, ceil(OUT/16)] int32, prefill [E, splits, ceil(T/128)*128, OUT] f32 and
+// [E, ceil(T/128) * ceil(OUT/128)] int32, tickets zeroed.
+extern "C" int int8_matmul_launch(const void* x, const void* w8, const void* w_scale, void* out,
+                                  void* partials, void* tickets, int experts, int x_per_expert,
+                                  int T, int splits, int cols_per_split, int out_features,
+                                  int in_features, int ld, void* stream) {
+  if (experts < 1 || splits < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (experts > 1)
+    return dispatch<true>(x, w8, w_scale, out, partials, tickets, experts, x_per_expert, T,
+                          splits, cols_per_split, out_features, in_features, ld, st);
+  // one matrix (or one expert) needs no offsets: the kernels compiled without them
+  return dispatch<false>(x, w8, w_scale, out, partials, tickets, 1, 0, T, splits, cols_per_split,
+                         out_features, in_features, ld, st);
 }

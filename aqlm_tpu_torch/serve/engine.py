@@ -23,9 +23,9 @@ import numpy as np
 import torch
 
 from aqlm_tpu_torch.device import resolve_device
-from aqlm_tpu_torch.models import llama
+from aqlm_tpu_torch.models import llama, mixtral
 from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache, stack_layer_params
-from aqlm_tpu_torch.ops.runtime import not_ported
+from aqlm_tpu_torch.ops.runtime import QuantizedLinear, not_ported
 from aqlm_tpu_torch.serve.fuse import (
     fuse_projections,
     fuse_projections_codes,
@@ -45,18 +45,32 @@ class ServeConfig:
     top_k: int = 0  # top-k bound for the sampler
     fuse_projections: bool = True  # QKV / gate+up fusion of int8, int4 and codes layers
     lm_head_int8: bool = False  # int8-quantize the output head
+    donate_params: bool = False  # free the caller's params during load (big models)
     min_prefix: int = 16  # smallest prefix worth a copy instead of recompute
     decode_chunk: int = 1  # >1 not ported
 
 
 def serving_params(params: dict, cfg: llama.ModelConfig, serve: ServeConfig) -> dict:
     """The Engine's load-time transforms, in ``aqlm_tpu``'s order: int8 and
-    int4 fusion, codes fusion, the int8 lm_head, then stacking the layers."""
+    int4 fusion, codes fusion, the int8 lm_head, a Mixtral's int8 experts
+    stacked into all-expert operands, then stacking the layers. With
+    ``serve.donate_params`` every step frees the caller's copy as it goes,
+    so a model near the card's size loads with one stacked leaf of headroom."""
+    donate = serve.donate_params
     if serve.fuse_projections:
-        params = fuse_projections_codes(fuse_projections(params, cfg), cfg)
+        params = fuse_projections_codes(fuse_projections(params, cfg, donate=donate), cfg,
+                                        donate=donate)
     if serve.lm_head_int8:
         params = quantize_lm_head_int8(params)
-    return stack_layer_params(params)
+    layers = params["layers"]
+    if layers and "moe_gate" in layers[0]:
+        # int8 (and, once ported, int4) experts: one all-expert launch per
+        # projection; codes and reference experts run per expert
+        e0 = layers[0].get("experts.0.gate_proj")
+        if isinstance(e0, QuantizedLinear) and e0.mode in ("int8", "int4"):
+            params = {**params, "layers": [mixtral.stack_experts(l, cfg, donate=donate)
+                                           for l in layers]}
+    return stack_layer_params(params, donate=donate)
 
 
 @dataclasses.dataclass
@@ -71,11 +85,12 @@ class Request:
 
 
 class Engine:
-    """Continuous-batching engine. ``params``: Llama params (projections
-    DenseLinear or QuantizedLinear) on ``device`` (None = the card); int8,
-    int4 and codes projections sharing an input are fused (q/k/v, gate/up), the head
-    quantized to int8 if asked, and every layer stacked once at
-    construction (``serving_params``)."""
+    """Continuous-batching engine. ``params``: Llama or Mixtral params
+    (projections DenseLinear or QuantizedLinear) on ``device`` (None = the
+    card); int8, int4 and codes projections sharing an input are fused
+    (q/k/v, gate/up), the head quantized to int8 if asked, a Mixtral's int8
+    experts stacked, and every layer stacked once at construction
+    (``serving_params``)."""
 
     def __init__(self, params: dict, cfg: llama.ModelConfig, serve: ServeConfig = ServeConfig(),
                  *, device=None, draft_params: dict | None = None):

@@ -26,12 +26,15 @@ __all__ = ["fuse_projections", "fuse_projections_codes", "int4_linear_from_dense
 _GROUPS = (("qkv_proj", ("q_proj", "k_proj", "v_proj")), ("gateup_proj", ("gate_proj", "up_proj")))
 
 
-def _fuse_groups(params: dict, concat) -> dict:
+def _fuse_groups(params: dict, concat, donate: bool) -> dict:
     """Replace each group of ``_GROUPS`` by its fused linear where ``concat``
-    returns one (None leaves the group as it is). Returns a new params dict."""
+    returns one (None leaves the group as it is). Returns a new params dict;
+    ``donate=True`` edits the layer dicts in place, so each group's parts
+    are freed as its fused copy appears. Other keys (a Mixtral's
+    ``experts.*``) stay as they are."""
     new_layers = []
     for orig in params["layers"]:
-        layer = dict(orig)
+        layer = orig if donate else dict(orig)
         for fused, names in _GROUPS:
             f = concat([layer.get(n) for n in names])
             if f is None:
@@ -67,11 +70,12 @@ def _concat_int4(lins: list[QuantizedLinear]) -> QuantizedLinear:
                            w4_gscale=torch.cat([l.w4_gscale for l in lins], dim=1))
 
 
-def fuse_projections(params: dict, cfg: ModelConfig, tp: int = 1) -> dict:
+def fuse_projections(params: dict, cfg: ModelConfig, donate: bool = False, tp: int = 1) -> dict:
     """Replace q/k/v -> qkv_proj and gate/up -> gateup_proj where all parts
     are int8-mode QuantizedLinear, or int4-mode ones without a bias (an int4
     group with a bias stays unfused, as in ``aqlm_tpu``). Returns a new
-    params dict."""
+    params dict; ``donate=True`` drops the parts from the caller's layer
+    dicts as each fused copy materializes."""
     if tp != 1:
         raise not_ported("the tensor-parallel fused layout", "A14")
 
@@ -85,7 +89,7 @@ def fuse_projections(params: dict, cfg: ModelConfig, tp: int = 1) -> dict:
             return _concat_int4(lins)
         return None
 
-    return _fuse_groups(params, concat)
+    return _fuse_groups(params, concat, donate)
 
 
 def int8_linear_from_dense(weight: torch.Tensor, bias=None) -> QuantizedLinear:
@@ -139,7 +143,9 @@ def _codes_fusible(lins) -> bool:
     )
 
 
-def fuse_projections_codes(params: dict, cfg: ModelConfig) -> dict:
+def fuse_projections_codes(params: dict, cfg: ModelConfig, donate: bool = False) -> dict:
     """Replace q/k/v -> qkv_proj and gate/up -> gateup_proj where all parts
-    are tiled codes-mode QuantizedLinear. Returns a new params dict."""
-    return _fuse_groups(params, lambda lins: _concat_codes(lins) if _codes_fusible(lins) else None)
+    are tiled codes-mode QuantizedLinear. Returns a new params dict
+    (``donate`` as in ``fuse_projections``)."""
+    return _fuse_groups(params, lambda lins: _concat_codes(lins) if _codes_fusible(lins) else None,
+                        donate)

@@ -8,23 +8,29 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the time to build the CUDA kernels from csrc/;
 2. checks: each kernel (K1 LUT-GEMV, K2 gather-prefill, K3 fused KV write +
-   flash decode, the W8A16 int8 matmul, the W4A16 int4 matmul) against its
-   plain PyTorch version on the card, at the Llama-2-7B shapes of the
-   serving paths (K1 at every decode batch bucket of phase 4's ServeConfig,
-   K2 at every prefill bucket, the int8 kernel at both for the four
-   projections and the lm_head, the int4 kernel at both for the four
-   projections), with its time, the plain version's time, the least time
-   the card could take (bound) and, where one PyTorch call computes the same
-   function, its time;
+   flash decode, the W8A16 int8 matmul, the W4A16 int4 matmul, the
+   all-expert W8A16 MoE matmul) against its plain PyTorch version on the
+   card, at the shapes of the serving paths (K1 at every decode batch bucket
+   of phase 4's ServeConfig, K2 at every prefill bucket, the int8 kernel at
+   both for Llama-2-7B's four projections and the lm_head, the int4 kernel
+   at both for the four projections, the MoE kernel at both for
+   Mixtral-8x7B's gate/up, shared x, and down, per-expert x), with its time,
+   the plain version's time, the least time the card could take (bound)
+   and, where one PyTorch call computes the same function, its time (for
+   the MoE kernel with per-expert x, where none does, the sum of one call
+   per expert, as an aside);
 3. reference: a 2-layer model at full Llama-2-7B width, in codes mode, in
-   int8 mode (int8 lm_head) and in int4 mode (dense head), kernels on the
-   card against the plain versions on the CPU, prefill and decode logits;
-4. engine: three Engine.generate runs at Llama-2-7B width and depth (32
-   layers, random weights from a seed, int8 KV cache) on 6 prompts of
-   64-1500 tokens, 64 new tokens each, greedy: 2x8 codes, int8 with the
-   int8 lm_head, then int4 with the dense head. Launch counts are reset
-   before and read after each run; each run must launch the kernels of its
-   own path and none of the others';
+   int8 mode (int8 lm_head) and in int4 mode (dense head), and a 2-layer
+   Mixtral-8x7B in int8 mode (int8 lm_head), kernels on the card against the
+   plain versions on the CPU, prefill and decode logits;
+4. engine: four Engine.generate runs at full width and depth (32 layers,
+   random weights from a seed, int8 KV cache) on 6 prompts of 64-1500
+   tokens, 64 new tokens each, greedy: Llama-2-7B in 2x8 codes, in int8
+   with the int8 lm_head and in int4 with the dense head, then
+   Mixtral-8x7B in int8 with the int8 lm_head, loaded with donate_params.
+   Launch counts are reset before and read after each run; each run must
+   launch the kernels of its own path and none of the others', and the
+   Mixtral run the MoE kernel 3 times per layer per forward;
 5. the kernel list, then {"ok": true, "device": {...}} as the last line.
 
 Writes chiprun_out/chip_smoke.json with every record and
@@ -317,6 +323,68 @@ def check_int4(gen, dev, failures):
     return reps
 
 
+# (name, experts, out_features, in_features, x per expert): Mixtral-8x7B's
+# all-expert launches of a block (up has gate's shape)
+MOE_PROJS = [("gate_up", 8, 14336, 4096, False), ("down", 8, 4096, 14336, True)]
+
+
+def check_int8_moe(gen, dev, failures):
+    from aqlm_tpu_torch.ops import int8_matmul as im
+
+    reps = {}
+    L = 2  # two stacked layers cycled: one launch reads 470 MB, past the 50 MB L2
+    for name, E, out_f, in_f, per_expert in MOE_PROJS:
+        w8 = torch.randint(-127, 128, (L, E, out_f, im.pad_in_features(in_f)), generator=gen,
+                           device=dev, dtype=torch.int32).to(torch.int8)
+        w8[..., in_f:] = 0
+        scale = torch.rand((L, E, out_f), generator=gen, device=dev) / (127 * in_f ** 0.5)
+        w_lib = w8[..., :in_f].contiguous()
+        s_lib = scale.to(torch.bfloat16)
+        for rows in sum(main_path_rows(engine_serve_config("mixtral_int8")), []):
+            shape = (L, E, rows, in_f) if per_expert else (L, rows, in_f)
+            x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            run = lambda i=0: im.moe_launch(x[i % L], w8[i % L], scale[i % L])
+            plain = lambda i=0: im.moe_plain(x[0], w8[0], scale[0])
+            cmp = compare(run(0), plain(0))
+            ms = time_ms(run, 20 if rows <= 8 else 5)
+            plain_ms = time_ms(plain, 2)
+            b_ms, b_by = bound(E * out_f * in_f + x[0].numel() * 2 + E * rows * out_f * 2
+                               + E * out_f * 4, 2.0 * E * rows * out_f * in_f)
+            iters, repeats = (10, 3) if rows <= 8 else (1, 1)
+            library_ms = aside_ms = library_error = None
+            try:  # yardsticks only: recorded, never on the port's path
+                if per_expert:
+                    # no single PyTorch call takes a different x per expert: an
+                    # aside, not the library column, of one W8A16 call per expert
+                    aside = lambda i=0: [torch._weight_int8pack_mm(
+                        x[i % L][e], w_lib[i % L, e], s_lib[i % L, e]) for e in range(E)]
+                    aside_ms = time_ms(aside, iters, repeats)
+                else:
+                    # shared x: one call over all experts' rows; its [N, E*OUT]
+                    # is the kernel's [E, N, OUT] transposed
+                    library = lambda i=0: torch._weight_int8pack_mm(
+                        x[i % L], w_lib[i % L].view(E * out_f, in_f), s_lib[i % L].view(E * out_f))
+                    library_ms = time_ms(library, iters, repeats)
+            except Exception as exc:
+                library_error = str(exc).strip().splitlines()[0][:200]
+            lib = ({"aside": f"{E} x torch._weight_int8pack_mm, one per expert", "aside_ms": aside_ms}
+                   if per_expert else {"library": "torch._weight_int8pack_mm over E*OUT rows"})
+            rec = {"phase": "check", "kernel": "int8_moe_matmul", "proj": name, "experts": E,
+                   "rows": rows, "out_features": out_f, "in_features": in_f,
+                   "x": "per expert" if per_expert else "shared", **cmp,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library": "none", "library_ms": library_ms, **lib,
+                   "library_error": library_error, "host_ms": host_ms(run)}
+            emit(rec)
+            if not cmp["ok"]:
+                failures.append(rec)
+            if name == "gate_up" and rows == 4:
+                reps["int8_moe_matmul"] = rec
+        del w8, scale, w_lib, s_lib
+        torch.cuda.empty_cache()
+    return reps
+
+
 def check_k3(gen, dev, failures):
     from aqlm_tpu_torch.ops import flash_decode as fd
 
@@ -404,16 +472,18 @@ def _to(node, dev):
     return node
 
 
-def reference_check(cfg, dev, mode):
+def reference_check(dev, run):
     """Codes: max_len 256 (flash decode: K3 on the card, its plain version on
-    the CPU). int8 (with the int8 lm_head) and int4 (dense head): max_len
-    1024, where the flash rule takes their layers too."""
+    the CPU). int8 (with the int8 lm_head) and int4 (dense head), Llama or
+    Mixtral: max_len 1024, where the flash rule takes their layers too."""
     from aqlm_tpu_torch.config import SCHEME_2X8
     from aqlm_tpu_torch.models.quantize import random_quantized_params
     from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache
     from aqlm_tpu_torch.serve import ServeConfig
     from aqlm_tpu_torch.serve.engine import serving_params
 
+    model, mode = RUNS[run]
+    cfg = model_config(model)
     cfg2 = dataclasses.replace(cfg, num_layers=2)
     params = random_quantized_params(torch.Generator(device=dev).manual_seed(1), cfg2, SCHEME_2X8,
                                      mode=mode)
@@ -437,7 +507,8 @@ def reference_check(cfg, dev, mode):
     scale = outs["cpu"].abs().max().item()
     ok = bool(torch.isfinite(outs["cuda"]).all()) and err <= 3e-2 * scale
     agree = (outs["cuda"].argmax(-1) == outs["cpu"].argmax(-1)).float().mean().item()
-    return {"phase": "reference", "mode": mode, "lm_head_int8": serve.lm_head_int8, "layers": 2,
+    return {"phase": "reference", "run": run, "model": model, "mode": mode,
+            "lm_head_int8": serve.lm_head_int8, "layers": 2,
             "hidden": cfg.hidden_size, "max_len": max_len, "prefill_tokens": 20,
             "decode_steps": 3, "kv": "int8", "max_abs_err": err, "max_rel_err": err / scale,
             "tol": "max|cuda - cpu| <= 3e-2 * max|cpu|", "argmax_agree": agree, "ok": ok}
@@ -447,29 +518,46 @@ def reference_check(cfg, dev, mode):
 # phase 4: Engine.generate at full Llama-2-7B width and depth
 # ---------------------------------------------------------------------------
 
+# run -> (model, mode): the engine runs, in order
+RUNS = {"codes": ("llama2_7b", "codes"), "int8": ("llama2_7b", "int8"),
+        "int4": ("llama2_7b", "int4"), "mixtral_int8": ("mixtral_8x7b", "int8")}
 # the kernels each engine run must launch; the other paths' must stay at 0
 PATH_KERNELS = {"codes": ("lut_gemv", "gather_prefill", "flash_decode_write"),
                 "int8": ("int8_matmul", "flash_decode_write"),
-                "int4": ("int4_matmul", "flash_decode_write")}
+                "int4": ("int4_matmul", "flash_decode_write"),
+                "mixtral_int8": ("int8_matmul", "int8_moe_matmul", "flash_decode_write")}
 
 
-def engine_serve_config(mode):
+def model_config(model):
+    from aqlm_tpu_torch.models.llama import ModelConfig
+    from aqlm_tpu_torch.models.mixtral import MixtralConfig
+
+    return MixtralConfig.mixtral_8x7b() if model == "mixtral_8x7b" else ModelConfig.llama2_7b()
+
+
+def engine_serve_config(run):
+    """Mixtral's 43.6 GiB of int8 weights load with donate_params: without it
+    the stacked copies would double them past the card's 80 GB."""
     from aqlm_tpu_torch.serve import ServeConfig
 
-    return ServeConfig(max_batch=4, max_len=2048, kv_quantized=True, lm_head_int8=mode == "int8")
+    model, mode = RUNS[run]
+    return ServeConfig(max_batch=4, max_len=2048, kv_quantized=True, lm_head_int8=mode == "int8",
+                       donate_params=model == "mixtral_8x7b")
 
 
-def engine_run(cfg, dev, mode):
+def engine_run(dev, run):
     from aqlm_tpu_torch.config import SCHEME_2X8
     from aqlm_tpu_torch.models.quantize import random_quantized_params
     from aqlm_tpu_torch.ops import _build
     from aqlm_tpu_torch.serve import Engine, SamplingParams
 
+    model, mode = RUNS[run]
+    cfg = model_config(model)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg, SCHEME_2X8,
                                      mode=mode)
-    serve = engine_serve_config(mode)
+    serve = engine_serve_config(run)
     engine = Engine(params, cfg, serve)
     del params
     torch.cuda.synchronize()
@@ -512,13 +600,21 @@ def engine_run(cfg, dev, mode):
     launches = {k: v.launches for k, v in _build.KERNELS.items()}
 
     ok = all(len(o) == new_tokens and all(0 <= t < cfg.vocab_size for t in o) for o in out)
-    ran = all(launches[k] > 0 for k in PATH_KERNELS[mode])
-    others = all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS[mode])
+    ran = all(launches[k] > 0 for k in PATH_KERNELS[run])
+    others = all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS[run])
+    moe = {}
+    if launches["int8_moe_matmul"]:
+        # every forward: fused qkv and o per layer plus the head on the int8
+        # kernel, gate, up and down per layer on the MoE kernel
+        forwards = launches["int8_matmul"] / (2 * cfg.num_layers + 1)
+        moe = {"forwards": forwards, "moe_launches_per_forward": launches["int8_moe_matmul"] / forwards}
+        ran = ran and moe["moe_launches_per_forward"] == 3 * cfg.num_layers
     decode_steps = [s for s in steps if s[1] and s[2] > 0]
     decode_tok = sum(s[2] for s in decode_steps)
     decode_s = sum(s[0] for s in decode_steps)
-    rec = {"phase": "engine", "model": "llama2_7b", "layers": cfg.num_layers, "scheme": "2x8g8",
-           "mode": mode, "lm_head_int8": serve.lm_head_int8, "kv": "int8",
+    rec = {"phase": "engine", "run": run, "model": model, "layers": cfg.num_layers,
+           "scheme": "2x8g8", "mode": mode, "lm_head_int8": serve.lm_head_int8,
+           "donate_params": serve.donate_params, "kv": "int8",
            "max_batch": serve.max_batch, "max_len": serve.max_len,
            "prompt_lengths": lengths, "new_tokens": new_tokens, "build_s": build_s,
            "prefill_tok_s": sum(lengths) / prefill_s, "prefill_s": prefill_s,
@@ -527,7 +623,7 @@ def engine_run(cfg, dev, mode):
            "generate_s": total_s, "steps": len(steps),
            "build_peak_mem_gib": build_peak_gib,
            "serve_peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches": launches, "prefix_hits": engine.prefix_stats["hits"],
+           "launches": launches, **moe, "prefix_hits": engine.prefix_stats["hits"],
            "first_tokens": [o[:4] for o in out], "ok": ok and ran and others}
     rec["profile"] = profile_decode(engine, cfg, rng)
     del engine.step  # the timing wrapper closes over the engine: a cycle that would keep it alive
@@ -559,16 +655,21 @@ def profile_decode(engine, cfg, rng) -> dict:
               if getattr(e, "device_type", None) == DeviceType.CUDA and dev_us(e) > 0]
     total_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:10]
+    # the host side: torch ops by their own CPU time (the profiler's overhead included)
+    host = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CPU]
+    host_top = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
     return {"window": "4 x 64-token prompts, 16 new tokens", "wall_ms": wall_ms,
             "device_ms": total_ms, "device_busy_share": total_ms / wall_ms,
-            "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "calls": e.count} for e in top]}
+            "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "calls": e.count} for e in top],
+            "host_ms": sum(e.self_cpu_time_total for e in host) / 1e3,
+            "host_top": [{"name": e.key[:80], "ms": e.self_cpu_time_total / 1e3, "calls": e.count}
+                         for e in host_top]}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from aqlm_tpu_torch.models.llama import ModelConfig
     from aqlm_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
@@ -593,31 +694,31 @@ def main() -> int:
         reps.update(check_k3(gen, dev, failures))
         reps.update(check_int8(gen, dev, failures))
         reps.update(check_int4(gen, dev, failures))
+        reps.update(check_int8_moe(gen, dev, failures))
     if failures:
         print(f"chip_smoke: {len(failures)} kernel checks out of tolerance", file=sys.stderr)
         return 2
 
-    cfg = ModelConfig.llama2_7b()
-    for mode in PATH_KERNELS:
-        ref = reference_check(cfg, dev, mode)
+    for run in RUNS:
+        ref = reference_check(dev, run)
         emit(ref)
         if not ref["ok"]:
-            print(f"chip_smoke: {mode} kernels disagree with the CPU reference", file=sys.stderr)
+            print(f"chip_smoke: {run} kernels disagree with the CPU reference", file=sys.stderr)
             return 3
 
     runs = {}
-    for mode in PATH_KERNELS:
-        runs[mode] = engine_run(cfg, dev, mode)
-        emit(runs[mode])
-        if not runs[mode]["ok"]:
-            print(f"chip_smoke: the {mode} engine run failed its checks", file=sys.stderr)
+    for run in RUNS:
+        runs[run] = engine_run(dev, run)
+        emit(runs[run])
+        if not runs[run]["ok"]:
+            print(f"chip_smoke: the {run} engine run failed its checks", file=sys.stderr)
             return 4
 
     kernels = []
     for name, info in _build.KERNELS.items():
         r = reps[name]
-        by_run = {mode: run["launches"][name] for mode, run in runs.items()
-                  if name in PATH_KERNELS[mode]}
+        by_run = {run: rec["launches"][name] for run, rec in runs.items()
+                  if name in PATH_KERNELS[run]}
         kernels.append({"name": name, "route": "cuda", "source": info.source,
                         "replaces": info.replaces, "also_replaces": list(info.also_replaces),
                         "launches": sum(by_run.values()), "launches_by_run": by_run,
@@ -625,7 +726,7 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": {k: r[k] for k in r if k in (
-                            "proj", "rows", "kv", "window", "B", "max_len")}})
+                            "proj", "experts", "rows", "kv", "window", "B", "max_len")}})
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"records": RECORDS, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

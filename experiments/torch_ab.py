@@ -1,0 +1,80 @@
+"""Time the int8 or int4 kernel of one copy of aqlm_tpu_torch, for A/B comparisons.
+
+    python3 experiments/torch_ab.py ROOT TAG {int8,int4} [check]
+
+ROOT is a directory holding an ``aqlm_tpu_torch`` package (``.`` for the
+checkout; copies of the package in other directories build their kernels
+under their own ``build/kernels``). The timer and the tolerance are this
+checkout's (``chip_smoke.time_ms`` and ``chip_smoke.compare``), whatever
+ROOT is. With ``check``, the kernel is first compared with its plain version
+(and two runs with each other) at rows 1-8 of small and partial-block
+shapes. Then it prints one JSON line of device times in ms (CUDA-graph
+replays of 50 calls, 10 above 8 rows, cycling 8 stacked copies, median of
+5) of the kernel's ``launch`` at Llama-2-7B's four fused projections (and
+the lm_head for int8) at rows 1, 2, 4, 8, 64, 256 and 1024, each shape
+checked once against the plain version. Compare two copies within one call
+on one card, in turns (A, B, B, A). Exits non-zero on any mismatch.
+"""
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import compare, time_ms  # noqa: E402  (imports no aqlm_tpu_torch)
+
+root, tag, kernel = sys.argv[1], sys.argv[2], sys.argv[3]
+sys.path.insert(0, os.path.abspath(root))
+import torch  # noqa: E402
+
+from aqlm_tpu_torch.ops import _build  # noqa: E402
+from aqlm_tpu_torch.ops import int4_matmul as i4  # noqa: E402
+from aqlm_tpu_torch.ops import int8_matmul as i8  # noqa: E402
+
+m = i8 if kernel == "int8" else i4
+assert m.__file__.startswith(os.path.abspath(root)), m.__file__
+_build.library()
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(0)
+L = 8
+
+
+def weights(out_f, in_f, n):
+    """``n`` stacked copies of one projection's weights in the kernel's layout."""
+    if kernel == "int8":
+        w8 = torch.randint(-127, 128, (n, out_f, i8.pad_in_features(in_f)), generator=g,
+                           device=dev, dtype=torch.int32).to(torch.int8)
+        w8[..., in_f:] = 0
+        return w8, torch.rand((n, out_f), generator=g, device=dev) / (127 * in_f ** 0.5)
+    packs = [i4.quantize_int4(torch.randn((out_f, in_f), generator=g, device=dev) / in_f ** 0.5)
+             for _ in range(n)]
+    return torch.stack([p[0] for p in packs]), torch.stack([p[1] for p in packs])
+
+
+bad = 0
+if len(sys.argv) > 4:
+    for out_f, in_f in [(520, 11008), (256, 1152), (384, 384), (4096, 4096)]:
+        w, s = weights(out_f, in_f, 1)
+        for rows in range(1, 9):
+            x = torch.randn((rows, in_f), generator=g, device=dev).to(torch.bfloat16)
+            got = m.launch(x, w[0], s[0])
+            ok = compare(got, m.plain(x, w[0], s[0]))["ok"] and torch.equal(got, m.launch(x, w[0], s[0]))
+            bad += not ok
+            if not ok:
+                print("FAIL", out_f, in_f, rows, flush=True)
+    print(tag, "check bad", bad, flush=True)
+
+projs = [("qkv", 12288, 4096), ("o", 4096, 4096), ("gate_up", 22016, 4096), ("down", 4096, 11008)]
+if kernel == "int8":
+    projs.append(("lm_head", 32000, 4096))
+res = {}
+for name, out_f, in_f in projs:
+    w, s = weights(out_f, in_f, L)
+    for rows in (1, 2, 4, 8, 64, 256, 1024):
+        x = torch.randn((L, rows, in_f), generator=g, device=dev).to(torch.bfloat16)
+        bad += not compare(m.launch(x[0], w[0], s[0]), m.plain(x[0], w[0], s[0]))["ok"]
+        res[f"{name}/{rows}"] = round(time_ms(lambda i=0: m.launch(x[i % L], w[i % L], s[i % L]),
+                                              50 if rows <= 8 else 10, 5), 5)
+    del w, s
+    torch.cuda.empty_cache()
+print(tag, kernel, "bad", bad, json.dumps(res), flush=True)
+sys.exit(1 if bad else 0)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from aqlm_tpu_torch.config import SCHEME_2X8
-from aqlm_tpu_torch.models import llama
+from aqlm_tpu_torch.models import llama, mixtral
 from aqlm_tpu_torch.models.quantize import random_quantized_params
 from aqlm_tpu_torch.ops import _build
 from aqlm_tpu_torch.ops import flash_decode as fd
@@ -134,6 +134,7 @@ def test_engine_on_the_card_launches_every_kernel(dev):
     assert [len(o) for o in out] == [4, 4]
     assert all(_build.KERNELS[k].launches > 0 for k in CODES_KERNELS)
     assert _build.KERNELS["int8_matmul"].launches == _build.KERNELS["int4_matmul"].launches == 0
+    assert _build.KERNELS["int8_moe_matmul"].launches == 0
 
 
 def _int8(gen, dev, L, out_f=520, in_f=11008):
@@ -197,6 +198,90 @@ def test_int8_engine_on_the_card_launches_its_kernels(dev):
     assert [len(o) for o in out] == [4, 4]
     launches = {k: v.launches for k, v in _build.KERNELS.items()}
     assert launches["int8_matmul"] > 0 and launches["flash_decode_write"] > 0
+    assert launches["lut_gemv"] == launches["gather_prefill"] == launches["int4_matmul"] == 0
+    assert launches["int8_moe_matmul"] == 0
+
+
+def _moe(gen, dev, E, out_f, in_f, L=2):
+    """Stacked all-expert int8 weights [L, E, OUT, IN_pad] (zero padding
+    columns) and scales [L, E, OUT]."""
+    w8 = torch.randint(-127, 128, (L, E, out_f, im.pad_in_features(in_f)), generator=gen,
+                       device=dev, dtype=torch.int32).to(torch.int8)
+    w8[..., in_f:] = 0
+    scale = torch.rand((L, E, out_f), generator=gen, device=dev) / (127 * in_f ** 0.5)
+    return w8, scale
+
+
+# (E, OUT, IN): split-K at E=2, OUT=128 (few blocks); a ragged OUT with a
+# padded IN (1040 -> 2048); Mixtral-8x7B's gate/up and down
+MOE_SHAPES = [(2, 128, 4096), (3, 520, 1040), (8, 14336, 4096), (8, 4096, 14336)]
+
+
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 64, 200])
+@pytest.mark.parametrize("shape", MOE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_moe_matmul_kernel_matches_plain(dev, shape, rows, per_expert):
+    E, out_f, in_f = shape
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    w8, scale = _moe(gen, dev, E, out_f, in_f)
+    x = torch.randn((E, rows, in_f) if per_expert else (rows, in_f), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    before = _build.KERNELS["int8_moe_matmul"].launches
+    got = im.int8_moe_matmul_indexed(x, w8, scale, 1)
+    assert _build.KERNELS["int8_moe_matmul"].launches == before + 1
+    assert got.shape == (E, rows, out_f)
+    _close(got, im.moe_plain(x, w8[1], scale[1]))
+
+
+def test_int8_moe_matmul_kernel_is_deterministic(dev):
+    """Split-K at E=2, OUT=128: each expert's splits are added in a fixed
+    order by its own last block."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w8, scale = _moe(gen, dev, 2, 128, 4096, L=1)
+    for rows in (4, 64):
+        x = torch.randn((2, rows, 4096), generator=gen, device=dev).to(torch.bfloat16)
+        a = im.int8_moe_matmul(x, w8[0], scale[0])
+        assert torch.equal(a, im.int8_moe_matmul(x, w8[0], scale[0]))
+        # each expert agrees with the dense form run on it alone
+        for e in range(2):
+            _close(a[e], im.int8_matmul(x[e], w8[0, e], scale[0, e]))
+
+
+def test_int8_moe_matmul_wrapper_raises(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w8, scale = _moe(gen, dev, 2, 256, 1024, L=1)
+    x = torch.randn((4, 1024), generator=gen, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        im.int8_moe_matmul(x, w8[0], scale[0])
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="per-expert x"):
+        im.int8_moe_matmul(torch.stack([xb] * 3), w8[0], scale[0])
+    with pytest.raises(ValueError, match="does not match"):
+        im.int8_moe_matmul(xb, w8[0], scale[0, :, :128].contiguous())
+    with pytest.raises(ValueError, match="int8 weights"):
+        im.int8_moe_matmul(xb, w8[0].to(torch.int16), scale[0])
+
+
+def test_mixtral_int8_engine_on_the_card_launches_its_kernels(dev):
+    """Experts run only through the all-expert kernel, 3 launches per layer
+    per forward; the int8 kernel's count is the fused qkv, o and the head."""
+    cfg = mixtral.MixtralConfig.tiny_moe(num_layers=2, hidden_size=256, intermediate_size=256,
+                                         num_heads=4, num_kv_heads=2)
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg, SCHEME_2X8,
+                                     mode="int8")
+    engine = Engine(params, cfg, ServeConfig(max_batch=2, max_len=1024, prefill_buckets=(16, 32),
+                                             kv_quantized=True, lm_head_int8=True,
+                                             donate_params=True))
+    assert isinstance(engine.params["layers"]["experts_gate_proj"], mixtral.StackedInt8Experts)
+    _build.reset_launch_counts()
+    out = engine.generate([np.arange(5), np.arange(40)], SamplingParams(max_new_tokens=4))
+    assert [len(o) for o in out] == [4, 4]
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    L = cfg.num_layers
+    forwards = launches["int8_matmul"] // (2 * L + 1)
+    assert forwards > 0 and launches["int8_matmul"] == forwards * (2 * L + 1)
+    assert launches["int8_moe_matmul"] == forwards * 3 * L
+    assert launches["flash_decode_write"] > 0
     assert launches["lut_gemv"] == launches["gather_prefill"] == launches["int4_matmul"] == 0
 
 
@@ -280,3 +365,4 @@ def test_int4_engine_on_the_card_launches_its_kernels(dev):
     launches = {k: v.launches for k, v in _build.KERNELS.items()}
     assert launches["int4_matmul"] > 0 and launches["flash_decode_write"] > 0
     assert launches["lut_gemv"] == launches["gather_prefill"] == launches["int8_matmul"] == 0
+    assert launches["int8_moe_matmul"] == 0
