@@ -2,9 +2,9 @@
 
 ``params_from_numpy`` takes a nested structure of dicts, lists and numpy
 arrays in which each weight object is a dict with a ``"__class__"`` key
-(``"QuantizedLinear"``, ``"DenseLinear"``, ``"FusedCodesLinear"`` or
-``"StackedInt8Experts"``) and its fields, the scheme given by name
-(``"2x8g8"``); a QuantizedLinear is in reference, codes (tiled), int8 or
+(``"QuantizedLinear"``, ``"DenseLinear"``, ``"FusedCodesLinear"``,
+``"StackedInt8Experts"`` or ``"StackedInt4Experts"``) and its fields, the
+scheme given by name (``"2x8g8"``); a QuantizedLinear is in reference, codes (tiled), int8 or
 int4 mode. A bf16 array arrives as its uint16 view wrapped in
 ``{"__bf16__": array}`` and becomes ``torch.bfloat16``. Tiled codes copy
 across as they are.
@@ -18,7 +18,7 @@ import torch
 from aqlm_tpu_torch.config import AqlmScheme
 from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.models.common import DenseLinear
-from aqlm_tpu_torch.models.mixtral import StackedInt8Experts
+from aqlm_tpu_torch.models.mixtral import StackedInt4Experts, StackedInt8Experts
 from aqlm_tpu_torch.ops.runtime import FusedCodesLinear, QuantizedLinear, not_ported
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
@@ -44,6 +44,8 @@ def _convert(node, dev):
             return DenseLinear(weight=t("weight"), bias=t("bias"))
         if kind == "StackedInt8Experts":
             return StackedInt8Experts(w8=t("w8"), scale=t("scale"))
+        if kind == "StackedInt4Experts":
+            return StackedInt4Experts(w4=t("w4"), gscale=t("gscale"))
         scheme = AqlmScheme.parse(node["scheme"])
         if kind == "FusedCodesLinear":
             return FusedCodesLinear(codes_tl=t("codes_tl"), codebooks=t("codebooks"),

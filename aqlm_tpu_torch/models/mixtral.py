@@ -8,9 +8,10 @@ run densely, as in ``aqlm_tpu``: every expert computes every token and the
 routing weights, zero for unrouted experts, combine them.
 
 Layer params are a flat dict (the attention projections, ``moe_gate`` and
-``experts.{e}.{gate,up,down}_proj``). For serving, int8 experts are stacked
-into ``[E, ...]`` operands (``stack_experts``) and run in one all-expert
-kernel launch per projection (``ops.int8_matmul.int8_moe_matmul``).
+``experts.{e}.{gate,up,down}_proj``). For serving, int8 and int4 experts
+are stacked into ``[E, ...]`` operands (``stack_experts``) and run in one
+all-expert kernel launch per projection (``ops.int8_matmul.int8_moe_matmul``,
+``ops.int4_matmul.int4_moe_matmul``).
 """
 
 from __future__ import annotations
@@ -23,12 +24,14 @@ import torch
 from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.models import llama
 from aqlm_tpu_torch.models.common import DenseLinear, apply_linear, rms_norm
+from aqlm_tpu_torch.ops.int4_matmul import int4_moe_matmul, int4_moe_matmul_indexed
 from aqlm_tpu_torch.ops.int8_matmul import int8_moe_matmul, int8_moe_matmul_indexed
 from aqlm_tpu_torch.ops.runtime import QuantizedLinear, not_ported
 
 __all__ = [
-    "MixtralConfig", "StackedInt8Experts", "init_random_params", "forward", "projection_shapes",
-    "quantizable_proj_names", "stack_experts", "moe_mlp_stacked", "moe_mlp_stacked_indexed",
+    "MixtralConfig", "StackedInt8Experts", "StackedInt4Experts", "init_random_params", "forward",
+    "projection_shapes", "quantizable_proj_names", "stack_experts", "moe_mlp_stacked",
+    "moe_mlp_stacked_indexed",
 ]
 
 ATTN_PROJS = ("q_proj", "k_proj", "v_proj", "o_proj")
@@ -127,10 +130,31 @@ class StackedInt8Experts:
     data_fields: ClassVar[tuple] = ("w8", "scale")
 
 
+@dataclasses.dataclass
+class StackedInt4Experts:
+    """All experts of one projection in the W4A16 layout: w4 [E, OUT,
+    IN_pad/2] packed nibbles and gscale [E, IN_pad/128, OUT] f32 (a leading
+    L axis once the layers are stacked), the operand of ``int4_moe_matmul``."""
+
+    w4: torch.Tensor
+    gscale: torch.Tensor
+
+    data_fields: ClassVar[tuple] = ("w4", "gscale")
+
+
+# mode -> (stacked class, the QuantizedLinear fields it stacks, in order)
+_STACKED = {"int8": (StackedInt8Experts, ("w8", "w8_scale")),
+            "int4": (StackedInt4Experts, ("w4", "w4_gscale"))}
+# stacked class -> (all-expert kernel, its layer-indexed form)
+_MOE_MATMUL = {StackedInt8Experts: (int8_moe_matmul, int8_moe_matmul_indexed),
+               StackedInt4Experts: (int4_moe_matmul, int4_moe_matmul_indexed)}
+
+
 def stack_experts(layer: dict, cfg: MixtralConfig, donate: bool = False) -> dict:
     """Stack the per-expert projections into ``experts_{gate,up,down}_proj``:
-    [E, OUT, IN] tensors for dense experts, ``StackedInt8Experts`` for int8
-    ones. Returns a layer dict without the ``experts.{e}.*`` keys.
+    [E, OUT, IN] tensors for dense experts, ``StackedInt8Experts`` or
+    ``StackedInt4Experts`` for int8 or int4 ones. Returns a layer dict
+    without the ``experts.{e}.*`` keys.
 
     ``donate=True`` works in place: each projection's per-expert weights
     leave ``layer`` once their stacked copy exists, so a model the size of
@@ -139,18 +163,20 @@ def stack_experts(layer: dict, cfg: MixtralConfig, donate: bool = False) -> dict
     for proj in EXPERT_PROJS:
         names = [f"experts.{e}.{proj}" for e in range(cfg.num_experts)]
         ws = [layer[n] for n in names]
-        if all(isinstance(w, DenseLinear) for w in ws):
+        modes = {w.mode if isinstance(w, QuantizedLinear) else type(w).__name__ for w in ws}
+        mode = modes.pop() if len(modes) == 1 else None
+        if mode == "DenseLinear":
             stacked = torch.stack([w.weight for w in ws])
-        elif all(isinstance(w, QuantizedLinear) and w.mode == "int8" for w in ws):
+        elif mode in _STACKED:
             if any(w.bias is not None for w in ws):
-                raise ValueError("stacked int8 experts take no bias")
-            stacked = StackedInt8Experts(w8=torch.stack([w.w8 for w in ws]),
-                                         scale=torch.stack([w.w8_scale for w in ws]))
-        elif all(isinstance(w, QuantizedLinear) and w.mode in ("int4", "codes") for w in ws):
-            raise not_ported(f"stacked {ws[0].mode} experts (the all-expert "
-                             f"{'W4A16' if ws[0].mode == 'int4' else 'LUT-GEMV'} kernel)", "B12")
+                raise ValueError(f"stacked {mode} experts take no bias")
+            cls, fields = _STACKED[mode]
+            stacked = cls(*(torch.stack([getattr(w, f) for w in ws]) for f in fields))
+        elif mode == "codes":
+            raise not_ported("stacked codes experts (the all-expert LUT-GEMV kernel)", "B12")
         else:
-            raise NotImplementedError("stack_experts takes dense or int8-mode experts, all alike")
+            raise NotImplementedError("stack_experts takes dense, int8- or int4-mode experts, "
+                                      "all alike")
         del ws
         if donate:
             for n in names:
@@ -163,15 +189,18 @@ def _expert_ffn(flat: torch.Tensor, stacked: dict, idx: int | None = None) -> to
     """The three all-expert projections on flattened tokens [N, H]: [E, N, H].
 
     ``stacked`` holds ``experts_{gate,up,down}_proj``, each a
-    ``StackedInt8Experts`` (one launch of the int8 kernel for all experts)
-    or a dense [E, OUT, IN] tensor; with ``idx``, they carry a leading L axis
-    and layer ``idx`` is read in place. Down takes each expert's own rows."""
+    ``StackedInt8Experts`` or ``StackedInt4Experts`` (one launch of the int8
+    or int4 kernel for all experts) or a dense [E, OUT, IN] tensor; with
+    ``idx``, they carry a leading L axis and layer ``idx`` is read in place.
+    Down takes each expert's own rows."""
     gw, uw, dw = (stacked[f"experts_{p}"] for p in EXPERT_PROJS)
-    if isinstance(gw, StackedInt8Experts):
+    if type(gw) in _MOE_MATMUL:
+        moe, moe_indexed = _MOE_MATMUL[type(gw)]
+        operands = lambda q: [getattr(q, f) for f in q.data_fields]
         if idx is None:
-            mm = lambda x, q: int8_moe_matmul(x, q.w8, q.scale)
+            mm = lambda x, q: moe(x, *operands(q))
         else:
-            mm = lambda x, q: int8_moe_matmul_indexed(x, q.w8, q.scale, idx)
+            mm = lambda x, q: moe_indexed(x, *operands(q), idx)
     else:
         mm = lambda x, w: torch.matmul(x, (w if idx is None else w[idx]).to(x.dtype).transpose(1, 2))
     gate = mm(flat, gw)  # [E, N, I]

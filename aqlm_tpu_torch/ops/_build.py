@@ -77,6 +77,11 @@ KERNELS = {
         "int8_moe_matmul", "aqlm_tpu_torch/ops/csrc/int8_matmul.cu",
         "aqlm_tpu/ops/int8_matmul.py:371", ("aqlm_tpu/ops/int8_matmul.py:294",),
     ),
+    # the int4 kernel over all experts at once: its own wrapper and count
+    "int4_moe_matmul": KernelInfo(
+        "int4_moe_matmul", "aqlm_tpu_torch/ops/csrc/int4_matmul.cu",
+        "aqlm_tpu/ops/int4_matmul.py:365", ("aqlm_tpu/ops/int4_matmul.py:295",),
+    ),
 }
 
 
@@ -155,7 +160,7 @@ def _declare(lib) -> None:
     lib.gather_prefill_launch.argtypes = [P] * 8 + [I] * 8 + [P]
     lib.flash_decode_write_launch.argtypes = [P] * 11 + [I] * 7 + [ctypes.c_float, P]
     lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 8 + [P]
-    lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 6 + [P]
+    lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 8 + [P]
     for fn in (lib.lut_gemv_launch, lib.gather_prefill_launch, lib.flash_decode_write_launch,
                lib.int8_matmul_launch, lib.int4_matmul_launch):
         fn.restype = I

@@ -1,10 +1,12 @@
 """W4A16 matmul: 4-bit weights with per-128-column group scales, unpacked on chip.
 
-PyTorch counterpart of ``aqlm_tpu.ops.int4_matmul`` (``int4_matmul`` and
-``int4_matmul_indexed``). On a CUDA tensor every entry point launches the
+PyTorch counterpart of ``aqlm_tpu.ops.int4_matmul`` (``int4_matmul``,
+``int4_matmul_indexed`` and the all-expert MoE forms ``int4_moe_matmul`` and
+``int4_moe_matmul_indexed``). On a CUDA tensor every entry point launches the
 kernel of ``csrc/int4_matmul.cu``; on a CPU tensor it runs the plain version
-of the same function. The layer-indexed variant is the same kernel with a
-layer pointer offset.
+of the same function. The layer-indexed variants are the same kernel with a
+layer pointer offset; the MoE forms run every expert in one launch, the
+expert being one more grid axis of the same kernel.
 
 Layout (shared with ``aqlm_tpu``, so weights and checkpoints carry across):
 
@@ -38,6 +40,8 @@ __all__ = [
     "dequantize_int4",
     "int4_matmul",
     "int4_matmul_indexed",
+    "int4_moe_matmul",
+    "int4_moe_matmul_indexed",
 ]
 
 GROUP = 128  # original columns per scale group
@@ -139,63 +143,97 @@ def plain(xb, w4, gscale):
     return acc.to(xb.dtype)
 
 
-def launch(xb, w4, gscale):
-    """The kernel on one layer's arrays: xb [rows, IN] bf16; w4 [OUT,
-    IN_pad/2] uint8; gscale [IN_pad/128, OUT] f32. Rows <= 8 take the decode
-    (GEMV) path, more rows the prefill (tensor-core GEMM) path. Returns
-    [rows, OUT] bf16."""
-    rows, in_features = xb.shape
-    out_features, ldb = w4.shape
+def moe_plain(xb, w4, gscale):
+    """The MoE kernel's plain version (same arguments as ``moe_launch``):
+    ``plain`` per expert on its activations (xb [rows, IN] shared, or xb
+    [E, rows, IN]). Returns [E, rows, OUT]."""
+    return torch.stack([plain(xb[e] if xb.dim() == 3 else xb, w4[e], gscale[e])
+                        for e in range(w4.shape[0])])
+
+
+def _run(xb, w4, gscale, name, x_per_expert):
+    """Check the operands of one launch (w4 [E, OUT, IN_pad/2], gscale [E,
+    IN_pad/128, OUT], xb [rows, IN] or [E, rows, IN]), size the split-K and
+    launch. Returns [E, rows, OUT] bf16."""
+    rows, in_features = xb.shape[-2:]
+    experts, out_features, ldb = w4.shape
     dev = xb.device
     if xb.dtype != torch.bfloat16:
-        raise ValueError(f"int4_matmul kernel takes bf16 activations, got {xb.dtype}")
+        raise ValueError(f"{name} kernel takes bf16 activations, got {xb.dtype}")
     if w4.dtype != torch.uint8 or gscale.dtype != torch.float32:
-        raise ValueError(f"int4_matmul kernel takes uint8 packed weights and f32 group scales, "
+        raise ValueError(f"{name} kernel takes uint8 packed weights and f32 group scales, "
                          f"got {w4.dtype} and {gscale.dtype}")
     if in_features > 2 * ldb or in_features % 16 or ldb % GROUP:
-        raise ValueError(f"int4_matmul kernel: x {tuple(xb.shape)} against w4 {tuple(w4.shape)} "
+        raise ValueError(f"{name} kernel: x {tuple(xb.shape)} against w4 {tuple(w4.shape)} "
                          "(IN <= IN_pad, IN a multiple of 16, whole 256-column packing blocks)")
-    if gscale.shape != (2 * ldb // GROUP, out_features):
-        raise ValueError(f"gscale {tuple(gscale.shape)} does not match "
+    if x_per_expert and xb.shape[0] != experts:
+        raise ValueError(f"{name} kernel: per-expert x {tuple(xb.shape)} against {experts} experts")
+    if gscale.shape != (experts, 2 * ldb // GROUP, out_features):
+        raise ValueError(f"gscale {tuple(gscale.shape[1:])} does not match "
                          f"(IN_pad/128, OUT) = {(2 * ldb // GROUP, out_features)}")
     for t in (xb, w4, gscale):
         if t.device != dev or not t.is_contiguous():
-            raise ValueError("int4_matmul kernel operands must be contiguous on one CUDA device")
+            raise ValueError(f"{name} kernel operands must be contiguous on one CUDA device")
     if xb.data_ptr() % 16 or w4.data_ptr() % 16 or gscale.data_ptr() % 4:
-        raise ValueError("int4_matmul kernel needs 16-byte aligned activations and weights")
-    out = torch.empty((rows, out_features), dtype=torch.bfloat16, device=dev)
+        raise ValueError(f"{name} kernel needs 16-byte aligned activations and weights")
+    out = torch.empty((experts, rows, out_features), dtype=torch.bfloat16, device=dev)
     if rows == 0:
         return out
     sms = _build.sm_count(dev.index)
     if rows <= INT4_GEMV_MAX_ROWS:
         blocks = -(-out_features // _GEMV_ROWS)
         n_units = -(-in_features // _GEMM_BK)  # packing blocks; each of the 8 warps takes some
-        splits = _splits(blocks, n_units, sms, max(1, n_units // 8))
+        splits = _splits(experts * blocks, n_units, sms, max(1, n_units // 8))
         per_split = -(-n_units // splits) * _GEMM_BK
         part_rows = rows
     else:
         row_tiles = -(-rows // _GEMM_BM)
         blocks = row_tiles * -(-out_features // _GEMM_BN)
         n_steps = -(-in_features // _GEMM_BK)
-        splits = _splits(blocks, n_steps, sms, max(1, n_steps // 4))
+        splits = _splits(experts * blocks, n_steps, sms, max(1, n_steps // 4))
         per_split = -(-n_steps // splits) * _GEMM_BK
         part_rows = row_tiles * _GEMM_BM
     partials = tickets = None
     if splits > 1:
-        # the splits' f32 partial sums meet here; the last block of each
-        # output tile to finish adds them in a fixed order
-        partials = torch.empty((splits, part_rows, out_features), dtype=torch.float32, device=dev)
-        tickets = torch.zeros(blocks, dtype=torch.int32, device=dev)
+        # each expert's splits' f32 partial sums meet here; the last block of
+        # each output tile to finish adds them in a fixed order
+        partials = torch.empty((experts, splits, part_rows, out_features), dtype=torch.float32,
+                               device=dev)
+        tickets = torch.zeros(experts * blocks, dtype=torch.int32, device=dev)
     lib, _ = _build.library()
     rc = lib.int4_matmul_launch(
         xb.data_ptr(), w4.data_ptr(), gscale.data_ptr(), out.data_ptr(),
         None if partials is None else partials.data_ptr(),
         None if tickets is None else tickets.data_ptr(),
-        rows, splits, per_split, out_features, in_features, ldb, _build.stream_ptr(dev),
+        experts, int(x_per_expert), rows, splits, per_split, out_features, in_features, ldb,
+        _build.stream_ptr(dev),
     )
-    _build.check(rc, "int4_matmul")
-    _build.KERNELS["int4_matmul"].launches += 1
+    _build.check(rc, name)
+    _build.KERNELS[name].launches += 1
     return out
+
+
+def launch(xb, w4, gscale):
+    """The kernel on one layer's arrays: xb [rows, IN] bf16; w4 [OUT,
+    IN_pad/2] uint8; gscale [IN_pad/128, OUT] f32. Rows <= 8 take the decode
+    (GEMV) path, more rows the prefill (tensor-core GEMM) path. Returns
+    [rows, OUT] bf16."""
+    if w4.dim() != 2 or gscale.dim() != 2:
+        raise ValueError(f"int4_matmul kernel takes w4 [OUT, IN_pad/2] and gscale [IN_pad/128, "
+                         f"OUT], got {tuple(w4.shape)} and {tuple(gscale.shape)}")
+    return _run(xb, w4[None], gscale[None], "int4_matmul", False)[0]
+
+
+def moe_launch(xb, w4, gscale):
+    """The kernel over every expert of one layer in one launch: xb [rows, IN]
+    bf16 (shared by the experts) or [E, rows, IN] (one slab per expert); w4
+    [E, OUT, IN_pad/2] uint8; gscale [E, IN_pad/128, OUT] f32. Returns
+    [E, rows, OUT] bf16."""
+    if w4.dim() != 3 or gscale.dim() != 3 or xb.dim() not in (2, 3):
+        raise ValueError(f"int4_moe_matmul kernel takes w4 [E, OUT, IN_pad/2], gscale [E, "
+                         f"IN_pad/128, OUT] and x [rows, IN] or [E, rows, IN], got "
+                         f"{tuple(w4.shape)}, {tuple(gscale.shape)} and {tuple(xb.shape)}")
+    return _run(xb, w4, gscale, "int4_moe_matmul", xb.dim() == 3)
 
 
 def _matmul(xb, w4, gscale):
@@ -227,3 +265,29 @@ def int4_matmul_indexed(x, w4_all, gscale_all, layer_idx: int, bias_all=None):
     The layer is a view of the stacked arrays: nothing is copied."""
     li = int(layer_idx)
     return int4_matmul(x, w4_all[li], gscale_all[li], None if bias_all is None else bias_all[li])
+
+
+def int4_moe_matmul(x, w4_all, gscale_all):
+    """All-expert int4 matmul: y[e] = x(e) @ dequant(w4_all[e])[:, :IN].T.
+
+    x: [N, IN] shared by every expert, or [E, N, IN] per expert; w4_all:
+    [E, OUT, IN_pad/2] uint8; gscale_all: [E, IN_pad/128, OUT] f32. Returns
+    [E, N, OUT] in x's dtype: the MoE serving form in which every token runs
+    through every expert (the routing weights zero the unrouted ones), in
+    one launch."""
+    xb = x.contiguous()
+    if xb.device.type == "cpu":
+        return moe_plain(xb, w4_all, gscale_all)
+    if xb.device.type != "cuda":
+        raise ValueError(f"unsupported device {xb.device}")
+    return moe_launch(xb, w4_all, gscale_all)
+
+
+def int4_moe_matmul_indexed(x, w4_all, gscale_all, layer_idx: int):
+    """y[e] = x(e) @ dequant(w4_all[layer_idx, e]).T.
+
+    w4_all: [L, E, OUT, IN_pad/2] uint8; gscale_all: [L, E, IN_pad/128, OUT]
+    f32; x [N, IN] or [E, N, IN]. The layer is a view of the stacked arrays:
+    nothing is copied. Returns [E, N, OUT]."""
+    li = int(layer_idx)
+    return int4_moe_matmul(x, w4_all[li], gscale_all[li])

@@ -52,8 +52,8 @@ class ServeConfig:
 
 def serving_params(params: dict, cfg: llama.ModelConfig, serve: ServeConfig) -> dict:
     """The Engine's load-time transforms, in ``aqlm_tpu``'s order: int8 and
-    int4 fusion, codes fusion, the int8 lm_head, a Mixtral's int8 experts
-    stacked into all-expert operands, then stacking the layers. With
+    int4 fusion, codes fusion, the int8 lm_head, a Mixtral's int8 or int4
+    experts stacked into all-expert operands, then stacking the layers. With
     ``serve.donate_params`` every step frees the caller's copy as it goes,
     so a model near the card's size loads with one stacked leaf of headroom."""
     donate = serve.donate_params
@@ -64,8 +64,8 @@ def serving_params(params: dict, cfg: llama.ModelConfig, serve: ServeConfig) -> 
         params = quantize_lm_head_int8(params)
     layers = params["layers"]
     if layers and "moe_gate" in layers[0]:
-        # int8 (and, once ported, int4) experts: one all-expert launch per
-        # projection; codes and reference experts run per expert
+        # int8 and int4 experts: one all-expert launch per projection;
+        # codes and reference experts run per expert
         e0 = layers[0].get("experts.0.gate_proj")
         if isinstance(e0, QuantizedLinear) and e0.mode in ("int8", "int4"):
             params = {**params, "layers": [mixtral.stack_experts(l, cfg, donate=donate)
@@ -89,7 +89,7 @@ class Engine:
     (projections DenseLinear or QuantizedLinear) on ``device`` (None = the
     card); int8, int4 and codes projections sharing an input are fused
     (q/k/v, gate/up), the head quantized to int8 if asked, a Mixtral's int8
-    experts stacked, and every layer stacked once at construction
+    or int4 experts stacked, and every layer stacked once at construction
     (``serving_params``)."""
 
     def __init__(self, params: dict, cfg: llama.ModelConfig, serve: ServeConfig = ServeConfig(),

@@ -8,30 +8,33 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the time to build the CUDA kernels from csrc/;
 2. checks: each kernel (K1 LUT-GEMV, K2 gather-prefill, K3 fused KV write +
-   flash decode, the W8A16 int8 matmul, the W4A16 int4 matmul, the
-   all-expert W8A16 MoE matmul) against its plain PyTorch version on the
-   card, at the shapes of the serving paths (K1 at every decode batch bucket
-   of phase 4's ServeConfig, K2 at every prefill bucket, the int8 kernel at
-   both for Llama-2-7B's four projections and the lm_head, the int4 kernel
-   at both for the four projections, the MoE kernel at both for
-   Mixtral-8x7B's gate/up, shared x, and down, per-expert x), with its time,
-   the plain version's time, the least time the card could take (bound)
-   and, where one PyTorch call computes the same function, its time (for
-   the MoE kernel with per-expert x, where none does, the sum of one call
-   per expert, as an aside);
+   flash decode, the W8A16 int8 matmul, the W4A16 int4 matmul, and the
+   all-expert W8A16 and W4A16 MoE matmuls) against its plain PyTorch
+   version on the card, at the shapes of the serving paths (K1 at every
+   decode batch bucket of phase 4's ServeConfig, K2 at every prefill
+   bucket, the int8 kernel at both for Llama-2-7B's four projections and the
+   lm_head, the int4 kernel at both for the four projections, each MoE
+   kernel at both for Mixtral-8x7B's gate/up, shared x, and down,
+   per-expert x), with its time, the plain version's time, the least time
+   the card could take (bound) and, where one PyTorch call computes the
+   same function, its time (for a MoE kernel with per-expert x, where none
+   does, the sum of one call per expert, as an aside);
 3. reference: a 2-layer model at full Llama-2-7B width, in codes mode, in
    int8 mode (int8 lm_head) and in int4 mode (dense head), and a 2-layer
-   Mixtral-8x7B in int8 mode (int8 lm_head), kernels on the card against the
-   plain versions on the CPU, prefill and decode logits;
-4. engine: four Engine.generate runs at full width and depth (32 layers,
+   Mixtral-8x7B in int8 mode (int8 lm_head) and in int4 mode (dense head),
+   kernels on the card against the plain versions on the CPU, prefill and
+   decode logits;
+4. engine: five Engine.generate runs at full width and depth (32 layers,
    random weights from a seed, int8 KV cache) on 6 prompts of 64-1500
    tokens, 64 new tokens each, greedy: Llama-2-7B in 2x8 codes, in int8
    with the int8 lm_head and in int4 with the dense head, then
-   Mixtral-8x7B in int8 with the int8 lm_head, loaded with donate_params.
-   Launch counts are reset before and read after each run; each run must
-   launch the kernels of its own path and none of the others', and the
-   Mixtral run the MoE kernel 3 times per layer per forward;
-5. the kernel list, then {"ok": true, "device": {...}} as the last line.
+   Mixtral-8x7B in int8 with the int8 lm_head and in int4 with the dense
+   head, both loaded with donate_params (each engine is freed before the
+   next is built). Launch counts are reset before and read after each run;
+   each run must launch the kernels of its own path and none of the
+   others', and a Mixtral run its MoE kernel 3 times per layer per forward;
+5. the seconds of each phase, the kernel list, then {"ok": true, "device":
+   {...}} as the last line.
 
 Writes chiprun_out/chip_smoke.json with every record and
 chiprun_out/ptxas.txt with the kernels' register and shared-memory report.
@@ -53,6 +56,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 RECORDS = []
+T_START = time.perf_counter()
 
 
 def emit(rec: dict) -> None:
@@ -385,6 +389,77 @@ def check_int8_moe(gen, dev, failures):
     return reps
 
 
+def check_int4_moe(gen, dev, failures):
+    from aqlm_tpu_torch.ops import int4_matmul as i4
+
+    reps = {}
+    L = 2  # two stacked layers cycled: one launch reads 250 MB, past the 50 MB L2
+    for name, E, out_f, in_f, per_expert in MOE_PROJS:
+        packs = [i4.quantize_int4(torch.randn((out_f, in_f), generator=gen, device=dev) * in_f ** -0.5)
+                 for _ in range(L * E)]
+        w4 = torch.stack([p[0] for p in packs]).reshape(L, E, out_f, -1)
+        gs = torch.stack([p[1] for p in packs]).reshape(L, E, -1, out_f)
+        del packs
+        n_groups = gs.shape[2]
+        library_error = None
+        try:  # yardsticks only: recorded, never on the port's path
+            if per_expert:  # one packed weight per expert
+                lib_args = [[_int4_library(w4[l, e], gs[l, e], in_f) for e in range(E)]
+                            for l in range(L)]
+            else:  # all experts' rows in one weight: [E*OUT, ...]
+                lib_args = [_int4_library(w4[l].reshape(E * out_f, -1),
+                                          gs[l].permute(1, 0, 2).reshape(n_groups, E * out_f), in_f)
+                            for l in range(L)]
+        except Exception as exc:
+            lib_args, library_error = None, str(exc).strip().splitlines()[0][:200]
+        for rows in sum(main_path_rows(engine_serve_config("mixtral_int4")), []):
+            shape = (L, E, rows, in_f) if per_expert else (L, rows, in_f)
+            x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            run = lambda i=0: i4.moe_launch(x[i % L], w4[i % L], gs[i % L])
+            plain = lambda i=0: i4.moe_plain(x[0], w4[0], gs[0])
+            cmp = compare(run(0), plain(0))
+            ms = time_ms(run, 20 if rows <= 8 else 5)
+            plain_ms = time_ms(plain, 2)
+            b_ms, b_by = bound(E * out_f * in_f // 2 + E * n_groups * out_f * 4 + x[0].numel() * 2
+                               + E * rows * out_f * 2, 2.0 * E * rows * out_f * in_f)
+            iters, repeats = (10, 3) if rows <= 8 else (2, 1)
+            library_ms = aside_ms = None
+            rec_error = library_error
+            if lib_args is not None:
+                try:
+                    if per_expert:
+                        # no single PyTorch call takes a different x per expert: an
+                        # aside, not the library column, of one W4A16 call per expert
+                        aside = lambda i=0: [torch._weight_int4pack_mm(
+                            x[i % L][e], lib_args[i % L][e][0], i4.GROUP, lib_args[i % L][e][1])
+                            for e in range(E)]
+                        aside_ms = time_ms(aside, iters, repeats)
+                    else:
+                        # shared x: one call over all experts' rows; its [N, E*OUT]
+                        # is the kernel's [E, N, OUT] transposed
+                        library = lambda i=0: torch._weight_int4pack_mm(
+                            x[i % L], lib_args[i % L][0], i4.GROUP, lib_args[i % L][1])
+                        library_ms = time_ms(library, iters, repeats)
+                except Exception as exc:
+                    rec_error = str(exc).strip().splitlines()[0][:200]
+            lib = ({"aside": f"{E} x torch._weight_int4pack_mm, one per expert", "aside_ms": aside_ms}
+                   if per_expert else {"library": "torch._weight_int4pack_mm over E*OUT rows"})
+            rec = {"phase": "check", "kernel": "int4_moe_matmul", "proj": name, "experts": E,
+                   "rows": rows, "out_features": out_f, "in_features": in_f,
+                   "x": "per expert" if per_expert else "shared", **cmp,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library": "none", "library_ms": library_ms, **lib,
+                   "library_error": rec_error, "host_ms": host_ms(run)}
+            emit(rec)
+            if not cmp["ok"]:
+                failures.append(rec)
+            if name == "gate_up" and rows == 4:
+                reps["int4_moe_matmul"] = rec
+        del w4, gs, lib_args
+        torch.cuda.empty_cache()
+    return reps
+
+
 def check_k3(gen, dev, failures):
     from aqlm_tpu_torch.ops import flash_decode as fd
 
@@ -520,12 +595,14 @@ def reference_check(dev, run):
 
 # run -> (model, mode): the engine runs, in order
 RUNS = {"codes": ("llama2_7b", "codes"), "int8": ("llama2_7b", "int8"),
-        "int4": ("llama2_7b", "int4"), "mixtral_int8": ("mixtral_8x7b", "int8")}
+        "int4": ("llama2_7b", "int4"), "mixtral_int8": ("mixtral_8x7b", "int8"),
+        "mixtral_int4": ("mixtral_8x7b", "int4")}
 # the kernels each engine run must launch; the other paths' must stay at 0
 PATH_KERNELS = {"codes": ("lut_gemv", "gather_prefill", "flash_decode_write"),
                 "int8": ("int8_matmul", "flash_decode_write"),
                 "int4": ("int4_matmul", "flash_decode_write"),
-                "mixtral_int8": ("int8_matmul", "int8_moe_matmul", "flash_decode_write")}
+                "mixtral_int8": ("int8_matmul", "int8_moe_matmul", "flash_decode_write"),
+                "mixtral_int4": ("int4_matmul", "int4_moe_matmul", "flash_decode_write")}
 
 
 def model_config(model):
@@ -537,7 +614,8 @@ def model_config(model):
 
 def engine_serve_config(run):
     """Mixtral's 43.6 GiB of int8 weights load with donate_params: without it
-    the stacked copies would double them past the card's 80 GB."""
+    the stacked copies would double them past the card's 80 GB (its ~24 GB
+    in int4 load the same way)."""
     from aqlm_tpu_torch.serve import ServeConfig
 
     model, mode = RUNS[run]
@@ -603,11 +681,13 @@ def engine_run(dev, run):
     ran = all(launches[k] > 0 for k in PATH_KERNELS[run])
     others = all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS[run])
     moe = {}
-    if launches["int8_moe_matmul"]:
-        # every forward: fused qkv and o per layer plus the head on the int8
-        # kernel, gate, up and down per layer on the MoE kernel
-        forwards = launches["int8_matmul"] / (2 * cfg.num_layers + 1)
-        moe = {"forwards": forwards, "moe_launches_per_forward": launches["int8_moe_matmul"] / forwards}
+    if model == "mixtral_8x7b":
+        # every forward: fused qkv and o per layer (plus the int8 head) on the
+        # mode's dense kernel, gate, up and down per layer on its MoE kernel
+        dense = f"{mode}_matmul"
+        forwards = launches[dense] / (2 * cfg.num_layers + serve.lm_head_int8)
+        moe = {"forwards": forwards,
+               "moe_launches_per_forward": launches[f"{mode}_moe_matmul"] / forwards}
         ran = ran and moe["moe_launches_per_forward"] == 3 * cfg.num_layers
     decode_steps = [s for s in steps if s[1] and s[2] > 0]
     decode_tok = sum(s[2] for s in decode_steps)
@@ -689,18 +769,24 @@ def main() -> int:
 
     failures = []
     gen = torch.Generator(device=dev).manual_seed(0)
+    phase_s = {"build": build_s}
+    t0 = time.perf_counter()
     with torch.inference_mode():
         reps = check_k1_k2(gen, dev, failures)
         reps.update(check_k3(gen, dev, failures))
         reps.update(check_int8(gen, dev, failures))
         reps.update(check_int4(gen, dev, failures))
         reps.update(check_int8_moe(gen, dev, failures))
+        reps.update(check_int4_moe(gen, dev, failures))
+    phase_s["checks"] = time.perf_counter() - t0
     if failures:
         print(f"chip_smoke: {len(failures)} kernel checks out of tolerance", file=sys.stderr)
         return 2
 
     for run in RUNS:
+        t0 = time.perf_counter()
         ref = reference_check(dev, run)
+        phase_s[f"reference_{run}"] = ref["seconds"] = time.perf_counter() - t0
         emit(ref)
         if not ref["ok"]:
             print(f"chip_smoke: {run} kernels disagree with the CPU reference", file=sys.stderr)
@@ -708,12 +794,15 @@ def main() -> int:
 
     runs = {}
     for run in RUNS:
+        t0 = time.perf_counter()
         runs[run] = engine_run(dev, run)
+        phase_s[f"engine_{run}"] = runs[run]["seconds"] = time.perf_counter() - t0
         emit(runs[run])
         if not runs[run]["ok"]:
             print(f"chip_smoke: the {run} engine run failed its checks", file=sys.stderr)
             return 4
 
+    emit({"phase": "seconds", **phase_s, "total": time.perf_counter() - T_START})
     kernels = []
     for name, info in _build.KERNELS.items():
         r = reps[name]

@@ -1,6 +1,7 @@
-"""Time the int8 or int4 kernel of one copy of aqlm_tpu_torch, for A/B comparisons.
+"""Time the int8, int4 or all-expert int4 kernel of one copy of aqlm_tpu_torch,
+for A/B comparisons.
 
-    python3 experiments/torch_ab.py ROOT TAG {int8,int4} [check]
+    python3 experiments/torch_ab.py ROOT TAG {int8,int4,int4_moe} [check]
 
 ROOT is a directory holding an ``aqlm_tpu_torch`` package (``.`` for the
 checkout; copies of the package in other directories build their kernels
@@ -12,8 +13,13 @@ shapes. Then it prints one JSON line of device times in ms (CUDA-graph
 replays of 50 calls, 10 above 8 rows, cycling 8 stacked copies, median of
 5) of the kernel's ``launch`` at Llama-2-7B's four fused projections (and
 the lm_head for int8) at rows 1, 2, 4, 8, 64, 256 and 1024, each shape
-checked once against the plain version. Compare two copies within one call
-on one card, in turns (A, B, B, A). Exits non-zero on any mismatch.
+checked once against the plain version. ``int4_moe`` runs the all-expert
+int4 kernel (``moe_launch``, a package that has it) instead: ``check`` at
+rows 1-9 and 64 of split-K (E=2, OUT=128) and ragged, padded (E=3, 520 x
+1040) shapes with shared and per-expert x, then times at Mixtral-8x7B's
+gate/up (shared x) and down (per-expert x), cycling 2 stacked layers. Compare
+two copies within one call on one card, in turns (A, B, B, A). Exits
+non-zero on any mismatch.
 """
 import json
 import os
@@ -31,6 +37,7 @@ from aqlm_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from aqlm_tpu_torch.ops import int8_matmul as i8  # noqa: E402
 
 m = i8 if kernel == "int8" else i4
+moe = kernel == "int4_moe"
 assert m.__file__.startswith(os.path.abspath(root)), m.__file__
 _build.library()
 dev = torch.device("cuda")
@@ -38,16 +45,52 @@ g = torch.Generator(device=dev).manual_seed(0)
 L = 8
 
 
-def weights(out_f, in_f, n):
-    """``n`` stacked copies of one projection's weights in the kernel's layout."""
+def weights(out_f, in_f, n, experts=None):
+    """``n`` stacked copies of one projection's weights in the kernel's layout
+    (with ``experts``, [n, E, ...])."""
     if kernel == "int8":
         w8 = torch.randint(-127, 128, (n, out_f, i8.pad_in_features(in_f)), generator=g,
                            device=dev, dtype=torch.int32).to(torch.int8)
         w8[..., in_f:] = 0
         return w8, torch.rand((n, out_f), generator=g, device=dev) / (127 * in_f ** 0.5)
+    e = experts or 1
     packs = [i4.quantize_int4(torch.randn((out_f, in_f), generator=g, device=dev) / in_f ** 0.5)
-             for _ in range(n)]
-    return torch.stack([p[0] for p in packs]), torch.stack([p[1] for p in packs])
+             for _ in range(n * e)]
+    w4, gs = torch.stack([p[0] for p in packs]), torch.stack([p[1] for p in packs])
+    if experts:
+        return w4.reshape(n, e, *w4.shape[1:]), gs.reshape(n, e, *gs.shape[1:])
+    return w4, gs
+
+
+if moe:
+    bad = 0
+    if len(sys.argv) > 4:
+        for E, out_f, in_f in [(2, 128, 4096), (3, 520, 1040)]:
+            w, s = weights(out_f, in_f, 1, E)
+            for rows in (*range(1, 10), 64):
+                for shape in ((rows, in_f), (E, rows, in_f)):
+                    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                    got = m.moe_launch(x, w[0], s[0])
+                    ok = (compare(got, m.moe_plain(x, w[0], s[0]))["ok"]
+                          and torch.equal(got, m.moe_launch(x, w[0], s[0])))
+                    bad += not ok
+                    if not ok:
+                        print("FAIL", E, out_f, in_f, shape, flush=True)
+        print(tag, "check bad", bad, flush=True)
+    res = {}
+    for name, E, out_f, in_f, per_expert in [("gate_up", 8, 14336, 4096, False),
+                                             ("down", 8, 4096, 14336, True)]:
+        w, s = weights(out_f, in_f, 2, E)
+        for rows in (1, 2, 4, 8, 64, 256, 1024):
+            x = torch.randn((2, E, rows, in_f) if per_expert else (2, rows, in_f), generator=g,
+                            device=dev).to(torch.bfloat16)
+            bad += not compare(m.moe_launch(x[0], w[0], s[0]), m.moe_plain(x[0], w[0], s[0]))["ok"]
+            res[f"{name}/{rows}"] = round(time_ms(lambda i=0: m.moe_launch(x[i % 2], w[i % 2], s[i % 2]),
+                                                  20 if rows <= 8 else 5, 5), 5)
+        del w, s
+        torch.cuda.empty_cache()
+    print(tag, kernel, "bad", bad, json.dumps(res), flush=True)
+    sys.exit(1 if bad else 0)
 
 
 bad = 0

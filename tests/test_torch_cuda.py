@@ -9,6 +9,8 @@ suite's conftest imports JAX, which the port does not need):
 Tolerance on bf16 outputs: one bf16 step of the plain result plus 1e-3 of its
 largest magnitude (both round an f32 sum taken in another order)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -134,7 +136,7 @@ def test_engine_on_the_card_launches_every_kernel(dev):
     assert [len(o) for o in out] == [4, 4]
     assert all(_build.KERNELS[k].launches > 0 for k in CODES_KERNELS)
     assert _build.KERNELS["int8_matmul"].launches == _build.KERNELS["int4_matmul"].launches == 0
-    assert _build.KERNELS["int8_moe_matmul"].launches == 0
+    assert _build.KERNELS["int8_moe_matmul"].launches == _build.KERNELS["int4_moe_matmul"].launches == 0
 
 
 def _int8(gen, dev, L, out_f=520, in_f=11008):
@@ -199,7 +201,7 @@ def test_int8_engine_on_the_card_launches_its_kernels(dev):
     launches = {k: v.launches for k, v in _build.KERNELS.items()}
     assert launches["int8_matmul"] > 0 and launches["flash_decode_write"] > 0
     assert launches["lut_gemv"] == launches["gather_prefill"] == launches["int4_matmul"] == 0
-    assert launches["int8_moe_matmul"] == 0
+    assert launches["int8_moe_matmul"] == launches["int4_moe_matmul"] == 0
 
 
 def _moe(gen, dev, E, out_f, in_f, L=2):
@@ -283,6 +285,7 @@ def test_mixtral_int8_engine_on_the_card_launches_its_kernels(dev):
     assert launches["int8_moe_matmul"] == forwards * 3 * L
     assert launches["flash_decode_write"] > 0
     assert launches["lut_gemv"] == launches["gather_prefill"] == launches["int4_matmul"] == 0
+    assert launches["int4_moe_matmul"] == 0
 
 
 def _int4(gen, dev, L, out_f=520, in_f=11008):
@@ -365,4 +368,109 @@ def test_int4_engine_on_the_card_launches_its_kernels(dev):
     launches = {k: v.launches for k, v in _build.KERNELS.items()}
     assert launches["int4_matmul"] > 0 and launches["flash_decode_write"] > 0
     assert launches["lut_gemv"] == launches["gather_prefill"] == launches["int8_matmul"] == 0
-    assert launches["int8_moe_matmul"] == 0
+    assert launches["int8_moe_matmul"] == launches["int4_moe_matmul"] == 0
+
+
+@functools.cache
+def _int4_moe(E, out_f, in_f, L=2):
+    """Stacked all-expert int4 weights [L, E, OUT, IN_pad/2] quantized from
+    random dense ones (1040 -> 2048: a padded IN) and group scales [L, E,
+    IN_pad/128, OUT], made once per shape on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(E + out_f + in_f)
+    packs = [i4.quantize_int4(torch.randn((out_f, in_f), generator=gen, device="cuda") * in_f ** -0.5)
+             for _ in range(L * E)]
+    w4 = torch.stack([p[0] for p in packs]).reshape(L, E, out_f, -1)
+    gs = torch.stack([p[1] for p in packs]).reshape(L, E, -1, out_f)
+    return w4, gs
+
+
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 64, 200])
+@pytest.mark.parametrize("shape", MOE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int4_moe_matmul_kernel_matches_plain(dev, shape, rows, per_expert):
+    E, out_f, in_f = shape
+    w4, gs = _int4_moe(E, out_f, in_f)
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn((E, rows, in_f) if per_expert else (rows, in_f), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    before = _build.KERNELS["int4_moe_matmul"].launches
+    got = i4.int4_moe_matmul_indexed(x, w4, gs, 1)
+    assert _build.KERNELS["int4_moe_matmul"].launches == before + 1
+    assert got.shape == (E, rows, out_f)
+    _close(got, i4.moe_plain(x, w4[1], gs[1]))
+
+
+@pytest.mark.parametrize("rows", [1, 16])
+def test_int4_moe_matmul_kernel_nibble_order(dev, rows):
+    """Per-expert one-hot x: expert e reads its own column c of its own
+    dequantized weight, exactly, for columns in both nibbles of several
+    packing blocks (and a shared one-hot x reads the same column of each)."""
+    w4, gs = _int4_moe(3, 520, 1040)
+    oracle = [i4.dequantize_int4(w4[1, e], gs[1, e]).to(torch.bfloat16) for e in range(3)]
+    for cols in ((0, 128, 255), (127, 256, 383), (511, 512, 1039), (200, 200, 200)):
+        x = torch.zeros((3, rows, 1040), dtype=torch.bfloat16, device=dev)
+        for e, c in enumerate(cols):
+            x[e, :, c] = 1
+        got = i4.int4_moe_matmul_indexed(x, w4, gs, 1)
+        for e, c in enumerate(cols):
+            assert torch.equal(got[e, 0], oracle[e][:, c]), (e, c)
+    shared = i4.int4_moe_matmul_indexed(x[0], w4, gs, 1)
+    for e in range(3):
+        assert torch.equal(shared[e, -1], oracle[e][:, 200])
+
+
+def test_int4_moe_matmul_kernel_is_deterministic(dev):
+    """Split-K at E=2, OUT=128: each expert's splits are added in a fixed
+    order by its own last block."""
+    w4, gs = _int4_moe(2, 128, 4096)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for rows in (4, 64):
+        x = torch.randn((2, rows, 4096), generator=gen, device=dev).to(torch.bfloat16)
+        a = i4.int4_moe_matmul(x, w4[0], gs[0])
+        assert torch.equal(a, i4.int4_moe_matmul(x, w4[0], gs[0]))
+        # each expert agrees with the dense form run on it alone
+        for e in range(2):
+            _close(a[e], i4.int4_matmul(x[e], w4[0, e], gs[0, e]))
+
+
+def test_int4_moe_matmul_wrapper_raises(dev):
+    w4, gs = _int4_moe(2, 128, 4096)
+    w4, gs = w4[0], gs[0]
+    x = torch.randn((4, 4096), device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        i4.int4_moe_matmul(x, w4, gs)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="per-expert x"):
+        i4.int4_moe_matmul(torch.stack([xb] * 3), w4, gs)
+    with pytest.raises(ValueError, match="does not match"):
+        i4.int4_moe_matmul(xb, w4, gs[:, :16].contiguous())
+    with pytest.raises(ValueError, match="uint8 packed weights"):
+        i4.int4_moe_matmul(xb, w4.to(torch.int8), gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        i4.moe_launch(xb, w4, gs.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="takes w4"):
+        i4.moe_launch(xb, w4[0], gs[0])
+
+
+def test_mixtral_int4_engine_on_the_card_launches_its_kernels(dev):
+    """Experts run only through the all-expert int4 kernel, 3 launches per
+    layer per forward; the int4 kernel's count is the fused qkv and o (the
+    head is dense); no int8 kernel runs."""
+    cfg = mixtral.MixtralConfig.tiny_moe(num_layers=2, hidden_size=256, intermediate_size=256,
+                                         num_heads=4, num_kv_heads=2)
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg, SCHEME_2X8,
+                                     mode="int4")
+    engine = Engine(params, cfg, ServeConfig(max_batch=2, max_len=1024, prefill_buckets=(16, 32),
+                                             kv_quantized=True, donate_params=True))
+    assert isinstance(engine.params["layers"]["experts_gate_proj"], mixtral.StackedInt4Experts)
+    _build.reset_launch_counts()
+    out = engine.generate([np.arange(5), np.arange(40)], SamplingParams(max_new_tokens=4))
+    assert [len(o) for o in out] == [4, 4]
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    L = cfg.num_layers
+    forwards = launches["int4_matmul"] // (2 * L)
+    assert forwards > 0 and launches["int4_matmul"] == forwards * 2 * L
+    assert launches["int4_moe_matmul"] == forwards * 3 * L
+    assert launches["flash_decode_write"] > 0
+    assert launches["int8_matmul"] == launches["int8_moe_matmul"] == 0
+    assert launches["lut_gemv"] == launches["gather_prefill"] == 0

@@ -1,12 +1,12 @@
 """The port's Mixtral (sparse-MoE) serving against aqlm_tpu on the CPU.
 
-The same numpy inputs go through the JAX functions (the Pallas int8 and
-codes kernels in interpret mode, as the JAX tests run them) and the port's
-counterparts (their plain versions: the tensors lie on the CPU).
+The same numpy inputs go through the JAX functions (the Pallas int8, int4
+and codes kernels in interpret mode, as the JAX tests run them) and the
+port's counterparts (their plain versions: the tensors lie on the CPU).
 Tolerances: bf16 outputs one bf16 step (rtol 8e-3, atol 2e-3), f32 outputs
 rtol = atol = 2e-3, routing weights rtol = atol = 1e-6 with the same experts
-selected; stacked int8 experts and checkpoint arrays identical; greedy
-Engine tokens identical.
+selected; stacked int8 and int4 experts and checkpoint arrays identical;
+greedy Engine tokens identical.
 """
 
 import functools
@@ -24,6 +24,7 @@ from aqlm_tpu.models import mixtral as jmixtral
 from aqlm_tpu.models import stacked as jstacked
 from aqlm_tpu.models.common import DenseLinear as JDense
 from aqlm_tpu.models.quantize import random_quantize_projections as j_random_quantize_projections
+from aqlm_tpu.ops import int4_matmul as j4
 from aqlm_tpu.ops import int8_matmul as jim
 from aqlm_tpu.serve import Engine as JEngine
 from aqlm_tpu.serve import SamplingParams as JSampling
@@ -35,6 +36,7 @@ from aqlm_tpu_torch.models import family, mixtral
 from aqlm_tpu_torch.models.common import DenseLinear
 from aqlm_tpu_torch.models.quantize import random_quantize_projections, random_quantized_params
 from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache, stack_layer_params
+from aqlm_tpu_torch.ops import int4_matmul as i4
 from aqlm_tpu_torch.ops import int8_matmul as im
 from aqlm_tpu_torch.serve import Engine, SamplingParams, ServeConfig
 
@@ -89,6 +91,75 @@ def test_int8_moe_matmul_matches_jax(rows, per_expert, in_f):
                                    f32(want0), rtol=8e-3, atol=2e-3)
 
 
+@functools.cache
+def _moe_int4_inputs(in_f, L=2):
+    """Stacked all-expert int4 weights [L, E, OUT, IN_pad/2] and group
+    scales [L, E, IN_pad/128, OUT], quantized by aqlm_tpu from random dense
+    ones."""
+    rng = np.random.default_rng(in_f)
+    packs = [j4.quantize_int4(jnp.asarray(rng.standard_normal((OUT, in_f)), jnp.float32) * in_f ** -0.5)
+             for _ in range(L * E)]
+    w4 = np.stack([np.asarray(p[0]) for p in packs]).reshape(L, E, OUT, -1)
+    gs = np.stack([np.asarray(p[1]) for p in packs]).reshape(L, E, -1, OUT)
+    return w4, gs
+
+
+@pytest.mark.parametrize("in_f", [96, 1040])  # pad to 256 and 2048
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("rows", [1, 5, 8, 16])
+def test_int4_moe_matmul_matches_jax(rows, per_expert, in_f):
+    w4, gs = _moe_int4_inputs(in_f)
+    assert w4.shape[-1] == i4.pad_in_features_int4(in_f) // 2
+    rng = np.random.default_rng(rows + 10 * per_expert + in_f)
+    x = rng.standard_normal((E, rows, in_f) if per_expert else (rows, in_f)).astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    tx = t(jx)
+    want = j4.int4_moe_matmul_indexed(jx, jnp.asarray(w4), jnp.asarray(gs), 1)
+    got = i4.int4_moe_matmul_indexed(tx, t(w4), t(gs), 1)
+    assert got.shape == (E, rows, OUT) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(f32(got), f32(want), rtol=8e-3, atol=2e-3)
+    if rows in (1, 16):  # the unstacked form (one kernel, no layer offset) on both paths
+        want0 = j4.int4_moe_matmul(jx, jnp.asarray(w4[0]), jnp.asarray(gs[0]))
+        np.testing.assert_allclose(f32(i4.int4_moe_matmul(tx, t(w4[0]), t(gs[0]))),
+                                   f32(want0), rtol=8e-3, atol=2e-3)
+
+
+def test_int4_moe_matmul_nibble_order_one_hot():
+    """Per-expert one-hot x: expert e's row r picks column cols[e][r] of its
+    own dequantized weight, exactly (both nibbles, several packing blocks)."""
+    w4, gs = _moe_int4_inputs(1040)
+    cols = [[0, 127, 128, 300], [255, 256, 383, 1039], [5, 511, 512, 900]]
+    x = np.zeros((E, 4, 1040), np.float32)
+    for e, cs in enumerate(cols):
+        x[e, np.arange(4), cs] = 1.0
+    got = i4.int4_moe_matmul(torch.from_numpy(x), t(w4[0]), t(gs[0]))
+    for e, cs in enumerate(cols):
+        oracle = np.asarray(j4.dequantize_int4(jnp.asarray(w4[0, e]), jnp.asarray(gs[0, e])))
+        np.testing.assert_array_equal(got[e].numpy(), oracle[:, cs].T)
+
+
+def test_stack_experts_int4_matches_jax_exactly():
+    jcfg, jparams = _params("int4")
+    _, cfg = _cfgs()
+    want = jmixtral.stack_experts(jparams["layers"][0], jcfg)
+    layer = _port(jparams)["layers"][0]
+    got = mixtral.stack_experts(layer, cfg)
+    assert set(got) == set(want) and not any(k.startswith("experts.") for k in got)
+    for proj in mixtral.EXPERT_PROJS:
+        g, w = got[f"experts_{proj}"], want[f"experts_{proj}"]
+        assert isinstance(g, mixtral.StackedInt4Experts) and g.w4.shape[0] == cfg.num_experts
+        np.testing.assert_array_equal(g.w4.numpy(), np.asarray(w.w4))
+        np.testing.assert_array_equal(g.gscale.numpy(), np.asarray(w.gscale))
+        # JAX's stacked form carries across through the numpy tree as it is
+        c = params_from_numpy(to_numpy_tree(w), device="cpu")
+        assert isinstance(c, mixtral.StackedInt4Experts)
+        assert torch.equal(c.w4, g.w4) and torch.equal(c.gscale, g.gscale)
+    donated = mixtral.stack_experts(layer, cfg, donate=True)
+    assert donated is layer and set(donated) == set(want)
+    np.testing.assert_array_equal(donated["experts_down_proj"].w4.numpy(),
+                                  np.asarray(want["experts_down_proj"].w4))
+
+
 def test_stack_experts_int8_matches_jax_exactly():
     jcfg, jparams = _params()
     _, cfg = _cfgs()
@@ -140,7 +211,8 @@ def _stacked_pair(mode, dtype):
     return jcfg, jst, cfg, st
 
 
-@pytest.mark.parametrize("mode,dtype", [("int8", "f32"), ("int8", "bf16"), ("dense", "f32")])
+@pytest.mark.parametrize("mode,dtype", [("int8", "f32"), ("int8", "bf16"), ("dense", "f32"),
+                                        ("int4", "f32"), ("int4", "bf16")])
 def test_moe_mlp_stacked_indexed_matches_jax(mode, dtype):
     jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
     jcfg, jst, cfg, st = _stacked_pair(mode, jdt)
@@ -167,7 +239,7 @@ def test_moe_mlp_stacked_indexed_matches_jax(mode, dtype):
         assert_close(got1, want1)
 
 
-@pytest.mark.parametrize("mode", ["reference", "int8"])
+@pytest.mark.parametrize("mode", ["reference", "int8", "int4"])
 def test_mixtral_forward_matches_jax(mode):
     jcfg, jparams = _params(mode)
     _, cfg = _cfgs()
@@ -178,11 +250,13 @@ def test_mixtral_forward_matches_jax(mode):
     assert_close(got, want)
 
 
-@pytest.mark.parametrize("kv_quantized", [True, False])
-def test_forward_stacked_mixtral_matches_jax(kv_quantized):
+def _forward_stacked_check(mode, kv_quantized):
     """Prefill then one decode step per row; max_len 1024 takes the flash
-    rule for int8 layers (K3, GQA with 2 query heads per kv head)."""
-    jcfg, jst, cfg, st = _stacked_pair("int8", jnp.float32)
+    rule for int8 and int4 layers (K3, GQA with 2 query heads per kv head)."""
+    jcfg, jst, cfg, st = _stacked_pair(mode, jnp.float32)
+    stacked = st["layers"]["experts_up_proj"]
+    assert type(stacked).__name__ == type(jst["layers"]["experts_up_proj"]).__name__
+    assert type(stacked) is {"int8": mixtral.StackedInt8Experts, "int4": mixtral.StackedInt4Experts}[mode]
     ids = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 12))
     jcache = jstacked.init_kv_cache(jcfg, 2, 1024, quantized=kv_quantized)
     cache = init_kv_cache(cfg, 2, 1024, quantized=kv_quantized, device="cpu")
@@ -199,26 +273,58 @@ def test_forward_stacked_mixtral_matches_jax(kv_quantized):
     assert_close(got, want)
 
 
-def test_load_quantized_model_reads_jax_mixtral_int8_checkpoint(tmp_path):
-    jcfg, jparams = _params("int8", jnp.bfloat16)
-    save_quantized_model(str(tmp_path), jparams, jcfg)
-    params, cfg = load_quantized_model(str(tmp_path), device="cpu")
+@pytest.mark.parametrize("kv_quantized", [True, False])
+def test_forward_stacked_mixtral_matches_jax(kv_quantized):
+    _forward_stacked_check("int8", kv_quantized)
+
+
+@pytest.mark.parametrize("kv_quantized", [True, False])
+def test_forward_stacked_mixtral_int4_matches_jax(kv_quantized):
+    _forward_stacked_check("int4", kv_quantized)
+
+
+def _load_checkpoint_check(mode, path):
+    """Save aqlm_tpu's Mixtral in ``mode`` (bf16), load it with the port:
+    the same config and the same arrays. Returns (JAX params, port params, cfg)."""
+    jcfg, jparams = _params(mode, jnp.bfloat16)
+    save_quantized_model(str(path), jparams, jcfg)
+    params, cfg = load_quantized_model(str(path), device="cpu")
     assert cfg == _cfgs()[1] and isinstance(cfg, mixtral.MixtralConfig)
     want = to_numpy_tree(jparams)
+    fields = {"int8": ("w8", "w8_scale", "scales"), "int4": ("w4", "w4_gscale", "scales")}[mode]
     for layer, ref in zip(params["layers"], want["layers"]):
         np.testing.assert_array_equal(layer["moe_gate"].weight.view(torch.uint16).numpy(),
                                       ref["moe_gate"]["weight"]["__bf16__"])
         for name in mixtral.quantizable_proj_names(cfg):
             q, r = layer[name], ref[name]
-            assert q.mode == "int8" and q.bias is None
-            for f in ("w8", "w8_scale", "scales"):
+            assert q.mode == mode and q.bias is None
+            for f in fields:
                 np.testing.assert_array_equal(getattr(q, f).numpy(), r[f])
+    return jparams, params, cfg
 
 
-@pytest.mark.parametrize("mode", ["int8", "codes"])
+def test_load_quantized_model_reads_jax_mixtral_int8_checkpoint(tmp_path):
+    _load_checkpoint_check("int8", tmp_path)
+
+
+def test_load_quantized_model_reads_jax_mixtral_int4_checkpoint(tmp_path):
+    """The int4 checkpoint loads and serves: the loaded model's greedy tokens
+    are those of the same params carried across in memory."""
+    jparams, params, cfg = _load_checkpoint_check("int4", tmp_path)
+    kw = dict(max_batch=2, max_len=128, prefill_buckets=(16, 32), kv_quantized=True)
+    prompts, sampling = [np.arange(5), np.arange(37)], SamplingParams(max_new_tokens=3)
+    loaded = Engine(params, cfg, ServeConfig(**kw, donate_params=True), device="cpu")
+    assert isinstance(loaded.params["layers"]["experts_gate_proj"], mixtral.StackedInt4Experts)
+    got = loaded.generate(prompts, sampling)
+    assert got == Engine(_port(jparams), cfg, ServeConfig(**kw), device="cpu").generate(prompts, sampling)
+    assert [len(o) for o in got] == [3, 3]
+
+
+@pytest.mark.parametrize("mode", ["int8", "codes", "int4"])
 def test_engine_mixtral_generate_matches_jax_greedy(mode):
     """int8: experts stacked for the all-expert kernel, int8 head, the
-    port's load with donate_params; codes: the per-expert loop over K1/K2."""
+    port's load with donate_params; int4: the same with the int4 kernel and
+    a dense head; codes: the per-expert loop over K1/K2."""
     jcfg, jparams = _params(mode, num_layers=1)
     _, cfg = _cfgs(num_layers=1)
     kw = dict(max_batch=2, max_len=128, prefill_buckets=(16, 32), kv_quantized=True,
@@ -232,6 +338,10 @@ def test_engine_mixtral_generate_matches_jax_greedy(mode):
         assert isinstance(layers["experts_gate_proj"], mixtral.StackedInt8Experts)
         assert layers["experts_down_proj"].w8.shape[:2] == (1, cfg.num_experts)
         assert engine.params["lm_head"].mode == "int8"
+    elif mode == "int4":
+        assert isinstance(layers["experts_gate_proj"], mixtral.StackedInt4Experts)
+        assert layers["experts_down_proj"].w4.shape[:2] == (1, cfg.num_experts)
+        assert isinstance(engine.params["lm_head"], DenseLinear)
     else:
         assert layers["experts.0.gate_proj"].mode == "codes" and "qkv_proj" in layers
     got, got_lp = run_engine(engine, SamplingParams)
@@ -266,14 +376,11 @@ def test_port_random_mixtral_params_serve():
 
 def test_unported_mixtral_paths_raise():
     _, cfg = _cfgs(num_layers=1)
-    made = {mode: random_quantized_params(torch.Generator().manual_seed(0), cfg, T_SCHEME_2X8,
-                                          mode=mode, device="cpu") for mode in ("int4", "codes")}
-    for params in made.values():  # the all-expert W4A16 and LUT-GEMV kernels
-        with pytest.raises(NotImplementedError, match="B12"):
-            mixtral.stack_experts(params["layers"][0], cfg)
-    with pytest.raises(NotImplementedError, match="B12"):  # int4 experts are stacked to serve
-        Engine(made["int4"], cfg, device="cpu")
+    codes = random_quantized_params(torch.Generator().manual_seed(0), cfg, T_SCHEME_2X8,
+                                    mode="codes", device="cpu")
+    with pytest.raises(NotImplementedError, match="B12"):  # the all-expert LUT-GEMV kernel
+        mixtral.stack_experts(codes["layers"][0], cfg)
     with pytest.raises(NotImplementedError, match="A9"):
         family.config_class("falcon")
     with pytest.raises(NotImplementedError, match="A4"):
-        mixtral.forward(made["codes"], cfg, torch.zeros((1, 3), dtype=torch.long), kv_caches=[])
+        mixtral.forward(codes, cfg, torch.zeros((1, 3), dtype=torch.long), kv_caches=[])
