@@ -4,10 +4,10 @@
 arrays in which each weight object is a dict with a ``"__class__"`` key
 (``"QuantizedLinear"``, ``"DenseLinear"``, ``"FusedCodesLinear"``,
 ``"StackedInt8Experts"`` or ``"StackedInt4Experts"``) and its fields, the
-scheme given by name (``"2x8g8"``); a QuantizedLinear is in reference, codes (tiled), int8 or
-int4 mode. A bf16 array arrives as its uint16 view wrapped in
-``{"__bf16__": array}`` and becomes ``torch.bfloat16``. Tiled codes copy
-across as they are.
+scheme given by name (``"2x8g8"``); a QuantizedLinear is in reference, codes (tiled or
+untiled), int8 or int4 mode. A bf16 array arrives as its uint16 view wrapped in
+``{"__bf16__": array}`` and becomes ``torch.bfloat16``. Codes copy across
+as they are.
 """
 
 from __future__ import annotations
@@ -65,10 +65,11 @@ def _convert(node, dev):
                                    scheme=scheme, mode=mode, w4=t("w4"), w4_gscale=t("w4_gscale"))
         if mode != "codes":
             raise ValueError(f"unknown QuantizedLinear mode {mode!r}")
-        if node.get("codes_tl") is None:
-            raise not_ported("codes mode without the tiled layout (one-hot kernel)", "B15")
+        if node.get("codes_tl") is None and node.get("codes_t") is None:
+            raise not_ported("codes mode for 16-bit codebooks (1x16 gather)", "B1")
         return QuantizedLinear(codes=None, codebooks=t("codebooks"), scales=t("scales"),
-                               bias=t("bias"), scheme=scheme, mode=mode, codes_tl=t("codes_tl"))
+                               bias=t("bias"), scheme=scheme, mode=mode, codes_tl=t("codes_tl"),
+                               codes_t=t("codes_t"))
     if isinstance(node, dict):
         return {k: _convert(v, dev) for k, v in node.items()}
     return tensor_from_numpy(node, dev)

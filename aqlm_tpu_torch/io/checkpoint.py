@@ -6,9 +6,11 @@ norm, lm_head) and one ``layer_{i}.npz`` per block with flat
 ``name.field -> array`` entries. bf16 arrays are stored as a uint16 view
 under a ``::bf16``-suffixed key. Layers are canonical AQLM weights
 (reference mode) or materialized runtime layouts; of the latter the port
-reads the tiled codes-mode, the int8 and the int4 layouts. ``model_family``
-in ``config.json`` picks the config class (Llama or Mixtral; a Mixtral's
-experts are flat ``experts.{e}.*`` layer entries like any projection).
+reads the codes-mode (tiled and untiled), the int8 and the int4 layouts.
+``model_family`` in ``config.json`` picks the config class (Llama, Mixtral
+or Falcon; a Mixtral's experts are flat ``experts.{e}.*`` layer entries like
+any projection; a Falcon's biased final LayerNorm adds ``final_norm_bias`` to
+``shared.npz``).
 """
 
 from __future__ import annotations
@@ -67,13 +69,13 @@ def _layer_from_flat(arrays: dict, meta: dict, device) -> dict:
         elif m["kind"] == "runtime":
             if m["mode"] != "codes":
                 raise ValueError(f"unknown runtime mode {m['mode']!r} in the checkpoint")
-            if f"{name}.codes_tl" not in arrays:
-                raise not_ported("codes checkpoints without the tiled layout (one-hot kernel)", "B15")
+            if f"{name}.codes_tl" not in arrays and f"{name}.codes_t" not in arrays:
+                raise not_ported("codes checkpoints for 16-bit codebooks (1x16 gather)", "B1")
             scheme = AqlmScheme.parse(m["scheme"])
             layer[name] = QuantizedLinear(
                 codes=None, codebooks=get(f"{name}.codebooks"), scales=get(f"{name}.scales"),
                 bias=get(f"{name}.bias"), scheme=scheme, mode="codes",
-                codes_tl=get(f"{name}.codes_tl"),
+                codes_tl=get(f"{name}.codes_tl"), codes_t=get(f"{name}.codes_t"),
             )
         elif m["kind"] == "quantized":
             w = AqlmWeight(codes=get(f"{name}.codes"), codebooks=get(f"{name}.codebooks"),
@@ -100,8 +102,8 @@ def load_layer_checkpoint(save_dir: str, layer_index: int, device=None):
 
 
 def load_quantized_model(save_dir: str, device=None) -> tuple[dict, ModelConfig]:
-    """(params, cfg) of a Llama or Mixtral checkpoint, on ``device`` (None =
-    the card)."""
+    """(params, cfg) of a Llama, Mixtral or Falcon checkpoint, on ``device``
+    (None = the card)."""
     dev = resolve_device(device)
     with open(os.path.join(save_dir, "config.json")) as f:
         config = json.load(f)
@@ -124,4 +126,6 @@ def load_quantized_model(save_dir: str, device=None) -> tuple[dict, ModelConfig]
         layers.append(layer)
     params = {"embed": data["embed"].to(dev), "layers": layers,
               "final_norm": data["final_norm"].to(dev), "lm_head": lm_head}
+    if "final_norm_bias" in data:
+        params["final_norm_bias"] = data["final_norm_bias"].to(dev)
     return params, cfg

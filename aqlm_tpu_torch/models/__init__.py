@@ -1,7 +1,7 @@
-"""Model definitions of the port: the Llama and Mixtral families, the family
-registry, and the stacked serving form."""
+"""Model definitions of the port: the Llama, Mixtral and Falcon families, the
+family registry, and the stacked serving form."""
 
-from aqlm_tpu_torch.models import family, llama, mixtral
+from aqlm_tpu_torch.models import falcon, family, llama, mixtral
 from aqlm_tpu_torch.models.common import (
     DenseLinear,
     apply_linear,
@@ -13,6 +13,7 @@ from aqlm_tpu_torch.models.common import (
 )
 
 __all__ = [
+    "falcon",
     "family",
     "llama",
     "mixtral",

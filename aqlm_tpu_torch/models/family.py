@@ -1,11 +1,11 @@
 """Model-family registry (PyTorch counterpart of ``aqlm_tpu.models.family``):
 one place that maps a config to its module and a checkpoint's
-``model_family`` name to its config class. The port has the Llama and
-Mixtral families; the others raise ``NotImplementedError`` (ROADMAP A9)."""
+``model_family`` name to its config class. The port has the Llama, Mixtral
+and Falcon families; the others raise ``NotImplementedError`` (ROADMAP A9)."""
 
 from __future__ import annotations
 
-from aqlm_tpu_torch.models import llama, mixtral
+from aqlm_tpu_torch.models import falcon, llama, mixtral
 from aqlm_tpu_torch.ops.runtime import not_ported
 
 __all__ = ["FAMILY_REGISTRY", "family_name", "family_module", "config_class"]
@@ -13,6 +13,7 @@ __all__ = ["FAMILY_REGISTRY", "family_name", "family_module", "config_class"]
 # name -> (config class, module); subclasses of ModelConfig come before it
 FAMILY_REGISTRY = {
     "mixtral": (mixtral.MixtralConfig, mixtral),
+    "falcon": (falcon.FalconConfig, falcon),
     "llama": (llama.ModelConfig, llama),
 }
 

@@ -159,9 +159,13 @@ def _block(x, layer, cfg: ModelConfig, positions):
     return res + apply_linear(mlp_in, layer["down_proj"])
 
 
+def final_norm(x, params, cfg):
+    """The Llama family's final RMSNorm (Mixtral's too)."""
+    return rms_norm(x, params["final_norm"], cfg.rms_eps, plus_one=cfg.gemma_norm)
+
+
 def head(x, params, cfg):
-    """Final norm and output head: logits."""
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps, plus_one=cfg.gemma_norm)
+    """Output head of the final-normed hidden state: logits."""
     if params.get("lm_head") is not None:
         logits = apply_linear(x, params["lm_head"])
     else:
@@ -186,4 +190,4 @@ def forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, *,
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
     for layer in params["layers"]:
         x = _block(x, layer, cfg, positions)
-    return head(x, params, cfg)
+    return head(final_norm(x, params, cfg), params, cfg)

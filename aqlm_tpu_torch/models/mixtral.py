@@ -261,4 +261,4 @@ def forward(params: dict, cfg: MixtralConfig, input_ids: torch.Tensor, *,
         res = x = llama.attention_half(x, layer, cfg, positions)
         xn = rms_norm(x, layer["post_attn_norm"], cfg.rms_eps)
         x = res + _moe_mlp(xn, layer, cfg)
-    return llama.head(x, params, cfg)
+    return llama.head(llama.final_norm(x, params, cfg), params, cfg)

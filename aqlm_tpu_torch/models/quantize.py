@@ -21,8 +21,8 @@ __all__ = ["random_quantized_params", "random_quantize_projections"]
 
 def random_quantized_params(generator: torch.Generator, cfg: ModelConfig, scheme: AqlmScheme,
                             mode: str = "codes", dtype=torch.bfloat16, device=None) -> dict:
-    """Random model (Llama or Mixtral) whose projections are QuantizedLinear
-    in ``mode``.
+    """Random model (Llama, Mixtral or Falcon) whose projections are
+    QuantizedLinear in ``mode``.
 
     Built directly on ``device`` (None = the card) from ``generator``, which
     must live there; no dense copy of a quantized projection is made.

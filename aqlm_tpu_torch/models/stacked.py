@@ -1,7 +1,7 @@
 """Stacked-layer model execution and the quantizable KV cache: the serving form.
 
-PyTorch counterpart of ``aqlm_tpu.models.stacked`` for the Llama and
-Mixtral families. Identical blocks are stacked into one set of tensors with
+PyTorch counterpart of ``aqlm_tpu.models.stacked`` for the Llama, Mixtral
+and Falcon families. Identical blocks are stacked into one set of tensors with
 a leading layer axis; ``forward_stacked`` runs a Python loop over layers and
 hands the kernels the stacked weights plus a layer index, so nothing is
 copied per layer. A Mixtral block's stacked experts ([L, E, ...]) go whole
@@ -18,7 +18,7 @@ import dataclasses
 import torch
 
 from aqlm_tpu_torch.device import resolve_device
-from aqlm_tpu_torch.models import family, llama, mixtral
+from aqlm_tpu_torch.models import falcon, family, llama, mixtral
 from aqlm_tpu_torch.models.common import (
     DenseLinear,
     apply_linear,
@@ -153,8 +153,8 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor, offsets: list) -> None:
 def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tensor, *,
                     cache: KVCache | None = None, cache_offset=0,
                     positions: torch.Tensor | None = None):
-    """Causal LM forward over stacked layers (Llama or Mixtral blocks).
-    Returns (logits, cache).
+    """Causal LM forward over stacked layers (Llama, Mixtral or Falcon
+    blocks). Returns (logits, cache).
 
     With a cache, K/V are written IN PLACE at [offset, offset + T) of each
     row (``cache_offset``: int or [B] int tensor) and queries attend over
@@ -163,8 +163,10 @@ def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tenso
     layer is present or max_len >= 1024; otherwise attention is the
     plain head-major attention over the cache. A sparse-MoE block runs its
     stacked experts through ``mixtral.moe_mlp_stacked_indexed`` or, left
-    per expert, through the per-expert loop over layer views."""
-    family.family_name(cfg)  # raises for a family the port has not got (A9)
+    per expert, through the per-expert loop over layer views. A Falcon block
+    is the parallel one: its LayerNorm output feeds attention and the GELU
+    MLP, and both add into the block input."""
+    fam = family.family_name(cfg)  # raises for a family the port has not got (A9)
     stacked_layers = params["layers"]
     b, t = input_ids.shape
     dev = input_ids.device
@@ -199,7 +201,10 @@ def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tenso
         layer = {n: _layer_view(v, i) for n, v in stacked_layers.items()
                  if not n.startswith("experts_")}
         res = x
-        xn = rms_norm(x, layer["input_norm"], cfg.rms_eps, plus_one=cfg.gemma_norm)
+        if fam == "falcon":
+            xn = falcon.layer_norm(x, layer["input_norm"], layer["input_norm_bias"], cfg.ln_eps)
+        else:
+            xn = rms_norm(x, layer["input_norm"], cfg.rms_eps, plus_one=cfg.gemma_norm)
         if "qkv_proj" in layer:
             nq, nkv = cfg.num_heads * d, cfg.num_kv_heads * d
             qkv = apply_linear(xn, layer["qkv_proj"])
@@ -245,7 +250,12 @@ def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tenso
             attn = attention(q, k, v, mask)
         attn = attn.to(x.dtype)
 
-        x = res + apply_linear(attn.reshape(b, t, -1), layer["o_proj"])
+        attn_out = apply_linear(attn.reshape(b, t, -1), layer["o_proj"])
+        if fam == "falcon":
+            h1 = falcon.gelu(apply_linear(xn, layer["fc1"]), x.dtype)
+            x = res + attn_out + apply_linear(h1, layer["fc2"])
+            continue
+        x = res + attn_out
         res = x
         xn = rms_norm(x, layer["post_attn_norm"], cfg.rms_eps, plus_one=cfg.gemma_norm)
         if "moe_gate" in layer:
@@ -262,4 +272,8 @@ def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tenso
         mlp_in = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
         x = res + apply_linear(mlp_in, layer["down_proj"])
 
+    if fam == "falcon":
+        x = falcon.layer_norm(x, params["final_norm"], params["final_norm_bias"], cfg.ln_eps)
+    else:
+        x = llama.final_norm(x, params, cfg)
     return llama.head(x, params, cfg), cache

@@ -82,6 +82,11 @@ KERNELS = {
         "int4_moe_matmul", "aqlm_tpu_torch/ops/csrc/int4_matmul.cu",
         "aqlm_tpu/ops/int4_matmul.py:365", ("aqlm_tpu/ops/int4_matmul.py:295",),
     ),
+    # codes mode at out_features not a multiple of 128 (untiled codes), both forms
+    "onehot_matmul": KernelInfo(
+        "onehot_matmul", "aqlm_tpu_torch/ops/csrc/onehot_matmul.cu",
+        "aqlm_tpu/ops/kernels.py:159", (),
+    ),
 }
 
 
@@ -161,8 +166,9 @@ def _declare(lib) -> None:
     lib.flash_decode_write_launch.argtypes = [P] * 11 + [I] * 7 + [ctypes.c_float, P]
     lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 8 + [P]
     lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 8 + [P]
+    lib.onehot_matmul_launch.argtypes = [P] * 7 + [I] * 8 + [P]
     for fn in (lib.lut_gemv_launch, lib.gather_prefill_launch, lib.flash_decode_write_launch,
-               lib.int8_matmul_launch, lib.int4_matmul_launch):
+               lib.int8_matmul_launch, lib.int4_matmul_launch, lib.onehot_matmul_launch):
         fn.restype = I
 
 

@@ -62,9 +62,9 @@ def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window)
     s_len = k_c.shape[2]
     dev = q_hm.device
     quant = k_c.dtype == torch.int8
-    if d not in (64, 128) or rep not in (1, 2, 4, 8):
-        raise NotImplementedError(f"flash_decode kernel takes head_dim 64/128 and 1/2/4/8 query heads "
-                                  f"per kv head, got D={d}, rep={rep}")
+    if d not in (64, 128) or rep < 1:
+        raise NotImplementedError(f"flash_decode kernel takes head_dim 64/128 and at least one query "
+                                  f"head per kv head, got D={d}, rep={rep}")
     if not quant and k_c.dtype != torch.bfloat16:
         raise ValueError(f"flash_decode kernel takes an int8 or bf16 cache, got {k_c.dtype}")
     if quant and (ks_c is None or vs_c is None or ks_c.dtype != torch.float32
@@ -78,6 +78,9 @@ def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window)
     for t in ops:
         if t.device != dev or not t.is_contiguous():
             raise ValueError("flash_decode kernel operands must be contiguous on one CUDA device")
+    if rep not in (1, 2, 4, 8) and (nk.data_ptr() % 16 or nv.data_ptr() % 16):
+        # the chunked instances read the new row as cache rows are read
+        raise ValueError("flash_decode kernel needs 16-byte aligned new rows at this head count")
     out = torch.empty((b, hkv, rep, d), dtype=torch.bfloat16, device=dev)
     lib, _ = _build.library()
     rc = lib.flash_decode_write_launch(
@@ -111,6 +114,8 @@ def flash_decode_write_attention_indexed(
     if t != 1:
         raise ValueError("flash decode is the single-token path")
     hkv = k_all.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not split over {hkv} kv heads")
     rep = hq // hkv
     if scale is None:
         scale = d ** -0.5

@@ -3,10 +3,12 @@
 PyTorch counterpart of ``aqlm_tpu.ops.runtime`` for the modes this port
 covers:
 
-- "codes" for Kx8 schemes (nbits <= 8) with out_group_size 1, per-output
-  scales and 128-aligned out_features: codes stay resident in the tiled
-  layout; batch <= 8 runs the LUT-GEMV kernel (K1), larger batches the
-  gather-dequant prefill kernel (K2);
+- "codes" for Kx8 schemes (nbits <= 8) with out_group_size 1 and
+  per-output scales: codes stay resident. At 128-aligned out_features they
+  take the tiled layout, batch <= 8 runs the LUT-GEMV kernel (K1), larger
+  batches the gather-dequant prefill kernel (K2); at any other out_features
+  they keep the untiled ``codes_t`` layout and every batch runs the
+  dequant-matmul kernel (B15, ``ops/kernels``);
 - "int8" (W8A16): the dequantized weight re-quantized per output channel
   to int8 at load, [OUT, IN_pad] with ``aqlm_tpu``'s padding; every batch
   runs the int8 kernel (``ops/int8_matmul``);
@@ -36,6 +38,7 @@ from aqlm_tpu_torch.ops.gather_prefill import (
 )
 from aqlm_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_indexed, quantize_int4
 from aqlm_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_indexed, quantize_int8
+from aqlm_tpu_torch.ops.kernels import fused_onehot_matmul, fused_onehot_matmul_indexed
 from aqlm_tpu_torch.ops.lut_gemv import (
     LUT_GEMV_MAX_BATCH,
     lut_gemv_kx8_grouped_indexed,
@@ -76,8 +79,9 @@ class QuantizedLinear:
     """Device-ready quantized linear weight.
 
     reference mode: codes [OG, IG, K], codebooks [K, S, ogs, igs], scales.
-    codes mode:     codes_tl [NT, K*IG, tn] uint8 (tiled), codebooks
-                    [K, S, igs] bf16, scales [OUT] f32.
+    codes mode:     codes_tl [NT, K*IG, tn] uint8 (tiled) when OUT % 128
+                    == 0, else codes_t [K, IG, OUT] uint8 (untiled);
+                    codebooks [K, S, igs] bf16, scales [OUT] f32.
     int8 mode:      w8 [OUT, IN_pad] int8 (IN padded per
                     ``int8_matmul.pad_in_features``), w8_scale [OUT] f32,
                     scales ones.
@@ -98,9 +102,10 @@ class QuantizedLinear:
     w8_scale: torch.Tensor | None = None
     w4: torch.Tensor | None = None
     w4_gscale: torch.Tensor | None = None
+    codes_t: torch.Tensor | None = None
 
     data_fields: ClassVar[tuple] = ("codes", "codebooks", "scales", "bias", "codes_tl", "w8",
-                                    "w8_scale", "w4", "w4_gscale")
+                                    "w8_scale", "w4", "w4_gscale", "codes_t")
 
     @staticmethod
     def from_aqlm(w: AqlmWeight, mode: str = "codes") -> "QuantizedLinear":
@@ -134,23 +139,16 @@ class QuantizedLinear:
         if scheme.nbits_per_codebook > 8:
             raise not_ported("codes mode for 16-bit codebooks (1x16 gather)", "B1")
         codes_t = w.codes.permute(2, 1, 0).to(torch.uint8)  # [K, IG, OUT]
+        cb = w.codebooks[:, :, 0, :].to(torch.bfloat16)
         if codes_t.shape[2] % 128:
-            raise not_ported("codes mode for out_features not a multiple of 128 "
-                             "(one-hot kernel)", "B15")
-        return QuantizedLinear(
-            codes=None, codebooks=w.codebooks[:, :, 0, :].to(torch.bfloat16), scales=scales,
-            bias=w.bias, scheme=scheme, mode=mode, codes_tl=tile_codes(codes_t),
-        )
-
-
-def _check_ported(q: QuantizedLinear) -> None:
-    if q.mode == "codes" and q.codes_tl is None:
-        raise not_ported("codes mode without the tiled layout (one-hot kernel)", "B15")
+            return QuantizedLinear(codes=None, codebooks=cb, scales=scales, bias=w.bias,
+                                   scheme=scheme, mode=mode, codes_t=codes_t.contiguous())
+        return QuantizedLinear(codes=None, codebooks=cb, scales=scales, bias=w.bias,
+                               scheme=scheme, mode=mode, codes_tl=tile_codes(codes_t))
 
 
 def quantized_matmul(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     """y = x @ W_q^T + b through the runtime-mode kernel."""
-    _check_ported(q)
     if q.mode == "reference":
         w = AqlmWeight(codes=q.codes, codebooks=q.codebooks, scales=q.scales,
                        bias=q.bias, scheme=q.scheme)
@@ -160,6 +158,8 @@ def quantized_matmul(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     if q.mode == "int4":
         return int4_matmul(x, q.w4, q.w4_gscale, q.bias)
     g = q.scheme.in_group_size
+    if q.codes_t is not None:
+        return fused_onehot_matmul(x, q.codes_t, q.codebooks, q.scales, q.bias, group=g)
     if _batch(x) <= LUT_GEMV_MAX_BATCH:
         return lut_gemv_kx8_tiled(x, q.codes_tl, q.codebooks, q.scales, q.bias, group=g)
     return gather_prefill_matmul(x, q.codes_tl, q.codebooks, q.scales, q.bias, group=g)
@@ -180,12 +180,11 @@ def _slice_layer(q: QuantizedLinear, idx: int) -> QuantizedLinear:
                            scales=pick(q.scales), bias=pick(q.bias), scheme=q.scheme,
                            mode=q.mode, codes_tl=pick(q.codes_tl), w8=pick(q.w8),
                            w8_scale=pick(q.w8_scale), w4=pick(q.w4),
-                           w4_gscale=pick(q.w4_gscale))
+                           w4_gscale=pick(q.w4_gscale), codes_t=pick(q.codes_t))
 
 
 def quantized_matmul_indexed(x: torch.Tensor, iq: IndexedQuantizedLinear) -> torch.Tensor:
     q = iq.stacked
-    _check_ported(q)
     if q.mode == "reference":
         return quantized_matmul(x, _slice_layer(q, iq.idx))
     if q.mode == "int8":
@@ -193,6 +192,9 @@ def quantized_matmul_indexed(x: torch.Tensor, iq: IndexedQuantizedLinear) -> tor
     if q.mode == "int4":
         return int4_matmul_indexed(x, q.w4, q.w4_gscale, iq.idx, q.bias)
     g = q.scheme.in_group_size
+    if q.codes_t is not None:
+        return fused_onehot_matmul_indexed(x, q.codes_t, q.codebooks, q.scales, iq.idx, q.bias,
+                                           group=g)
     if _batch(x) <= LUT_GEMV_MAX_BATCH:
         return lut_gemv_kx8_indexed(x, q.codes_tl, q.codebooks, q.scales, iq.idx, q.bias, group=g)
     return gather_prefill_matmul_indexed(x, q.codes_tl, q.codebooks, q.scales, iq.idx, q.bias,

@@ -85,7 +85,7 @@ class Request:
 
 
 class Engine:
-    """Continuous-batching engine. ``params``: Llama or Mixtral params
+    """Continuous-batching engine. ``params``: Llama, Mixtral or Falcon params
     (projections DenseLinear or QuantizedLinear) on ``device`` (None = the
     card); int8, int4 and codes projections sharing an input are fused
     (q/k/v, gate/up), the head quantized to int8 if asked, a Mixtral's int8

@@ -8,31 +8,37 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the time to build the CUDA kernels from csrc/;
 2. checks: each kernel (K1 LUT-GEMV, K2 gather-prefill, K3 fused KV write +
-   flash decode, the W8A16 int8 matmul, the W4A16 int4 matmul, and the
-   all-expert W8A16 and W4A16 MoE matmuls) against its plain PyTorch
-   version on the card, at the shapes of the serving paths (K1 at every
-   decode batch bucket of phase 4's ServeConfig, K2 at every prefill
-   bucket, the int8 kernel at both for Llama-2-7B's four projections and the
-   lm_head, the int4 kernel at both for the four projections, each MoE
-   kernel at both for Mixtral-8x7B's gate/up, shared x, and down,
-   per-expert x), with its time, the plain version's time, the least time
-   the card could take (bound) and, where one PyTorch call computes the
-   same function, its time (for a MoE kernel with per-expert x, where none
-   does, the sum of one call per expert, as an aside);
+   flash decode, the W8A16 int8 matmul, the W4A16 int4 matmul, the
+   all-expert W8A16 and W4A16 MoE matmuls, and B15, the dequant-matmul
+   over untiled codes) against its plain PyTorch version on the card, at
+   the shapes of the serving paths (K1 at every decode batch bucket of
+   phase 4's ServeConfig, K2 at every prefill bucket, both also at
+   Falcon-7B's fc1, the int8 kernel at both for Llama-2-7B's four
+   projections and the lm_head, the int4 kernel at both for the four
+   projections, each MoE kernel at both for Mixtral-8x7B's gate/up, shared
+   x, and down, per-expert x, B15 at both for Falcon-7B's q, k, v, o and
+   fc2, K3 at Llama-2-7B's 32 kv heads and at Falcon-7B's 71 query heads
+   over one), with its time, the plain version's time, the least time the
+   card could take (bound) and, where one PyTorch call computes the same
+   function, its time (for a MoE kernel with per-expert x, where none does,
+   the sum of one call per expert, as an aside);
 3. reference: a 2-layer model at full Llama-2-7B width, in codes mode, in
-   int8 mode (int8 lm_head) and in int4 mode (dense head), and a 2-layer
+   int8 mode (int8 lm_head) and in int4 mode (dense head), a 2-layer
    Mixtral-8x7B in int8 mode (int8 lm_head) and in int4 mode (dense head),
-   kernels on the card against the plain versions on the CPU, prefill and
-   decode logits;
-4. engine: five Engine.generate runs at full width and depth (32 layers,
+   and a 2-layer Falcon-7B in codes mode (gated with a bf16 KV cache, the
+   int8 one beside it; see ``reference_check``), kernels on the card against
+   the plain versions on the CPU, prefill and decode logits;
+4. engine: six Engine.generate runs at full width and depth (32 layers,
    random weights from a seed, int8 KV cache) on 6 prompts of 64-1500
    tokens, 64 new tokens each, greedy: Llama-2-7B in 2x8 codes, in int8
    with the int8 lm_head and in int4 with the dense head, then
    Mixtral-8x7B in int8 with the int8 lm_head and in int4 with the dense
-   head, both loaded with donate_params (each engine is freed before the
-   next is built). Launch counts are reset before and read after each run;
-   each run must launch the kernels of its own path and none of the
-   others', and a Mixtral run its MoE kernel 3 times per layer per forward;
+   head, both loaded with donate_params, then Falcon-7B in 2x8 codes (each
+   engine is freed before the next is built). Launch counts are reset
+   before and read after each run; each run must launch the kernels of its
+   own path and none of the others', a Mixtral run its MoE kernel 3 times
+   per layer per forward, and the Falcon run B15 5 times per K1/K2 launch
+   (q/k/v/o/fc2 against fc1);
 5. the seconds of each phase, the kernel list, then {"ok": true, "device":
    {...}} as the last line.
 
@@ -43,6 +49,7 @@ chiprun_out/ptxas.txt with the kernels' register and shared-memory report.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -109,16 +116,19 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
-def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
-    """bf16 outputs: |got - want| <= 2^-7 |want| + 1e-3 max|want| elementwise:
-    both sides round an f32 sum to bf16, and sums taken in another order may
-    round to neighbouring bf16 values, one step apart."""
+def compare(got: torch.Tensor, want: torch.Tensor, steps: int = 1) -> dict:
+    """bf16 outputs: |got - want| <= steps * 2^-7 |want| + 1e-3 max|want|
+    elementwise: both sides round an f32 sum to bf16, and sums taken in
+    another order may round to neighbouring bf16 values, one step apart per
+    rounding point. B15 has two (the product, then the scaled product, as
+    the TPU kernel rounds), so its results may lie two steps apart."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     scale = float(w.abs().max())
-    ok = bool(torch.isfinite(g).all()) and bool((err <= 2.0 ** -7 * w.abs() + 1e-3 * scale).all())
+    ok = bool(torch.isfinite(g).all()) and bool(
+        (err <= steps * 2.0 ** -7 * w.abs() + 1e-3 * scale).all())
     return {"max_abs_err": float(err.max()), "max_rel_err": float(err.max()) / max(scale, 1e-30),
-            "tol": "2^-7*|plain| + 1e-3*max|plain|", "ok": ok}
+            "tol": f"{steps}*2^-7*|plain| + 1e-3*max|plain|", "ok": ok}
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +137,8 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
 
 # (name, parts' out_features, in_features): the four decode/prefill launches of a block
 PROJS = [("qkv", (4096, 4096, 4096), 4096), ("o", (4096,), 4096),
-         ("gate_up", (11008, 11008), 4096), ("down", (4096,), 11008)]
+         ("gate_up", (11008, 11008), 4096), ("down", (4096,), 11008),
+         ("falcon_fc1", (18176,), 4544)]  # Falcon-7B's one tiled projection
 N_LAYERS_TIMED = 8  # stacked copies cycled while timing, so the codes come from HBM
 
 
@@ -460,72 +471,116 @@ def check_int4_moe(gen, dev, failures):
     return reps
 
 
-def check_k3(gen, dev, failures):
-    from aqlm_tpu_torch.ops import flash_decode as fd
+# (name, out_features, in_features): Falcon-7B's launches of B15 in a block
+ONEHOT_PROJS = [("q", 4544, 4544), ("k", 64, 4544), ("v", 64, 4544), ("o", 4544, 4544),
+                ("fc2", 4544, 18176)]
 
-    L, B, H, S, D = 4, 4, 32, 2048, 128
-    offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)  # 0 and a 512 edge
+
+def check_onehot(gen, dev, failures):
+    from aqlm_tpu_torch.ops import kernels as k15
+
     reps = {}
-    for quant in (True, False):
-        for window in (None, 256):
-            q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(torch.bfloat16)
-            if quant:
-                kv = [torch.randint(-127, 128, (L, B, H, S, D), generator=gen, device=dev,
-                                    dtype=torch.int32).to(torch.int8) for _ in range(2)]
-                sc = [torch.rand((L, B, H, S, 1), generator=gen, device=dev) / 50 for _ in range(2)]
-                new = [torch.randint(-127, 128, (B, 1, H, D), generator=gen, device=dev,
-                                     dtype=torch.int32).to(torch.int8) for _ in range(2)]
-                nsc = [torch.rand((B, 1, H, 1), generator=gen, device=dev) / 50 for _ in range(2)]
-            else:
-                kv = [torch.randn((L, B, H, S, D), generator=gen, device=dev).to(torch.bfloat16)
-                      for _ in range(2)]
-                sc, nsc = [None, None], [None, None]
-                new = [torch.randn((B, 1, H, D), generator=gen, device=dev).to(torch.bfloat16)
-                       for _ in range(2)]
-            ref_kv = [t.clone() for t in kv]
-            ref_sc = [None if t is None else t.clone() for t in sc]
-            run = lambda i=0: fd.flash_decode_write_attention_indexed(
-                q, new[0], new[1], kv[0], kv[1], sc[0], sc[1], i % L, offsets,
-                k_scale_new=nsc[0], v_scale_new=nsc[1], window=window)[0]
-            q_hm = q.reshape(B, H, 1, D)
-            nk, nv = new[0][:, 0].contiguous(), new[1][:, 0].contiguous()
-            nks = None if nsc[0] is None else nsc[0][:, 0, :, 0].contiguous()
-            nvs = None if nsc[1] is None else nsc[1][:, 0, :, 0].contiguous()
-            plain = lambda i=0: fd.plain(
-                q_hm, nk, nv, nks, nvs, ref_kv[0][0], ref_kv[1][0],
-                None if ref_sc[0] is None else ref_sc[0][0],
-                None if ref_sc[1] is None else ref_sc[1][0], offsets, D ** -0.5, window)
-            cmp = compare(run(0).reshape(B, H, 1, D), plain(0))
-            cmp["ok"] = cmp["ok"] and bool((kv[0][0] == ref_kv[0][0]).all()) and bool(
-                (kv[1][0] == ref_kv[1][0]).all())
+    for name, out_f, in_f in ONEHOT_PROJS:
+        K, ig = 2, in_f // 8
+        codes = torch.randint(0, 256, (N_LAYERS_TIMED, K, ig, out_f), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+        cb = (torch.randn((N_LAYERS_TIMED, K, 256, 8), generator=gen, device=dev) / 4).to(torch.bfloat16)
+        scales = torch.rand((N_LAYERS_TIMED, out_f), generator=gen, device=dev) + 0.5
+        for rows in sum(main_path_rows(engine_serve_config("falcon_codes")), []):
+            x = torch.randn((N_LAYERS_TIMED, rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+            run = lambda i=0: k15.launch(x[i % N_LAYERS_TIMED], codes[i % N_LAYERS_TIMED],
+                                         cb[i % N_LAYERS_TIMED], scales[i % N_LAYERS_TIMED], 8)
+            plain = lambda i=0: k15.plain(x[0], codes[0], cb[0], scales[0])
+            cmp = compare(run(0), plain(0), steps=2)
             ms = time_ms(run, 50)
-            plain_ms = time_ms(plain, 5)
-            keys = [min(int(o) + 1, window or S) for o in offsets.tolist()]
-            row_bytes = 2 * (D + 4) if quant else 2 * 2 * D
-            nbytes = sum(keys) * H * row_bytes + 2 * B * H * D * 2 + B * H * row_bytes + B * 4
-            b_ms, b_by = bound(nbytes, sum(keys) * H * 4.0 * D)
-            library_ms = None
-            if not quant:
-                # yardstick only: one SDPA call over the same bf16 cache and lengths
-                pos = torch.arange(S, device=dev)
-                lens = (offsets + 1)[:, None]
-                lo = (lens - window) if window else torch.zeros_like(lens)
-                mask = ((pos[None] < lens) & (pos[None] >= lo))[:, None, None, :]
-                sdpa = lambda i=0: torch.nn.functional.scaled_dot_product_attention(
-                    q_hm, kv[0][i % L], kv[1][i % L], attn_mask=mask)
-                library_ms = time_ms(sdpa, 50)
-            rec = {"phase": "check", "kernel": "flash_decode_write", "kv": "int8" if quant else "bf16",
-                   "window": window, "B": B, "Hkv": H, "D": D, "max_len": S,
-                   "offsets": offsets.tolist(), **cmp, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-                   "host_ms": host_ms(run)}
+            plain_ms = time_ms(plain, 3)
+            b_ms, b_by = bound(K * ig * out_f + rows * in_f * 2 + rows * out_f * 2 + K * 256 * 8 * 2
+                               + out_f * 4, 2.0 * rows * out_f * in_f)
+            # no one PyTorch call computes a codes dequant-matmul: no library column
+            rec = {"phase": "check", "kernel": "onehot_matmul", "proj": name, "rows": rows,
+                   "out_features": out_f, "in_features": in_f, **cmp, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library": "none",
+                   "library_ms": None, "host_ms": host_ms(run)}
             emit(rec)
             if not cmp["ok"]:
                 failures.append(rec)
-            if quant and window is None:
-                reps["flash_decode_write"] = rec
-            del kv, sc, ref_kv, ref_sc
-            torch.cuda.empty_cache()
+            if name == "q" and rows == 4:
+                reps["onehot_matmul"] = rec
+        del codes, cb, scales
+        torch.cuda.empty_cache()
+    return reps
+
+
+# (model, kv heads, query heads per kv head, head_dim): K3's decode shapes
+K3_SHAPES = [("llama2_7b", 32, 1, 128), ("falcon_7b", 1, 71, 64)]
+
+
+def check_k3(gen, dev, failures):
+    from aqlm_tpu_torch.ops import flash_decode as fd
+
+    L, B, S = 4, 4, 2048
+    offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)  # 0 and a 512 edge
+    reps = {}
+    for (model, H, rep, D), quant, window in itertools.product(K3_SHAPES, (True, False),
+                                                               (None, 256)):
+        q = torch.randn((B, 1, H * rep, D), generator=gen, device=dev).to(torch.bfloat16)
+        if quant:
+            kv = [torch.randint(-127, 128, (L, B, H, S, D), generator=gen, device=dev,
+                                dtype=torch.int32).to(torch.int8) for _ in range(2)]
+            sc = [torch.rand((L, B, H, S, 1), generator=gen, device=dev) / 50 for _ in range(2)]
+            new = [torch.randint(-127, 128, (B, 1, H, D), generator=gen, device=dev,
+                                 dtype=torch.int32).to(torch.int8) for _ in range(2)]
+            nsc = [torch.rand((B, 1, H, 1), generator=gen, device=dev) / 50 for _ in range(2)]
+        else:
+            kv = [torch.randn((L, B, H, S, D), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2)]
+            sc, nsc = [None, None], [None, None]
+            new = [torch.randn((B, 1, H, D), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(2)]
+        ref_kv = [t.clone() for t in kv]
+        ref_sc = [None if t is None else t.clone() for t in sc]
+        run = lambda i=0: fd.flash_decode_write_attention_indexed(
+            q, new[0], new[1], kv[0], kv[1], sc[0], sc[1], i % L, offsets,
+            k_scale_new=nsc[0], v_scale_new=nsc[1], window=window)[0]
+        q_hm = q.reshape(B, H, rep, D)
+        nk, nv = new[0][:, 0].contiguous(), new[1][:, 0].contiguous()
+        nks = None if nsc[0] is None else nsc[0][:, 0, :, 0].contiguous()
+        nvs = None if nsc[1] is None else nsc[1][:, 0, :, 0].contiguous()
+        plain = lambda i=0: fd.plain(
+            q_hm, nk, nv, nks, nvs, ref_kv[0][0], ref_kv[1][0],
+            None if ref_sc[0] is None else ref_sc[0][0],
+            None if ref_sc[1] is None else ref_sc[1][0], offsets, D ** -0.5, window)
+        cmp = compare(run(0).reshape(B, H, rep, D), plain(0))
+        cmp["ok"] = cmp["ok"] and bool((kv[0][0] == ref_kv[0][0]).all()) and bool(
+            (kv[1][0] == ref_kv[1][0]).all())
+        ms = time_ms(run, 50)
+        plain_ms = time_ms(plain, 5)
+        keys = [min(int(o) + 1, window or S) for o in offsets.tolist()]
+        row_bytes = 2 * (D + 4) if quant else 2 * 2 * D
+        nbytes = sum(keys) * H * row_bytes + 2 * B * H * rep * D * 2 + B * H * row_bytes + B * 4
+        b_ms, b_by = bound(nbytes, sum(keys) * H * rep * 4.0 * D)
+        library_ms = None
+        if not quant:
+            # yardstick only: one SDPA call over the same bf16 cache and lengths
+            pos = torch.arange(S, device=dev)
+            lens = (offsets + 1)[:, None]
+            lo = (lens - window) if window else torch.zeros_like(lens)
+            mask = ((pos[None] < lens) & (pos[None] >= lo))[:, None, None, :]
+            sdpa = lambda i=0: torch.nn.functional.scaled_dot_product_attention(
+                q_hm, kv[0][i % L], kv[1][i % L], attn_mask=mask)
+            library_ms = time_ms(sdpa, 50)
+        rec = {"phase": "check", "kernel": "flash_decode_write", "model": model,
+               "kv": "int8" if quant else "bf16", "window": window, "B": B, "Hkv": H, "rep": rep,
+               "D": D, "max_len": S, "offsets": offsets.tolist(), **cmp, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+               "host_ms": host_ms(run)}
+        emit(rec)
+        if not cmp["ok"]:
+            failures.append(rec)
+        if model == "llama2_7b" and quant and window is None:
+            reps["flash_decode_write"] = rec
+        del kv, sc, ref_kv, ref_sc
+        torch.cuda.empty_cache()
     return reps
 
 
@@ -547,13 +602,36 @@ def _to(node, dev):
     return node
 
 
+def _reference_logits(st, cfg2, ids, max_len, quantized, d):
+    """Last-position logits of a 20-token prefill and 3 decode steps on ``d``."""
+    from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache
+
+    cache = init_kv_cache(cfg2, 1, max_len, quantized=quantized, device=d)
+    logits = []
+    with torch.inference_mode():
+        x = torch.from_numpy(ids).to(d)
+        lg, _ = forward_stacked(st, cfg2, x[:, :20], cache=cache, cache_offset=0)
+        logits.append(lg[0, -1])
+        for p in range(20, 23):
+            lg, _ = forward_stacked(st, cfg2, x[:, p:p + 1], cache=cache, cache_offset=p)
+            logits.append(lg[0, -1])
+    return torch.stack(logits).float().cpu()
+
+
 def reference_check(dev, run):
-    """Codes: max_len 256 (flash decode: K3 on the card, its plain version on
-    the CPU). int8 (with the int8 lm_head) and int4 (dense head), Llama or
-    Mixtral: max_len 1024, where the flash rule takes their layers too."""
+    """Codes (Llama or Falcon): max_len 256 (flash decode: K3 on the card, its
+    plain version on the CPU). int8 (with the int8 lm_head) and int4 (dense head), Llama or
+    Mixtral: max_len 1024, where the flash rule takes their layers too.
+
+    The KV cache is int8, but Falcon's gated comparison runs with a bf16
+    cache and reports the int8 one beside it, ungated: its one kv head
+    serves all 71 query heads, so a key whose int8 rounding flips between two
+    summation orders moves every head's attention at once. On the CPU alone,
+    summing the projections in another order moves this model's logits by
+    1.7% of the largest with an int8 cache and 0.45% with a bf16 one
+    (Llama-2-7B: 0.65% with either; experiments/torch_falcon_kv_sensitivity.py)."""
     from aqlm_tpu_torch.config import SCHEME_2X8
     from aqlm_tpu_torch.models.quantize import random_quantized_params
-    from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache
     from aqlm_tpu_torch.serve import ServeConfig
     from aqlm_tpu_torch.serve.engine import serving_params
 
@@ -565,28 +643,27 @@ def reference_check(dev, run):
     serve = ServeConfig(lm_head_int8=mode == "int8")
     max_len = 256 if mode == "codes" else 1024
     ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 23))
+    kv_modes = ("bf16", "int8") if model == "falcon_7b" else ("int8",)  # the first is gated
     outs = {}
     for d in (dev, torch.device("cpu")):
         st = serving_params(_to(params, d), cfg2, serve)
-        cache = init_kv_cache(cfg2, 1, max_len, quantized=True, device=d)
-        logits = []
-        with torch.inference_mode():
-            x = torch.from_numpy(ids).to(d)
-            lg, _ = forward_stacked(st, cfg2, x[:, :20], cache=cache, cache_offset=0)
-            logits.append(lg[0, -1])
-            for p in range(20, 23):
-                lg, _ = forward_stacked(st, cfg2, x[:, p:p + 1], cache=cache, cache_offset=p)
-                logits.append(lg[0, -1])
-        outs[d.type] = torch.stack(logits).float().cpu()
-    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
-    scale = outs["cpu"].abs().max().item()
-    ok = bool(torch.isfinite(outs["cuda"]).all()) and err <= 3e-2 * scale
-    agree = (outs["cuda"].argmax(-1) == outs["cpu"].argmax(-1)).float().mean().item()
+        for kv in kv_modes:
+            outs[d.type, kv] = _reference_logits(st, cfg2, ids, max_len, kv == "int8", d)
+    res = {}
+    for kv in kv_modes:
+        got, want = outs["cuda", kv], outs["cpu", kv]
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        res[kv] = {"max_abs_err": err, "max_rel_err": err / scale,
+                   "argmax_agree": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+                   "ok": bool(torch.isfinite(got).all()) and err <= 3e-2 * scale}
+    kv = kv_modes[0]
+    aside = {"int8_kv_aside": res["int8"]} if kv != "int8" else {}
     return {"phase": "reference", "run": run, "model": model, "mode": mode,
             "lm_head_int8": serve.lm_head_int8, "layers": 2,
             "hidden": cfg.hidden_size, "max_len": max_len, "prefill_tokens": 20,
-            "decode_steps": 3, "kv": "int8", "max_abs_err": err, "max_rel_err": err / scale,
-            "tol": "max|cuda - cpu| <= 3e-2 * max|cpu|", "argmax_agree": agree, "ok": ok}
+            "decode_steps": 3, "kv": kv, **res[kv],
+            "tol": "max|cuda - cpu| <= 3e-2 * max|cpu|", **aside}
 
 
 # ---------------------------------------------------------------------------
@@ -596,20 +673,24 @@ def reference_check(dev, run):
 # run -> (model, mode): the engine runs, in order
 RUNS = {"codes": ("llama2_7b", "codes"), "int8": ("llama2_7b", "int8"),
         "int4": ("llama2_7b", "int4"), "mixtral_int8": ("mixtral_8x7b", "int8"),
-        "mixtral_int4": ("mixtral_8x7b", "int4")}
+        "mixtral_int4": ("mixtral_8x7b", "int4"), "falcon_codes": ("falcon_7b", "codes")}
 # the kernels each engine run must launch; the other paths' must stay at 0
 PATH_KERNELS = {"codes": ("lut_gemv", "gather_prefill", "flash_decode_write"),
                 "int8": ("int8_matmul", "flash_decode_write"),
                 "int4": ("int4_matmul", "flash_decode_write"),
                 "mixtral_int8": ("int8_matmul", "int8_moe_matmul", "flash_decode_write"),
-                "mixtral_int4": ("int4_matmul", "int4_moe_matmul", "flash_decode_write")}
+                "mixtral_int4": ("int4_matmul", "int4_moe_matmul", "flash_decode_write"),
+                "falcon_codes": ("lut_gemv", "gather_prefill", "onehot_matmul",
+                                 "flash_decode_write")}
 
 
 def model_config(model):
+    from aqlm_tpu_torch.models.falcon import FalconConfig
     from aqlm_tpu_torch.models.llama import ModelConfig
     from aqlm_tpu_torch.models.mixtral import MixtralConfig
 
-    return MixtralConfig.mixtral_8x7b() if model == "mixtral_8x7b" else ModelConfig.llama2_7b()
+    return {"llama2_7b": ModelConfig.llama2_7b, "mixtral_8x7b": MixtralConfig.mixtral_8x7b,
+            "falcon_7b": FalconConfig.falcon_7b}[model]()
 
 
 def engine_serve_config(run):
@@ -680,15 +761,20 @@ def engine_run(dev, run):
     ok = all(len(o) == new_tokens and all(0 <= t < cfg.vocab_size for t in o) for o in out)
     ran = all(launches[k] > 0 for k in PATH_KERNELS[run])
     others = all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS[run])
-    moe = {}
+    per_forward = {}
     if model == "mixtral_8x7b":
         # every forward: fused qkv and o per layer (plus the int8 head) on the
         # mode's dense kernel, gate, up and down per layer on its MoE kernel
         dense = f"{mode}_matmul"
         forwards = launches[dense] / (2 * cfg.num_layers + serve.lm_head_int8)
-        moe = {"forwards": forwards,
-               "moe_launches_per_forward": launches[f"{mode}_moe_matmul"] / forwards}
-        ran = ran and moe["moe_launches_per_forward"] == 3 * cfg.num_layers
+        per_forward = {"forwards": forwards,
+                       "moe_launches_per_forward": launches[f"{mode}_moe_matmul"] / forwards}
+        ran = ran and per_forward["moe_launches_per_forward"] == 3 * cfg.num_layers
+    if model == "falcon_7b":
+        # every forward: fc1 per layer on K1 or K2, q/k/v/o/fc2 per layer on B15
+        per_forward = {"onehot_per_fc1_launch": launches["onehot_matmul"]
+                       / (launches["lut_gemv"] + launches["gather_prefill"])}
+        ran = ran and per_forward["onehot_per_fc1_launch"] == 5
     decode_steps = [s for s in steps if s[1] and s[2] > 0]
     decode_tok = sum(s[2] for s in decode_steps)
     decode_s = sum(s[0] for s in decode_steps)
@@ -703,7 +789,7 @@ def engine_run(dev, run):
            "generate_s": total_s, "steps": len(steps),
            "build_peak_mem_gib": build_peak_gib,
            "serve_peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches": launches, **moe, "prefix_hits": engine.prefix_stats["hits"],
+           "launches": launches, **per_forward, "prefix_hits": engine.prefix_stats["hits"],
            "first_tokens": [o[:4] for o in out], "ok": ok and ran and others}
     rec["profile"] = profile_decode(engine, cfg, rng)
     del engine.step  # the timing wrapper closes over the engine: a cycle that would keep it alive
@@ -778,6 +864,7 @@ def main() -> int:
         reps.update(check_int4(gen, dev, failures))
         reps.update(check_int8_moe(gen, dev, failures))
         reps.update(check_int4_moe(gen, dev, failures))
+        reps.update(check_onehot(gen, dev, failures))
     phase_s["checks"] = time.perf_counter() - t0
     if failures:
         print(f"chip_smoke: {len(failures)} kernel checks out of tolerance", file=sys.stderr)

@@ -1,7 +1,7 @@
-"""Time the int8, int4 or all-expert int4 kernel of one copy of aqlm_tpu_torch,
-for A/B comparisons.
+"""Time the int8, int4, all-expert int4 or flash-decode (K3) kernel of one
+copy of aqlm_tpu_torch, for A/B comparisons.
 
-    python3 experiments/torch_ab.py ROOT TAG {int8,int4,int4_moe} [check]
+    python3 experiments/torch_ab.py ROOT TAG {int8,int4,int4_moe,k3} [check]
 
 ROOT is a directory holding an ``aqlm_tpu_torch`` package (``.`` for the
 checkout; copies of the package in other directories build their kernels
@@ -17,7 +17,11 @@ checked once against the plain version. ``int4_moe`` runs the all-expert
 int4 kernel (``moe_launch``, a package that has it) instead: ``check`` at
 rows 1-9 and 64 of split-K (E=2, OUT=128) and ragged, padded (E=3, 520 x
 1040) shapes with shared and per-expert x, then times at Mixtral-8x7B's
-gate/up (shared x) and down (per-expert x), cycling 2 stacked layers. Compare
+gate/up (shared x) and down (per-expert x), cycling 2 stacked layers. ``k3``
+times the fused KV write + flash decode at B=4, 32 query heads over 32, 16,
+8 and 4 kv heads (1, 2, 4 and 8 per kv head), D=128 and 64, int8 and bf16
+caches of 2048 rows at offsets 0/511/512/1999, cycling 4 layers, each shape
+checked once against the plain version (output and written cache). Compare
 two copies within one call on one card, in turns (A, B, B, A). Exits
 non-zero on any mismatch.
 """
@@ -33,6 +37,7 @@ sys.path.insert(0, os.path.abspath(root))
 import torch  # noqa: E402
 
 from aqlm_tpu_torch.ops import _build  # noqa: E402
+from aqlm_tpu_torch.ops import flash_decode as fd  # noqa: E402
 from aqlm_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from aqlm_tpu_torch.ops import int8_matmul as i8  # noqa: E402
 
@@ -43,6 +48,47 @@ _build.library()
 dev = torch.device("cuda")
 g = torch.Generator(device=dev).manual_seed(0)
 L = 8
+
+if kernel == "k3":
+    Lk, B, S, HQ = 4, 4, 2048, 32
+    offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)
+    bad, res = 0, {}
+    for d in (128, 64):
+        for rep in (1, 2, 4, 8):
+            for quant in (True, False):
+                h = HQ // rep
+                q = torch.randn((B, 1, HQ, d), generator=g, device=dev).to(torch.bfloat16)
+                if quant:
+                    kv = [torch.randint(-127, 128, (Lk, B, h, S, d), generator=g, device=dev,
+                                        dtype=torch.int32).to(torch.int8) for _ in range(2)]
+                    sc = [torch.rand((Lk, B, h, S, 1), generator=g, device=dev) / 50 for _ in range(2)]
+                    new = [torch.randint(-127, 128, (B, 1, h, d), generator=g, device=dev,
+                                         dtype=torch.int32).to(torch.int8) for _ in range(2)]
+                    nsc = [torch.rand((B, 1, h, 1), generator=g, device=dev) / 50 for _ in range(2)]
+                else:
+                    kv = [torch.randn((Lk, B, h, S, d), generator=g, device=dev).to(torch.bfloat16)
+                          for _ in range(2)]
+                    sc = nsc = [None, None]
+                    new = [torch.randn((B, 1, h, d), generator=g, device=dev).to(torch.bfloat16)
+                           for _ in range(2)]
+                ref = [[None if t is None else t[0].clone() for t in pair] for pair in (kv, sc)]
+                run = lambda i=0: fd.flash_decode_write_attention_indexed(
+                    q, new[0], new[1], kv[0], kv[1], sc[0], sc[1], i % Lk, offsets,
+                    k_scale_new=nsc[0], v_scale_new=nsc[1])[0]
+                want = fd.plain(q.reshape(B, h, rep, d), new[0][:, 0].contiguous(),
+                                new[1][:, 0].contiguous(),
+                                None if nsc[0] is None else nsc[0][:, 0, :, 0].contiguous(),
+                                None if nsc[1] is None else nsc[1][:, 0, :, 0].contiguous(),
+                                ref[0][0], ref[0][1], ref[1][0], ref[1][1], offsets, d ** -0.5,
+                                None)
+                ok = compare(run(0).reshape(B, h, rep, d), want)["ok"]
+                ok = ok and torch.equal(kv[0][0], ref[0][0]) and torch.equal(kv[1][0], ref[0][1])
+                bad += not ok
+                res[f"D{d}/rep{rep}/{'int8' if quant else 'bf16'}"] = round(time_ms(run, 50, 5), 5)
+                del kv, sc, ref
+                torch.cuda.empty_cache()
+    print(tag, kernel, "bad", bad, json.dumps(res), flush=True)
+    sys.exit(1 if bad else 0)
 
 
 def weights(out_f, in_f, n, experts=None):

@@ -7,7 +7,9 @@ suite's conftest imports JAX, which the port does not need):
     python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerance on bf16 outputs: one bf16 step of the plain result plus 1e-3 of its
-largest magnitude (both round an f32 sum taken in another order)."""
+largest magnitude (both round an f32 sum taken in another order); two steps
+for B15 (``onehot_matmul``), which rounds twice, the product and then the
+scaled product, as the TPU kernel does."""
 
 import functools
 
@@ -23,6 +25,7 @@ from aqlm_tpu_torch.ops import flash_decode as fd
 from aqlm_tpu_torch.ops import gather_prefill as gp
 from aqlm_tpu_torch.ops import int4_matmul as i4
 from aqlm_tpu_torch.ops import int8_matmul as im
+from aqlm_tpu_torch.ops import kernels as k15
 from aqlm_tpu_torch.ops import lut_gemv as lg
 from aqlm_tpu_torch.serve import Engine, SamplingParams, ServeConfig
 
@@ -38,9 +41,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _close(got, want):
+def _close(got, want, steps=1):
     g, w = got.float(), want.float()
-    tol = 2.0 ** -7 * w.abs() + 1e-3 * w.abs().max()
+    tol = steps * 2.0 ** -7 * w.abs() + 1e-3 * w.abs().max()
     assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
 
 
@@ -474,3 +477,127 @@ def test_mixtral_int4_engine_on_the_card_launches_its_kernels(dev):
     assert launches["flash_decode_write"] > 0
     assert launches["int8_matmul"] == launches["int8_moe_matmul"] == 0
     assert launches["lut_gemv"] == launches["gather_prefill"] == 0
+
+
+# --------------------------------------------------------------------------- B15 and Falcon
+
+
+def _onehot(gen, dev, out_f, in_f, L=2):
+    """Stacked untiled 2x8 codes [L, K, IG, OUT], codebooks, scales."""
+    codes = torch.randint(0, 256, (L, 2, in_f // 8, out_f), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    cb = (torch.randn((L, 2, 256, 8), generator=gen, device=dev) / 4).to(torch.bfloat16)
+    scales = torch.rand((L, out_f), generator=gen, device=dev) + 0.5
+    return codes, cb, scales
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 77, 200])
+@pytest.mark.parametrize("out_f,in_f", [(64, 4544), (200, 200), (4544, 1024), (37, 128)])
+def test_onehot_matmul_kernel_matches_plain(dev, out_f, in_f, rows):
+    """Ragged OUT (a 37-wide one reads codes byte by byte), a ragged 64-wide
+    input slab (IN 200), k/v's 64 columns; the GEMV form at <= 8 rows, the
+    GEMM form above, layer 1 of stacked codes read in place."""
+    gen = torch.Generator(device=dev).manual_seed(rows + out_f)
+    codes, cb, scales = _onehot(gen, dev, out_f, in_f)
+    x = torch.randn((rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn((2, out_f), generator=gen, device=dev)
+    before = _build.KERNELS["onehot_matmul"].launches
+    got = k15.fused_onehot_matmul_indexed(x, codes, cb, scales, 1, bias, group=8)
+    assert _build.KERNELS["onehot_matmul"].launches == before + 1
+    want = k15.plain(x, codes[1], cb[1], scales[1]) + bias[1].to(torch.bfloat16)
+    _close(got, want, steps=2)
+
+
+@pytest.mark.parametrize("rows", [1, 5, 8])
+def test_onehot_matmul_kernel_f32_activations(dev, rows):
+    """f32 activations (GEMV form): the weight still rounds to bf16, the
+    output stays f32; only the f32 sum's order differs from the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    codes, cb, scales = _onehot(gen, dev, 200, 512)
+    x = torch.randn((rows, 512), generator=gen, device=dev)
+    got = k15.fused_onehot_matmul(x, codes[0], cb[0], scales[0], group=8)
+    want = k15.plain(x, codes[0], cb[0], scales[0])
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def test_onehot_matmul_kernel_is_deterministic(dev):
+    """The split-input reduction adds the splits in a fixed order."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    codes, cb, scales = _onehot(gen, dev, 4544, 18176, L=1)
+    for rows in (4, 64):
+        x = torch.randn((rows, 18176), generator=gen, device=dev).to(torch.bfloat16)
+        a = k15.fused_onehot_matmul(x, codes[0], cb[0], scales[0], group=8)
+        assert torch.equal(a, k15.fused_onehot_matmul(x, codes[0], cb[0], scales[0], group=8))
+
+
+def test_onehot_matmul_wrapper_raises(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    codes, cb, scales = _onehot(gen, dev, 64, 256, L=1)
+    with pytest.raises(ValueError, match="bf16 activations"):  # f32 above 8 rows
+        k15.fused_onehot_matmul(torch.randn((9, 256), device=dev), codes[0], cb[0], scales[0],
+                                group=8)
+    x = torch.randn((4, 256), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        k15.launch(x, codes[0].transpose(1, 2).contiguous().transpose(1, 2), cb[0], scales[0], 8)
+    with pytest.raises(ValueError, match="f32 scales"):
+        k15.fused_onehot_matmul(x, codes[0], cb[0], scales[0].to(torch.bfloat16), group=8)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("rep,d", [(3, 128), (6, 64), (71, 64)])
+def test_flash_decode_kernel_chunked_heads_match_plain(dev, rep, d, quantized, window):
+    """Query heads per kv head outside 1/2/4/8 run in chunks of 8 (71: nine,
+    the last one 7 wide), each block taking the new row in register and chunk
+    0 writing it: the output and the written cache match the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(rep)
+    L, B, H, S = 2, 4, 1 if rep == 71 else 2, 2048
+    offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)
+    q = torch.randn((B, 1, H * rep, d), generator=gen, device=dev)
+    if quantized:
+        kv = [torch.randint(-127, 128, (L, B, H, S, d), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.int8) for _ in range(2)]
+        sc = [torch.rand((L, B, H, S, 1), generator=gen, device=dev) / 50 for _ in range(2)]
+        new = [torch.randint(-127, 128, (B, 1, H, d), generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8) for _ in range(2)]
+        nsc = [torch.rand((B, 1, H, 1), generator=gen, device=dev) / 50 for _ in range(2)]
+    else:
+        kv = [torch.randn((L, B, H, S, d), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2)]
+        sc = nsc = [None, None]
+        new = [torch.randn((B, 1, H, d), generator=gen, device=dev) for _ in range(2)]
+    ref = [[None if t is None else t.cpu() for t in pair] for pair in (kv, sc)]
+    before = _build.KERNELS["flash_decode_write"].launches
+    got = fd.flash_decode_write_attention_indexed(q, new[0], new[1], kv[0], kv[1], sc[0], sc[1], 1,
+                                                  offsets, k_scale_new=nsc[0], v_scale_new=nsc[1],
+                                                  window=window)
+    assert _build.KERNELS["flash_decode_write"].launches == before + 1
+    want = fd.flash_decode_write_attention_indexed(
+        q.cpu(), new[0].cpu(), new[1].cpu(), ref[0][0], ref[0][1], ref[1][0], ref[1][1], 1,
+        offsets.cpu(), k_scale_new=None if nsc[0] is None else nsc[0].cpu(),
+        v_scale_new=None if nsc[1] is None else nsc[1].cpu(), window=window)
+    _close(got[0].cpu(), want[0])
+    for t, r in zip(got[1:], want[1:]):
+        if r is not None:
+            assert torch.equal(t.cpu(), r)
+
+
+def test_falcon_engine_on_the_card_launches_its_kernels(dev):
+    """A narrow Falcon in codes mode (OUT 320 and 64: untiled; fc1 1024:
+    tiled) runs B15 for q/k/v/o/fc2, K1/K2 for fc1, K3 at 5 query heads
+    per kv head, and nothing else: five B15 launches per K1/K2 launch."""
+    from aqlm_tpu_torch.models.falcon import FalconConfig
+
+    cfg = FalconConfig.tiny(num_layers=2, hidden_size=320, intermediate_size=1024, num_heads=5,
+                            num_kv_heads=1)
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg, SCHEME_2X8)
+    engine = Engine(params, cfg, ServeConfig(max_batch=2, max_len=128, prefill_buckets=(16, 32),
+                                             kv_quantized=True))
+    _build.reset_launch_counts()
+    out = engine.generate([np.arange(5), np.arange(40)], SamplingParams(max_new_tokens=4))
+    assert [len(o) for o in out] == [4, 4]
+    n = {name: info.launches for name, info in _build.KERNELS.items()}
+    assert all(n[k] > 0 for k in CODES_KERNELS + ("onehot_matmul",))
+    assert n["onehot_matmul"] == 5 * (n["lut_gemv"] + n["gather_prefill"])
+    assert all(v == 0 for name, v in n.items() if name not in CODES_KERNELS + ("onehot_matmul",))

@@ -381,6 +381,6 @@ def test_unported_mixtral_paths_raise():
     with pytest.raises(NotImplementedError, match="B12"):  # the all-expert LUT-GEMV kernel
         mixtral.stack_experts(codes["layers"][0], cfg)
     with pytest.raises(NotImplementedError, match="A9"):
-        family.config_class("falcon")
+        family.config_class("opt")
     with pytest.raises(NotImplementedError, match="A4"):
         mixtral.forward(codes, cfg, torch.zeros((1, 3), dtype=torch.long), kv_caches=[])

@@ -20,12 +20,20 @@ from aqlm_tpu.ops import dequant as jdq
 from aqlm_tpu.ops import flash_decode as jfd
 from aqlm_tpu.ops import gather_prefill as jgp
 from aqlm_tpu.ops import lut_gemv as jlg
+from aqlm_tpu.ops.runtime import QuantizedLinear as JQuantizedLinear
+from aqlm_tpu.ops.runtime import quantized_matmul as j_quantized_matmul
 from aqlm_tpu_torch.config import AqlmScheme
 from aqlm_tpu_torch.ops import dequant as dq
 from aqlm_tpu_torch.ops import flash_decode as fd
 from aqlm_tpu_torch.ops import gather_prefill as gp
 from aqlm_tpu_torch.ops import lut_gemv as lg
-from aqlm_tpu_torch.ops.runtime import QuantizedLinear
+from aqlm_tpu_torch.models.stacked import stack_layer_params
+from aqlm_tpu_torch.ops.runtime import (
+    IndexedQuantizedLinear,
+    QuantizedLinear,
+    quantized_matmul,
+    quantized_matmul_indexed,
+)
 
 G = 8
 
@@ -167,13 +175,34 @@ def test_flash_decode_write_attention_matches_jax(quantized, window):
 
 
 @pytest.mark.parametrize("mode,scheme,out_f,item", [
-    ("codes", "1x16g8", 128, "B1"), ("codes", "2x8g8", 64, "B15"),
+    ("codes", "1x16g8", 128, "B1"),
 ])
 def test_unported_modes_raise(mode, scheme, out_f, item):
     gen = torch.Generator().manual_seed(0)
     w = dq.random_aqlm_weight(gen, AqlmScheme.parse(scheme), out_f, 128, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         QuantizedLinear.from_aqlm(w, mode=mode)
+
+
+@pytest.mark.parametrize("rows", [1, 9])
+def test_codes_mode_unaligned_out_features_matches_jax(rows):
+    """2x8 codes at OUT=64 (no tiled layout) dispatch to the dequant-matmul
+    (B15) at every batch size, stacked too, and agree with aqlm_tpu's
+    quantized_matmul on the same weight; f32 activations: rtol = atol = 1e-5
+    (only the f32 sum's order differs)."""
+    w = jdq.random_aqlm_weight(jax.random.PRNGKey(7), JScheme.parse("2x8g8"), 64, 128, with_bias=True)
+    pw = dq.AqlmWeight(codes=t(w.codes), codebooks=t(w.codebooks), scales=t(w.scales),
+                       bias=t(w.bias), scheme=AqlmScheme.parse("2x8g8"))
+    q = QuantizedLinear.from_aqlm(pw, mode="codes")
+    assert q.codes_tl is None and q.codes_t.shape == (2, 16, 64)
+    x = np.random.default_rng(rows).standard_normal((rows, 128)).astype(np.float32)
+    want = np.asarray(j_quantized_matmul(jnp.asarray(x), JQuantizedLinear.from_aqlm(w, mode="codes")))
+    np.testing.assert_allclose(quantized_matmul(torch.from_numpy(x), q).numpy(), want,
+                               rtol=1e-5, atol=1e-5)
+    stacked = stack_layer_params({"layers": [{"p": q}, {"p": q}]})["layers"]["p"]
+    np.testing.assert_allclose(
+        quantized_matmul_indexed(torch.from_numpy(x), IndexedQuantizedLinear(stacked, 1)).numpy(),
+        want, rtol=1e-5, atol=1e-5)
 
 
 def test_random_aqlm_weight_codes_are_unsigned_and_in_range():
