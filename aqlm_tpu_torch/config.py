@@ -58,6 +58,30 @@ class AqlmScheme:
     def code_bits_per_weight(self) -> float:
         return self.num_codebooks * self.nbits_per_codebook / self.group_numel
 
+    def estimate_nbits_per_parameter(self, out_features: int, in_features: int,
+                                     scale_nbits: int = 0, codebook_value_nbits: int = 16,
+                                     codebook_value_num_groups: int = 1) -> float:
+        """Amortized bits per parameter with the codebooks and scales, as
+        ``aqlm_tpu``'s accounting (second-level codebook values and quantized
+        group-wise scales included)."""
+        num_out_groups = out_features // self.out_group_size
+        num_in_groups = in_features // self.in_group_size
+        num_params = out_features * in_features
+        code_bits = num_out_groups * num_in_groups * self.num_codebooks * self.nbits_per_codebook
+        codebook_bits = (self.num_codebooks * self.codebook_size * self.group_numel
+                         * codebook_value_nbits)
+        if codebook_value_nbits < 16:
+            codebook_bits += (2 ** codebook_value_nbits * self.num_codebooks
+                              * codebook_value_num_groups * self.group_numel * 16)
+        if scale_nbits >= 16 or 2 ** scale_nbits >= num_in_groups:  # lossless group scales
+            scale_bits_total = scale_nbits * num_out_groups * num_in_groups
+        elif 0 < scale_nbits < 16:  # quantized group scales + their 1-D codebook
+            scale_bits_total = scale_nbits * num_out_groups * num_in_groups
+            scale_bits_total += num_out_groups * 2 ** scale_nbits * 16
+        else:  # scale_nbits == 0: one 16-bit scale per output group
+            scale_bits_total = num_out_groups * 16
+        return (code_bits + codebook_bits + scale_bits_total) / num_params
+
     def codes_shape(self, out_features: int, in_features: int) -> tuple[int, int, int]:
         self.check_features(out_features, in_features)
         return (

@@ -1,5 +1,11 @@
-"""Checkpoint loading (the canonical format written by aqlm_tpu.io.checkpoint)."""
+"""The canonical checkpoint format written and read by aqlm_tpu.io.checkpoint."""
 
-from aqlm_tpu_torch.io.checkpoint import load_layer_checkpoint, load_quantized_model
+from aqlm_tpu_torch.io.checkpoint import (
+    load_layer_checkpoint,
+    load_quantized_model,
+    save_layer_checkpoint,
+    save_quantized_model,
+)
 
-__all__ = ["load_layer_checkpoint", "load_quantized_model"]
+__all__ = ["load_layer_checkpoint", "load_quantized_model", "save_layer_checkpoint",
+           "save_quantized_model"]

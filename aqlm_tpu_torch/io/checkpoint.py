@@ -1,5 +1,5 @@
-"""Load side of the canonical checkpoint format (PyTorch counterpart of
-``aqlm_tpu.io.checkpoint``).
+"""The canonical checkpoint format (PyTorch counterpart of
+``aqlm_tpu.io.checkpoint``): both sides.
 
 A model directory holds ``config.json``, ``shared.npz`` (embeddings, final
 norm, lm_head) and one ``layer_{i}.npz`` per block with flat
@@ -12,10 +12,15 @@ codebook), the int8 and the int4 layouts.
 or Falcon; a Mixtral's experts are flat ``experts.{e}.*`` layer entries like
 any projection; a Falcon's biased final LayerNorm adds ``final_norm_bias`` to
 ``shared.npz``).
+
+The save side writes what ``aqlm_tpu.io.checkpoint.load_quantized_model``
+reads: the same keys, dtypes and meta, and the same ``config.json`` (the
+per-layer files double as the calibration's resume unit).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -25,15 +30,36 @@ import torch
 from aqlm_tpu_torch.config import AqlmScheme
 from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.models.common import DenseLinear
-from aqlm_tpu_torch.models.family import config_class
+from aqlm_tpu_torch.models.family import config_class, family_name
 from aqlm_tpu_torch.models.llama import ModelConfig
 from aqlm_tpu_torch.ops.dequant import AqlmWeight
 from aqlm_tpu_torch.ops.gather16 import codes16
 from aqlm_tpu_torch.ops.runtime import QuantizedLinear
 
-__all__ = ["load_layer_checkpoint", "load_quantized_model"]
+__all__ = ["save_layer_checkpoint", "load_layer_checkpoint", "save_quantized_model",
+           "load_quantized_model"]
 
 _BF16_SUFFIX = "::bf16"
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy on the host; bf16 as its uint16 view (keyed ``::bf16``
+    by ``_savez``), 16-bit codes as uint16."""
+    t = t.detach().cpu()
+    if t.dtype in (torch.bfloat16, torch.uint16):
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _savez(path: str, arrays: dict) -> None:
+    enc = {}
+    for k, v in arrays.items():
+        if isinstance(v, torch.Tensor):
+            if v.dtype == torch.bfloat16:
+                k = k + _BF16_SUFFIX
+            v = _np(v)
+        enc[k] = v
+    np.savez(path, **enc)
 
 
 def _loadz(path: str) -> dict:
@@ -94,6 +120,90 @@ def _layer_from_flat(arrays: dict, meta: dict, device) -> dict:
         else:
             layer[name] = get(name)
     return layer
+
+
+_RUNTIME_FIELDS = ("codes", "codes_t", "codebooks", "packed_cb", "w8", "w8_scale", "scales",
+                   "bias", "codes_tl", "w4", "w4_gscale")
+
+
+def _layer_to_flat(layer: dict) -> tuple[dict, dict]:
+    """(arrays, meta) of one block, as ``aqlm_tpu.io.checkpoint._layer_to_flat``."""
+    arrays, meta = {}, {}
+    for name, value in layer.items():
+        if isinstance(value, QuantizedLinear) and value.mode != "reference":
+            for field in _RUNTIME_FIELDS:
+                v = getattr(value, field)
+                if v is not None:
+                    if field == "codes" and value.packed_cb is not None:
+                        v = v.view(torch.uint16)  # 1x16: the int16 bits stored unsigned, as JAX stores them
+                    arrays[f"{name}.{field}"] = v
+            meta[name] = {"kind": "runtime", "mode": value.mode, "scheme": value.scheme.name}
+        elif isinstance(value, QuantizedLinear):
+            arrays[f"{name}.codes"] = value.codes
+            arrays[f"{name}.codebooks"] = value.codebooks
+            arrays[f"{name}.scales"] = value.scales
+            if value.bias is not None:
+                arrays[f"{name}.bias"] = value.bias
+            meta[name] = {"kind": "quantized", "scheme": value.scheme.name}
+        elif isinstance(value, DenseLinear):
+            arrays[f"{name}.weight"] = value.weight
+            if value.bias is not None:
+                arrays[f"{name}.bias"] = value.bias
+            meta[name] = {"kind": "dense"}
+        else:  # a bare tensor (norm weights)
+            arrays[name] = value
+            meta[name] = {"kind": "array"}
+    return arrays, meta
+
+
+def save_layer_checkpoint(save_dir: str, layer_index: int, layer: dict) -> str:
+    os.makedirs(save_dir, exist_ok=True)
+    arrays, meta = _layer_to_flat(layer)
+    path = os.path.join(save_dir, f"layer_{layer_index}.npz")
+    _savez(path, {"__meta__": np.asarray(json.dumps(meta)), **arrays})
+    return path
+
+
+def save_quantized_model(save_dir: str, params: dict, cfg: ModelConfig,
+                         extra_config: dict | None = None) -> str:
+    """Full-model save: config.json + shared.npz + per-layer npz files."""
+    os.makedirs(save_dir, exist_ok=True)
+    scheme = next((v.scheme for layer in params["layers"] for v in layer.values()
+                   if isinstance(v, QuantizedLinear)), None)
+    config = {
+        "model_family": family_name(cfg),
+        "model_config": dataclasses.asdict(cfg),
+        "quantization_config": None if scheme is None else {
+            "quant_method": "aqlm",
+            "nbits_per_codebook": scheme.nbits_per_codebook,
+            "num_codebooks": scheme.num_codebooks,
+            "out_group_size": scheme.out_group_size,
+            "in_group_size": scheme.in_group_size,
+            "linear_weights_not_to_quantize": ["model.embed_tokens.weight", "lm_head.weight"],
+        },
+    }
+    modes = {v.mode for layer in params["layers"] for v in layer.values()
+             if isinstance(v, QuantizedLinear)}
+    if modes and modes != {"reference"}:
+        if len(modes) != 1:
+            raise ValueError(f"mixed runtime modes in one checkpoint: {modes}")
+        config["runtime_mode"] = next(iter(modes))
+    if extra_config:
+        config.update(extra_config)
+    with open(os.path.join(save_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    shared = {"embed": params["embed"], "final_norm": params["final_norm"]}
+    for extra in ("final_norm_bias", "pos_embed"):
+        if params.get(extra) is not None:
+            shared[extra] = params[extra]
+    if params.get("lm_head") is not None:
+        shared["lm_head.weight"] = params["lm_head"].weight
+        if params["lm_head"].bias is not None:
+            shared["lm_head.bias"] = params["lm_head"].bias
+    _savez(os.path.join(save_dir, "shared.npz"), shared)
+    for li, layer in enumerate(params["layers"]):
+        save_layer_checkpoint(save_dir, li, layer)
+    return save_dir
 
 
 def load_layer_checkpoint(save_dir: str, layer_index: int, device=None):

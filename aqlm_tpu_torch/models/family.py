@@ -8,7 +8,7 @@ from __future__ import annotations
 from aqlm_tpu_torch.models import falcon, llama, mixtral
 from aqlm_tpu_torch.ops.runtime import not_ported
 
-__all__ = ["FAMILY_REGISTRY", "family_name", "family_module", "config_class"]
+__all__ = ["FAMILY_REGISTRY", "family_name", "family_module", "config_class", "taps_fn"]
 
 # name -> (config class, module); subclasses of ModelConfig come before it
 FAMILY_REGISTRY = {
@@ -34,3 +34,9 @@ def config_class(name: str):
         raise not_ported(f"the {name} family", "A9")
     return FAMILY_REGISTRY[name][0]
 
+
+
+def taps_fn(cfg: llama.ModelConfig):
+    """The family's ``block_forward_with_taps`` (the calibration pipeline's
+    contract; Mixtral's and Falcon's raise, ROADMAP A12)."""
+    return family_module(cfg).block_forward_with_taps

@@ -21,7 +21,8 @@ from aqlm_tpu_torch.models.common import (
     rope,
 )
 
-__all__ = ["ModelConfig", "init_random_params", "forward", "QUANTIZABLE_PROJS", "projection_shapes"]
+__all__ = ["ModelConfig", "init_random_params", "forward", "block_forward_with_taps",
+           "QUANTIZABLE_PROJS", "projection_shapes"]
 
 QUANTIZABLE_PROJS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 
@@ -136,8 +137,9 @@ def init_random_params(generator: torch.Generator, cfg: ModelConfig, dtype=torch
     )
 
 
-def attention_half(x, layer, cfg: ModelConfig, positions):
-    """The block's attention half without a cache: x + o_proj(attention)."""
+def attention_half(x, layer, cfg: ModelConfig, positions, taps=None):
+    """The block's attention half without a cache: x + o_proj(attention).
+    A ``taps`` dict receives each projection's input by name."""
     b, t, _ = x.shape
     d = cfg.dim_per_head
     res = x
@@ -147,16 +149,31 @@ def attention_half(x, layer, cfg: ModelConfig, positions):
     v = apply_linear(x, layer["v_proj"]).reshape(b, t, cfg.num_kv_heads, d)
     q, k = rope(q, k, positions, cfg.rope_theta, scaling=cfg.rope_scaling)
     attn = attention(q, k, v, make_causal_mask(positions, positions, window=cfg.sliding_window))
-    return res + apply_linear(attn.reshape(b, t, -1), layer["o_proj"])
+    attn = attn.reshape(b, t, -1)
+    if taps is not None:
+        taps["q_proj"] = taps["k_proj"] = taps["v_proj"] = x
+        taps["o_proj"] = attn
+    return res + apply_linear(attn, layer["o_proj"])
 
 
-def _block(x, layer, cfg: ModelConfig, positions):
-    res = x = attention_half(x, layer, cfg, positions)
+def _block(x, layer, cfg: ModelConfig, positions, taps=None):
+    res = x = attention_half(x, layer, cfg, positions, taps)
     xn = rms_norm(x, layer["post_attn_norm"], cfg.rms_eps, plus_one=cfg.gemma_norm)
     gate = apply_linear(xn, layer["gate_proj"])
     up = apply_linear(xn, layer["up_proj"])
     mlp_in = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
+    if taps is not None:
+        taps["gate_proj"] = taps["up_proj"] = xn
+        taps["down_proj"] = mlp_in
     return res + apply_linear(mlp_in, layer["down_proj"])
+
+
+def block_forward_with_taps(x, layer, cfg: ModelConfig, positions):
+    """One block forward that also returns each projection's input activation:
+    (block output, {name: input}); the calibration accumulates X^T X from the
+    taps. Differentiable (the block finetune trains through it)."""
+    taps = {}
+    return _block(x, layer, cfg, positions, taps), taps
 
 
 def final_norm(x, params, cfg):

@@ -38,7 +38,7 @@ from aqlm_tpu_torch.ops.runtime import QuantizedLinear, not_ported
 
 __all__ = [
     "MixtralConfig", "StackedInt8Experts", "StackedInt4Experts", "StackedCodesExperts",
-    "init_random_params", "forward",
+    "init_random_params", "forward", "block_forward_with_taps",
     "projection_shapes", "quantizable_proj_names", "stack_experts", "moe_mlp_stacked",
     "moe_mlp_stacked_indexed",
 ]
@@ -327,6 +327,10 @@ def moe_mlp_stacked_indexed(xn: torch.Tensor, layer: dict, stacked_layers: dict,
     else:
         down = _expert_ffn(flat, stacked_layers, idx)
     return _combine(down, weights, xn)
+
+
+def block_forward_with_taps(x, layer, cfg: MixtralConfig, positions):
+    raise not_ported("Mixtral calibration taps", "A12")
 
 
 def forward(params: dict, cfg: MixtralConfig, input_ids: torch.Tensor, *,

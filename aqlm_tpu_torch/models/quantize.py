@@ -1,6 +1,7 @@
 """Model-level quantization plumbing (PyTorch counterpart of
 ``aqlm_tpu.models.quantize``): random quantized models for tests and the
-chip smoke run. Embeddings, lm_head and a Mixtral router stay dense."""
+chip smoke run, and the transcode of a calibrated (reference-mode) model to
+a runtime mode. Embeddings, lm_head and a Mixtral router stay dense."""
 
 from __future__ import annotations
 
@@ -13,10 +14,30 @@ from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.models.common import DenseLinear
 from aqlm_tpu_torch.models.family import family_module
 from aqlm_tpu_torch.models.llama import ModelConfig
-from aqlm_tpu_torch.ops.dequant import random_aqlm_weight
+from aqlm_tpu_torch.ops.dequant import AqlmWeight, random_aqlm_weight
 from aqlm_tpu_torch.ops.runtime import QuantizedLinear
 
-__all__ = ["random_quantized_params", "random_quantize_projections"]
+__all__ = ["random_quantized_params", "random_quantize_projections", "convert_runtime_mode"]
+
+
+def convert_runtime_mode(params: dict, mode: str) -> dict:
+    """Transcode every QuantizedLinear of the layers (any name, a Mixtral's
+    experts included) from the canonical reference layout to ``mode``, in
+    place; returns ``params``. A materialized runtime layout cannot be
+    transcoded again and raises."""
+    if mode == "reference":
+        return params
+    for layer in params["layers"]:
+        for name, lin in list(layer.items()):
+            if not isinstance(lin, QuantizedLinear) or lin.mode == mode:
+                continue
+            if lin.mode != "reference":
+                raise ValueError(f"cannot transcode a materialized {lin.mode!r} layout to "
+                                 f"{mode!r}; reconvert from the canonical checkpoint")
+            w = AqlmWeight(codes=lin.codes, codebooks=lin.codebooks, scales=lin.scales,
+                           bias=lin.bias, scheme=lin.scheme)
+            layer[name] = QuantizedLinear.from_aqlm(w, mode=mode)
+    return params
 
 
 def random_quantized_params(generator: torch.Generator, cfg: ModelConfig, scheme: AqlmScheme,

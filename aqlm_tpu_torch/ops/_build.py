@@ -106,6 +106,16 @@ KERNELS = {
         "onehot_matmul", "aqlm_tpu_torch/ops/csrc/onehot_matmul.cu",
         "aqlm_tpu/ops/kernels.py:159", (),
     ),
+    # B13: the differentiable dequant's forward (calibration, reference-mode matmuls)
+    "dequantize_onehot": KernelInfo(
+        "dequantize_onehot", "aqlm_tpu_torch/ops/csrc/calib_dequant.cu",
+        "aqlm_tpu/ops/kernels.py:307", (),
+    ),
+    # B14: its backward, the codebook-gradient segment sum
+    "cb_grad_segment": KernelInfo(
+        "cb_grad_segment", "aqlm_tpu_torch/ops/csrc/calib_dequant.cu",
+        "aqlm_tpu/ops/kernels.py:244", (),
+    ),
 }
 
 
@@ -189,9 +199,13 @@ def _declare(lib) -> None:
     lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 8 + [P]
     lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 8 + [P]
     lib.onehot_matmul_launch.argtypes = [P] * 7 + [I] * 8 + [P]
+    L = ctypes.c_longlong
+    lib.calib_dequant_launch.argtypes = [P] * 4 + [L] + [I] * 5 + [P]
+    lib.cb_grad_launch.argtypes = [P] * 3 + [L] + [I] * 4 + [P]
     for fn in (lib.lut_gemv_launch, lib.lut_moe_gemv_launch, lib.gather_prefill_launch,
                lib.gather16_gemv_launch, lib.gather16_gemm_launch, lib.flash_decode_write_launch,
-               lib.int8_matmul_launch, lib.int4_matmul_launch, lib.onehot_matmul_launch):
+               lib.int8_matmul_launch, lib.int4_matmul_launch, lib.onehot_matmul_launch,
+               lib.calib_dequant_launch, lib.cb_grad_launch):
         fn.restype = I
 
 

@@ -1,10 +1,14 @@
-"""AQLM weight representation and the plain dequantize-then-matmul oracle.
+"""AQLM weight representation and the dequantize-then-matmul path.
 
-PyTorch counterpart of ``aqlm_tpu.ops.dequant``. Only the exact gather
-semantics are ported (the JAX module's ``xla`` path): the TPU one-hot and
-wide-row variants exist to dodge a v5e gather fault and compute the same
-values. Everything here is plain tensor code; it is the reference every
-kernel of the port is held against.
+PyTorch counterpart of ``aqlm_tpu.ops.dequant``. ``dequantize_weight`` has
+the JAX function's ``impl``: ``"xla"`` is the exact plain gather (the JAX
+module's XLA path), ``"kernel"`` the Kx8 dequant kernel B13 with B14 as its
+backward for the codebooks (``ops/kernels``; a CPU tensor runs their plain
+versions), and ``"auto"`` picks the kernel for a CUDA tensor under the JAX
+rule (out_group_size 1, at most 8 bits) and the plain gather otherwise.
+Both are differentiable in the codebooks and the scales and compute the
+same values. Schemes outside the rule (1x16, out groups > 1) keep the plain
+gather on the card, as the JAX package keeps XLA for them.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 
 from aqlm_tpu_torch.config import AqlmScheme
 from aqlm_tpu_torch.device import resolve_device
+from aqlm_tpu_torch.ops import kernels
 
 __all__ = [
     "AqlmWeight",
@@ -41,6 +46,18 @@ class AqlmWeight:
     bias: torch.Tensor | None
     scheme: AqlmScheme
 
+    @property
+    def out_features(self) -> int:
+        return self.codes.shape[0] * self.scheme.out_group_size
+
+    @property
+    def in_features(self) -> int:
+        return self.codes.shape[1] * self.scheme.in_group_size
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.out_features, self.in_features)
+
 
 def broadcast_scales(scales: torch.Tensor, og: int, ig: int) -> torch.Tensor:
     """[OG] or [OG, IG] scales -> [OG, IG, 1, 1] broadcastable over groups."""
@@ -61,15 +78,55 @@ def _dequant_groups(codes: torch.Tensor, cb: torch.Tensor, scheme: AqlmScheme) -
     return groups
 
 
-def dequantize_weight(w: AqlmWeight, dtype=None) -> torch.Tensor:
+class _DequantGroupsKernel(torch.autograd.Function):
+    """Unscaled W [OUT, IN] f32 through B13 (precise f32 selection); the
+    backward gives the codebooks their gradient through B14 (uint8 codes, so
+    S <= 256, within ``CB_GRAD_MAX_SEGMENTS``); the codes get none."""
+
+    @staticmethod
+    def forward(ctx, codebooks, codes, num_segments):
+        ctx.save_for_backward(codes)
+        ctx.cb_dtype, ctx.num_segments = codebooks.dtype, num_segments
+        return kernels.dequantize_groups(codes, codebooks[:, :, 0, :], precise=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (codes,) = ctx.saved_tensors
+        og, ig, k = codes.shape
+        data = grad.float().reshape(og * ig, -1)
+        flat = codes.reshape(og * ig, k)
+        dcb = kernels.cb_grad_segment(flat, data, ctx.num_segments)
+        return dcb[:, :, None, :].to(ctx.cb_dtype), None, None
+
+
+def _kernel_dequant_ok(w: AqlmWeight) -> bool:
+    """The JAX rule for the kernel (out_group_size 1, at most 8 bits), on the card."""
+    return (w.codes.device.type == "cuda" and w.scheme.out_group_size == 1
+            and w.scheme.nbits_per_codebook <= 8)
+
+
+def dequantize_weight(w: AqlmWeight, dtype=None, *, impl: str = "auto") -> torch.Tensor:
     """Dense weight ``[out_features, in_features]``:
 
     W[og*o, ig*i] = scales[og(, ig)] * sum_k codebooks[k, codes[og, ig, k], o, i]
+
+    impl: ``"auto"`` (B13/B14 on the card under the JAX rule, the plain gather
+    otherwise), ``"kernel"`` or ``"xla"`` (the plain gather) to force a path.
     """
     scheme = w.scheme
     og, ig, _ = w.codes.shape
     o, i = scheme.out_group_size, scheme.in_group_size
-    groups = _dequant_groups(w.codes, w.codebooks, scheme)
+    if impl == "auto":
+        impl = "kernel" if _kernel_dequant_ok(w) else "xla"
+    if impl == "kernel":
+        if o != 1:
+            raise ValueError(f"the kernel dequant requires out_group_size == 1, got {scheme}")
+        flat = _DequantGroupsKernel.apply(w.codebooks, w.codes, scheme.codebook_size)
+        groups = flat.reshape(og, o, ig, i).permute(0, 2, 1, 3)
+    elif impl == "xla":
+        groups = _dequant_groups(w.codes, w.codebooks, scheme)
+    else:
+        raise ValueError(f"impl must be auto, kernel or xla, got {impl!r}")
     weight = groups * broadcast_scales(w.scales, og, ig).to(groups.dtype)
     weight = weight.permute(0, 2, 1, 3).reshape(og * o, ig * i)
     if dtype is not None:

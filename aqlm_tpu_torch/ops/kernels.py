@@ -13,6 +13,17 @@ and added to the bias, both cast to that dtype. The bf16 rounding of the
 product before the scale is where this path differs from K1/K2.
 
 Codes layout: ``codes_t [K, IG, OUT]`` uint8 (stacked: ``[L, K, IG, OUT]``).
+
+The module also holds the differentiable dequant's two kernels (the
+calibration path and every reference-mode matmul on the card):
+
+- B13 ``dequantize_onehot`` / ``dequantize_groups``: the dense f32 weight
+  from Kx8 codes, ``csrc/calib_dequant.cu``;
+- B14 ``cb_grad_segment``: the codebook gradient, a segment sum of the
+  weight gradient's groups by code, S <= ``CB_GRAD_MAX_SEGMENTS``, in the
+  same source.
+
+Each has a plain version beside it, which a CPU tensor runs.
 """
 
 from __future__ import annotations
@@ -21,7 +32,9 @@ import torch
 
 from aqlm_tpu_torch.ops import _build
 
-__all__ = ["ONEHOT_GEMV_MAX_ROWS", "fused_onehot_matmul", "fused_onehot_matmul_indexed"]
+__all__ = ["ONEHOT_GEMV_MAX_ROWS", "CB_GRAD_MAX_SEGMENTS", "fused_onehot_matmul",
+           "fused_onehot_matmul_indexed", "dequantize_groups", "dequantize_onehot",
+           "cb_grad_segment"]
 
 ONEHOT_GEMV_MAX_ROWS = 8  # the GEMV form's largest row count; more rows take the GEMM form
 _KERNEL_GROUP = 8  # in_group_size the CUDA kernel is written for
@@ -136,3 +149,151 @@ def fused_onehot_matmul_indexed(x, codes_t_all, codebooks_all, scales_all, layer
     li = int(layer_idx)
     return fused_onehot_matmul(x, codes_t_all[li], codebooks_all[li], scales_all[li],
                                None if bias_all is None else bias_all[li], group=group)
+
+
+# ---------------------------------------------------------------------------
+# B13: the dense weight from Kx8 codes (the differentiable dequant's forward)
+# ---------------------------------------------------------------------------
+
+_SMEM_MAX = 232448  # shared memory one block may take on Hopper (B13's codebooks, B14's sums)
+
+
+def dequant_plain(codes, codebooks, scales=None, *, precise: bool = True):
+    """B13's plain version: W [OUT, IN] f32 from canonical ``codes [OG, IG, K]``
+    (read unsigned) and ``codebooks [K, S, g]``; the codebook vectors summed
+    in f32 in codebook order from zero (each rounded to bf16 first unless
+    ``precise``), then times ``scales [OG]`` if given."""
+    og, ig, K = codes.shape
+    g = codebooks.shape[-1]
+    cbf = codebooks.float()
+    if not precise:
+        cbf = cbf.to(torch.bfloat16).float()
+    idx = codes.long()
+    w = torch.zeros((og, ig, g), dtype=torch.float32, device=codes.device)
+    for k in range(K):
+        w = w + cbf[k][idx[:, :, k]]
+    w = w.reshape(og, ig * g)
+    if scales is not None:
+        w = w * scales.float()[:, None]
+    return w
+
+
+def dequant_launch(codes, codebooks, scales=None, *, precise: bool = True):
+    """B13 on the card (same arguments as ``dequant_plain``): uint8 codes,
+    f32 codebooks with K * S * g * 4 bytes within a block's shared memory."""
+    og, ig, K = codes.shape
+    Kc, S, g = codebooks.shape
+    dev = codes.device
+    if codes.dtype != torch.uint8 or codebooks.dtype != torch.float32:
+        raise ValueError(f"dequantize kernel takes uint8 codes and f32 codebooks, got "
+                         f"{codes.dtype} and {codebooks.dtype}")
+    if Kc != K or S > 256 or K * S * g * 4 > _SMEM_MAX:
+        raise ValueError(f"dequantize kernel: bad shapes codes {tuple(codes.shape)} codebooks "
+                         f"{tuple(codebooks.shape)}")
+    if scales is not None and (scales.dtype != torch.float32 or scales.shape != (og,)):
+        raise ValueError(f"dequantize kernel takes f32 scales [{og}], got {scales.dtype} "
+                         f"{tuple(scales.shape)}")
+    for t in (codes, codebooks) + (() if scales is None else (scales,)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("dequantize kernel operands must be contiguous on one CUDA device")
+    out = torch.empty((og, ig * g), dtype=torch.float32, device=dev)
+    lib, _ = _build.library()
+    rc = lib.calib_dequant_launch(
+        codes.data_ptr(), codebooks.data_ptr(), None if scales is None else scales.data_ptr(),
+        out.data_ptr(), og * ig, ig, K, S, g, int(precise), _build.stream_ptr(dev),
+    )
+    _build.check(rc, "dequantize_onehot")
+    _build.KERNELS["dequantize_onehot"].launches += 1
+    return out
+
+
+def dequantize_groups(codes, codebooks, scales=None, *, precise: bool = True):
+    """W [OUT, IN] f32 from canonical Kx8 codes: the plain version on a CPU
+    tensor, B13 on a CUDA one."""
+    if codes.device.type == "cpu":
+        return dequant_plain(codes, codebooks, scales, precise=precise)
+    if codes.device.type == "cuda":
+        return dequant_launch(codes.contiguous(), codebooks.float().contiguous(),
+                              None if scales is None else scales.float().contiguous(),
+                              precise=precise)
+    raise ValueError(f"unsupported device {codes.device}")
+
+
+def dequantize_onehot(codes_t, codebooks, scales, *, group: int, dtype=torch.bfloat16,
+                      precise: bool = False):
+    """W^T [IN, OUT] from ``codes_t [K, IG, OUT]``, ``codebooks [K, S, g]`` and
+    ``scales [OUT]``, as ``aqlm_tpu.ops.kernels.dequantize_onehot``: the f32
+    sum, times the scales, in ``dtype``. A transposed view of B13's
+    row-major W on the card."""
+    if codebooks.shape[-1] != group:
+        raise ValueError(f"codebooks of group {codebooks.shape[-1]}, expected {group}")
+    codes = codes_t.permute(2, 1, 0)  # [OUT, IG, K]
+    w = dequantize_groups(codes.contiguous(), codebooks, scales, precise=precise)
+    return w.to(dtype).t()
+
+
+# ---------------------------------------------------------------------------
+# B14: the codebook-gradient segment sum (the differentiable dequant's backward)
+# ---------------------------------------------------------------------------
+
+CB_GRAD_MAX_SEGMENTS = 512
+
+
+def cb_grad_plain(codes, data, num_segments: int, *, precise: bool = True):
+    """B14's plain version: out[k, s] = sum of data[i] over i with
+    codes[i, k] == s. codes [G, K] uint8, data [G, g];
+    returns [K, num_segments, g] f32 (data rounded to bf16 first unless
+    ``precise``)."""
+    G, K = codes.shape
+    d = data.float()
+    if not precise:
+        d = d.to(torch.bfloat16).float()
+    idx = codes.long()
+    out = torch.zeros((K, num_segments, d.shape[1]), dtype=torch.float32, device=data.device)
+    for k in range(K):
+        out[k].index_add_(0, idx[:, k], d)
+    return out
+
+
+def cb_grad_launch(codes, data, num_segments: int, *, precise: bool = True):
+    """B14 on the card (same arguments as ``cb_grad_plain``): uint8 codes, f32
+    data, K * S * g * 4 bytes within a block's shared memory."""
+    G, K = codes.shape
+    g = data.shape[1]
+    dev = codes.device
+    if codes.dtype != torch.uint8 or data.dtype != torch.float32:
+        raise ValueError(f"cb_grad kernel takes uint8 codes and f32 data, got "
+                         f"{codes.dtype} and {data.dtype}")
+    if num_segments > CB_GRAD_MAX_SEGMENTS or data.shape[0] != G or K * num_segments * g * 4 > _SMEM_MAX:
+        raise ValueError(f"cb_grad kernel: bad shapes codes {tuple(codes.shape)} data "
+                         f"{tuple(data.shape)} segments {num_segments}")
+    for t in (codes, data):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("cb_grad kernel operands must be contiguous on one CUDA device")
+    out = torch.empty((K, num_segments, g), dtype=torch.float32, device=dev)
+    lib, _ = _build.library()
+    rc = lib.cb_grad_launch(codes.data_ptr(), data.data_ptr(), out.data_ptr(), G, K,
+                            num_segments, g, int(precise),
+                            _build.stream_ptr(dev))
+    _build.check(rc, "cb_grad_segment")
+    _build.KERNELS["cb_grad_segment"].launches += 1
+    return out
+
+
+def cb_grad_segment(codes, data, num_segments: int, *, precise: bool = True):
+    """Batched codebook-gradient segment sum: out[k, s] = sum of data[i] over
+    i with codes[i, k] == s, for all K codebooks at once; codes [G, K] uint8
+    (the Kx8 codes of the differentiable dequant, its one caller), data
+    [G, g], S <= ``CB_GRAD_MAX_SEGMENTS``; returns [K, S, g] f32. The plain
+    version on a CPU tensor, B14 on a CUDA one."""
+    if codes.dtype != torch.uint8:
+        raise ValueError(f"cb_grad_segment takes uint8 codes, got {codes.dtype}")
+    if num_segments > CB_GRAD_MAX_SEGMENTS:
+        raise ValueError(f"cb_grad_segment takes at most {CB_GRAD_MAX_SEGMENTS} segments, "
+                         f"got {num_segments}")
+    if codes.device.type == "cpu":
+        return cb_grad_plain(codes, data, num_segments, precise=precise)
+    if codes.device.type == "cuda":
+        return cb_grad_launch(codes.contiguous(), data.float().contiguous(), num_segments,
+                              precise=precise)
+    raise ValueError(f"unsupported device {codes.device}")

@@ -20,7 +20,10 @@ covers:
   with one f32 scale per 128-column group (MSE-clipped), packed
   block-locally as ``aqlm_tpu`` packs it; every batch runs the int4 kernel
   (``ops/int4_matmul``);
-- "reference": plain dequantize-then-matmul, the oracle.
+- "reference": dequantize-then-matmul, differentiable in the codebooks and
+  scales: on the card the dequant is kernel B13 (its backward B14) for Kx8
+  schemes with out_group_size 1, as on the TPU (``ops/dequant``); the plain
+  gather on the CPU and for the other schemes.
 
 Everything else raises ``NotImplementedError`` naming the ROADMAP item that
 will port it.

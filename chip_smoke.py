@@ -9,9 +9,10 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    versions, and the time to build the CUDA kernels from csrc/;
 2. checks: each kernel (K1 LUT-GEMV, K2 gather-prefill, K3 fused KV write +
    flash decode, the W8A16 int8 matmul, the W4A16 int4 matmul, the
-   all-expert W8A16 and W4A16 MoE matmuls, and B15, the dequant-matmul
-   over untiled codes) against its plain PyTorch version on the card, at
-   the shapes of the serving paths (K1 at every decode batch bucket of
+   all-expert W8A16 and W4A16 MoE matmuls, B15, the dequant-matmul over
+   untiled codes, and the calibration's B13 dequant and B14 codebook-gradient
+   segment sum) against its plain PyTorch version on the card, at the shapes
+   of the serving and calibration paths (K1 at every decode batch bucket of
    phase 4's ServeConfig, K2 at every prefill bucket, both also at
    Falcon-7B's fc1, the int8 kernel at both for Llama-2-7B's four
    projections and the lm_head, the int4 kernel at both for the four
@@ -20,12 +21,14 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    fc2, K3 at Llama-2-7B's 32 kv heads and at Falcon-7B's 71 query heads
    over one, the all-expert codes matmul at Mixtral-8x7B's gate/up and down
    (K1's MoE instance at the decode rows, K2's f32 instance once per expert
-   at the prefill rows) and the 1x16 GEMV and GEMM at Llama-2-7B's q, gate
-   and down at g=8 and q at g=16), with its time, the plain version's time,
-   the least time the
-   card could take (bound) and, where one PyTorch call computes the same
-   function, its time (for a MoE kernel with per-expert x, where none does,
-   the sum of one call per expert, as an aside);
+   at the prefill rows), the 1x16 GEMV and GEMM at Llama-2-7B's q, gate
+   and down at g=8 and q at g=16, B13 at Llama-2-7B's q, gate and down in
+   2x8 (precise: bit-identical; bf16 selection: one bf16 step) and B14 at
+   the groups of q and gate (within 1e-5 of each segment's sum of |data| of
+   a float64 sum)), with its time, the plain version's time, the least
+   time the card could take (bound) and, where one PyTorch call computes
+   the same function, its time (for a MoE kernel with per-expert x, where
+   none does, the sum of one call per expert, as an aside);
 3. reference: a 2-layer model at full Llama-2-7B width, in codes mode, in
    int8 mode (int8 lm_head) and in int4 mode (dense head), a 2-layer
    Mixtral-8x7B in int8 mode (int8 lm_head) and in int4 mode (dense head),
@@ -35,25 +38,36 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    (also through the unstacked llama.forward over 128 tokens, the flagship's
    own shape), kernels on the card against the plain versions on the CPU,
    prefill and decode logits;
-4. engine: eight Engine.generate runs at full width (the Mixtral and 1x16
-   runs at full depth, the earlier 7B paths at 16 of 32 layers;
-   random weights from a seed, int8 KV cache) on 6 prompts of 64-1500
-   tokens, 64 new tokens each, greedy: Llama-2-7B in 2x8 codes, in int8
-   with the int8 lm_head and in int4 with the dense head, then
-   Mixtral-8x7B in int8 with the int8 lm_head and in int4 with the dense
-   head, both loaded with donate_params, then Falcon-7B in 2x8 codes, then
-   Mixtral-8x7B in 2x8 codes with its experts stacked by the caller
-   (stack_experts with donate, then donate_params), then Llama-2-7B in 1x16
-   codes (each engine is freed before the next is built). Launch counts are
-   reset before and read after each run; each run must launch the kernels
-   of its own path and none of the others', an int8 or int4 Mixtral run its
-   MoE kernel 3 times per layer per forward, the codes Mixtral K1's MoE
+4. engine: eight Engine.generate runs at full width and depth (random
+   weights from a seed, int8 KV cache) on 6 prompts of 64-1500 tokens, 64
+   new tokens each, greedy: Llama-2-7B in 2x8 codes, in int8 with the int8
+   lm_head and in int4 with the dense head, then Mixtral-8x7B in int8 with
+   the int8 lm_head and in int4 with the dense head, both loaded with
+   donate_params, then Falcon-7B in 2x8 codes, then Mixtral-8x7B in 2x8
+   codes with its experts stacked by the caller (stack_experts with donate,
+   then donate_params), then Llama-2-7B in 1x16 codes (each engine is freed
+   before the next is built). Launch counts are reset before and read after
+   each run; each run must launch the kernels of its own path and none of
+   the others' (B13 and B14 included), an int8 or int4 Mixtral run its MoE
+   kernel 3 times per layer per forward, the codes Mixtral K1's MoE
    instance 3 times per layer per decode forward and K2's f32 instance 3 x 8
    times per layer per prefill forward, the Falcon run B15 5 times per K1/K2
    launch (q/k/v/o/fc2 against fc1), and the 1x16 run its GEMV 7 times per
    layer per decode forward and its GEMM a multiple of 7 x 32 times;
-5. the seconds of each phase, the kernel list, then {"ok": true, "device":
-   {...}} as the last line.
+5. calibration: ``aqlm_tpu_torch.cli.quantize.main`` in-process on
+   random:llama2_7b:2 (two layers at full width) in 2x8 g8 on random ids
+   (16 x 512 tokens, 2 epochs of 10 AMSGrad steps, a beam sweep after each,
+   one block-finetune epoch), outside inference mode, saved to
+   build/calib_checkpoint (deleted once served): every projection's final
+   MSE below its k-means-init MSE, finite out losses, B13 and B14 launched exactly as the config's
+   formula says and no serving kernel; seconds by part and peak memory;
+6. serve the calibrated checkpoint: loaded, transcoded to codes mode and
+   served by Engine.generate (4 prompts, 16 new tokens): K1, K2 and K3
+   launch, B13 and B14 do not; its prefill logits within 3e-2 max|logit|
+   of the same checkpoint in reference mode on the card (B13);
+7. the seconds of each phase, the kernel list (launches over the engine,
+   calibration and serving runs), then {"ok": true, "device": {...}} as the
+   last line.
 
 Writes chiprun_out/chip_smoke.json with every record and
 chiprun_out/ptxas.txt with the kernels' register and shared-memory report.
@@ -65,6 +79,7 @@ import dataclasses
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -657,6 +672,123 @@ def check_gather16(gen, dev, failures):
     return reps
 
 
+# (name, out_features, in_features): Llama-2-7B's projections as calibration
+# dequantizes them (2x8 g8; k/v/o share q's shape, up gate's)
+CALIB_PROJS = [("q", 4096, 4096), ("gate", 11008, 4096), ("down", 4096, 11008)]
+F32_FLOP_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (B13's adds, B14's)
+N_CALIB_COPIES = 4  # codes copies cycled while timing B13
+
+
+def _f32_bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    t_b, t_o = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def check_calib(gen, dev, failures):
+    """B13 (the calibration dequant) at q, gate and down, unit scales, as the
+    differentiable dequant calls it: precise bit-identical to its plain
+    version, bf16-selecting (precise=False) within one bf16 step. B14 (the
+    codebook gradient) at the groups of q and gate, K 2, S 256, g 8, both
+    modes: each segment within 1e-5 of its sum of |data| of a float64 plain
+    sum (of the bf16-rounded data when not precise). Library calls: B13's
+    function is ``embedding_bag(mode="sum")`` over codes offset by k*S into
+    the flattened codebooks (the reference's own dequant); B14's one
+    ``index_add_`` over the flat index k*S + code with the data expanded per
+    codebook (indices and expansion made before the timed call)."""
+    import torch.nn.functional as F
+
+    from aqlm_tpu_torch.ops import kernels as kn
+
+    reps = {}
+    K, S, g = 2, 256, 8
+    for name, out_f, in_f in CALIB_PROJS:
+        ig = in_f // g
+        codes = torch.randint(0, S, (N_CALIB_COPIES, out_f, ig, K), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+        cb = torch.randn((K, S, g), generator=gen, device=dev) / 4
+        for precise in (True, False):
+            got = kn.dequant_launch(codes[0], cb, precise=precise)
+            want = kn.dequant_plain(codes[0], cb, precise=precise)
+            if precise:
+                err = float((got - want).abs().max())
+                cmp = {"max_abs_err": err, "bit_identical": bool(torch.equal(got, want)),
+                       "tol": "bit-identical", "ok": bool(torch.equal(got, want))}
+            else:
+                cmp = compare(got, want)
+            del got, want
+            run = lambda i=0: kn.dequant_launch(codes[i % N_CALIB_COPIES], cb, precise=precise)
+            plain = lambda i=0: kn.dequant_plain(codes[0], cb, precise=precise)
+            ms = time_ms(run, 20)
+            plain_ms = time_ms(plain, 3)
+            library_ms = None
+            if precise:
+                idx = codes[0].reshape(-1, K).long() + torch.arange(K, device=dev) * S
+                table = cb.reshape(K * S, g)
+                library = lambda i=0: F.embedding_bag(idx, table, mode="sum")
+                cmp["library_max_abs_err"] = float(
+                    (library().reshape(out_f, in_f) - kn.dequant_plain(codes[0], cb)).abs().max())
+                library_ms = time_ms(library, 20)
+                del idx
+            G = out_f * ig
+            b_ms, b_by = _f32_bound(G * K + K * S * g * 4 + out_f * in_f * 4, G * g * K)
+            rec = {"phase": "check", "kernel": "dequantize_onehot", "proj": name,
+                   "out_features": out_f, "in_features": in_f, "K": K, "S": S, "precise": precise,
+                   **cmp, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library": "F.embedding_bag(mode='sum')", "library_ms": library_ms,
+                   "host_ms": host_ms(run)}
+            emit(rec)
+            if not cmp["ok"]:
+                failures.append(rec)
+            if name == "gate" and precise:
+                reps["dequantize_onehot"] = rec
+            torch.cuda.empty_cache()
+        if name != "down":  # B14 at the groups of q and of gate
+            flat = codes[0].reshape(-1, K)
+            G = flat.shape[0]
+            data = torch.randn((G, g), generator=gen, device=dev)
+            for precise in (True, False):
+                got = kn.cb_grad_launch(flat, data, S, precise=precise)
+                d64 = (data if precise else data.to(torch.bfloat16).float()).double()
+                want = torch.zeros((K, S, g), dtype=torch.float64, device=dev)
+                mass = torch.zeros((K, S, g), dtype=torch.float64, device=dev)
+                for k in range(K):
+                    want[k].index_add_(0, flat[:, k].long(), d64)
+                    mass[k].index_add_(0, flat[:, k].long(), d64.abs())
+                err = (got.double() - want).abs()
+                ok = bool(torch.isfinite(got).all()) and bool((err <= 1e-5 * mass).all())
+                cmp = {"max_abs_err": float(err.max()),
+                       "max_err_over_mass": float((err / mass.clamp(min=1e-30)).max()),
+                       "tol": "1e-5 * segment sum of |data| (float64 plain sum)", "ok": ok}
+                del got, want, mass, d64, err
+                run = lambda i=0: kn.cb_grad_launch(flat, data, S, precise=precise)
+                plain = lambda i=0: kn.cb_grad_plain(flat, data, S, precise=precise)
+                ms = time_ms(run, 20)
+                plain_ms = time_ms(plain, 3)
+                library_ms = None
+                if precise:
+                    lidx = (flat.long() + torch.arange(K, device=dev) * S).reshape(-1)
+                    ldata = data[:, None, :].expand(G, K, g).reshape(G * K, g).contiguous()
+                    lout = torch.zeros((K * S, g), device=dev)
+                    library = lambda i=0: lout.index_add_(0, lidx, ldata)
+                    library_ms = time_ms(library, 20)
+                    del lidx, ldata, lout
+                b_ms, b_by = _f32_bound(G * g * 4 + G * K + K * S * g * 4, G * g * K)
+                rec = {"phase": "check", "kernel": "cb_grad_segment", "proj": name, "groups": G,
+                       "K": K, "S": S, "precise": precise, **cmp, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library": "Tensor.index_add_", "library_ms": library_ms,
+                       "host_ms": host_ms(run)}
+                emit(rec)
+                if not ok:
+                    failures.append(rec)
+                if name == "gate" and precise:
+                    reps["cb_grad_segment"] = rec
+            del data, flat
+        del codes, cb
+        torch.cuda.empty_cache()
+    return reps
+
+
 # (model, kv heads, query heads per kv head, head_dim): K3's decode shapes
 K3_SHAPES = [("llama2_7b", 32, 1, 128), ("falcon_7b", 1, 71, 64)]
 
@@ -1049,6 +1181,137 @@ def profile_decode(engine, cfg, rng) -> dict:
             "aggregate_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: calibration (cli.quantize) at full Llama-2-7B width, then serving its result
+# ---------------------------------------------------------------------------
+
+# the calibrated checkpoint (1.1 GB: the f32 embedding and head) goes to the
+# git-ignored build/ directory, not chiprun_out/ (which holds the run's small
+# reports), and is deleted once served
+CALIB_DIR = os.path.join("build", "calib_checkpoint")
+CALIB_ARGS = dict(nsamples=16, model_seqlen=512, batch_size=4, init_max_iter=10, max_epochs=2,
+                  steps_per_epoch=10, finetune_max_epochs=1, finetune_batch_size=1)
+# every kernel that is not the calibration's must stay at 0 during it
+PATH_KERNELS["calibration"] = ("dequantize_onehot", "cb_grad_segment")
+PATH_KERNELS["serve_calibrated"] = ("lut_gemv", "gather_prefill", "flash_decode_write")
+
+
+def calib_launch_formula(layers: int, projs: int = 7) -> dict:
+    """B13 and B14 launches the calibration run must make: per projection
+    and Adam step one forward dequant (B13) and one backward (B14), plus one
+    B13 for the final MSE; per block finetune step (samples / batch, no
+    validation) a forward and a backward through each projection; per
+    propagate batch a forward. The activation capture runs the dense block."""
+    a = CALIB_ARGS
+    adam = a["max_epochs"] * a["steps_per_epoch"]  # no MSE tolerance: every epoch runs
+    ft = a["finetune_max_epochs"] * (a["nsamples"] // a["finetune_batch_size"])
+    prop = -(-a["nsamples"] // a["batch_size"])
+    return {"dequantize_onehot": layers * projs * (adam + 1 + ft + prop),
+            "cb_grad_segment": layers * projs * (adam + ft),
+            "adam_steps_per_projection": adam, "finetune_steps_per_layer": ft,
+            "propagate_batches_per_layer": prop}
+
+
+def calibration_run(dev) -> dict:
+    """``aqlm_tpu_torch.cli.quantize.main`` in-process on random:llama2_7b:2
+    (two layers at full width, random weights from seed 0) in 2x8 g8 on
+    ``random`` calibration ids, saving to ``CALIB_DIR``. Gates: every
+    projection's final MSE finite and below its k-means-init MSE; each
+    layer's out_loss finite; B13 and B14 launched exactly as
+    ``calib_launch_formula`` says; no other kernel launched."""
+    from aqlm_tpu_torch.cli import quantize as cq
+    from aqlm_tpu_torch.ops import _build
+
+    layers = 2
+    argv = [f"random:llama2_7b:{layers}", "random", "--num_codebooks", "2",
+            "--nbits_per_codebook", "8", "--in_group_size", "8", "--save", CALIB_DIR]
+    for k, v in CALIB_ARGS.items():
+        argv += [f"--{k}", str(v)]
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = cq.main(argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    want = calib_launch_formula(layers)
+    projs = stats["projections"]
+    mse_ok = all(np.isfinite(p["final_mse"]) and p["final_mse"] < p["init_mse"] for p in projs)
+    loss_ok = all(np.isfinite(x) for x in stats["out_loss"]) and len(stats["out_loss"]) == layers
+    count_ok = all(launches[k] == want[k] for k in PATH_KERNELS["calibration"])
+    others = all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS["calibration"])
+    return {"phase": "calibration", "argv": argv, "layers": layers, "hidden": 4096,
+            "intermediate": 11008, "seconds_total": total_s, "seconds_by_part": stats["seconds"],
+            "quantization_time_s": stats["quantization_time_s"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "avg_bits": stats["avg_bits"], "out_loss": stats["out_loss"],
+            "projections": projs, "launches": launches, "launch_formula": want,
+            "mse_below_init": mse_ok, "out_loss_finite": loss_ok, "launches_match": count_ok,
+            "no_other_kernel": others, "ok": mse_ok and loss_ok and count_ok and others}
+
+
+def _dense_to(params: dict, dtype) -> dict:
+    """The embedding, norms and dense head in ``dtype`` (K2 takes bf16
+    activations); quantized projections as they are."""
+    from aqlm_tpu_torch.models.common import DenseLinear
+
+    cast = lambda v: v.to(dtype) if isinstance(v, torch.Tensor) else (
+        DenseLinear(v.weight.to(dtype), None if v.bias is None else v.bias.to(dtype))
+        if isinstance(v, DenseLinear) else v)
+    out = {k: cast(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: cast(v) for k, v in layer.items()} for layer in params["layers"]]
+    return out
+
+
+def serve_calibrated(dev) -> dict:
+    """The calibrated checkpoint loaded with the port's loader (bf16 dense
+    parts), transcoded to codes mode (``convert_runtime_mode``) and served by
+    ``Engine.generate`` (4 prompts, 16 new tokens, greedy): K1, K2 and K3
+    launch and B13/B14 do not. Its prefill logits (``llama.forward`` over 64
+    tokens, K2) lie within 3e-2 max|logit| of the same checkpoint in
+    reference mode on the card (B13's route)."""
+    from aqlm_tpu_torch.io import load_quantized_model
+    from aqlm_tpu_torch.models import llama
+    from aqlm_tpu_torch.models.quantize import convert_runtime_mode
+    from aqlm_tpu_torch.ops import _build
+    from aqlm_tpu_torch.serve import Engine, SamplingParams, ServeConfig
+
+    params, cfg = load_quantized_model(CALIB_DIR, device=dev)
+    params = _dense_to(params, torch.bfloat16)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 64))).to(dev)
+    with torch.inference_mode():
+        _build.reset_launch_counts()
+        ref = llama.forward(params, cfg, ids)[0].float()
+        ref_b13 = _build.KERNELS["dequantize_onehot"].launches
+        codes = convert_runtime_mode(params, "codes")
+        got = llama.forward(codes, cfg, ids)[0].float()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    engine = Engine(codes, cfg, ServeConfig(max_batch=4, max_len=512, kv_quantized=True))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (16, 40, 64, 100)]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, SamplingParams(max_new_tokens=16))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    del engine, codes, params
+    torch.cuda.empty_cache()
+    shutil.rmtree(CALIB_DIR)
+    tokens_ok = all(len(o) == 16 and all(0 <= t < cfg.vocab_size for t in o) for o in out)
+    ran = all(launches[k] > 0 for k in PATH_KERNELS["serve_calibrated"])
+    others = all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS["serve_calibrated"])
+    logits_ok = bool(torch.isfinite(got).all()) and err <= 3e-2 * scale
+    return {"phase": "serve_calibrated", "checkpoint": CALIB_DIR, "layers": cfg.num_layers,
+            "prompts": [len(p) for p in prompts], "new_tokens": 16, "generate_s": gen_s,
+            "launches": launches, "reference_b13_launches": ref_b13,
+            "prefill_logits": {"tokens": 64, "max_abs_err": err, "max_rel_err": err / scale,
+                               "argmax_agree": float((got.argmax(-1) == ref.argmax(-1)).float().mean()),
+                               "tol": "max|codes - reference| <= 3e-2 * max|reference|"},
+            "first_tokens": [o[:4] for o in out],
+            "ok": tokens_ok and ran and others and logits_ok and ref_b13 > 0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1084,6 +1347,7 @@ def main() -> int:
         reps.update(check_onehot(gen, dev, failures))
         reps.update(check_moe_codes(gen, dev, failures))
         reps.update(check_gather16(gen, dev, failures))
+        reps.update(check_calib(gen, dev, failures))
     phase_s["checks"] = time.perf_counter() - t0
     if failures:
         print(f"chip_smoke: {len(failures)} kernel checks out of tolerance", file=sys.stderr)
@@ -1108,6 +1372,22 @@ def main() -> int:
             print(f"chip_smoke: the {run} engine run failed its checks", file=sys.stderr)
             return 4
 
+    # calibration runs with autograd: outside inference mode
+    t0 = time.perf_counter()
+    runs["calibration"] = calibration_run(dev)
+    phase_s["calibration"] = runs["calibration"]["seconds"] = time.perf_counter() - t0
+    emit(runs["calibration"])
+    if not runs["calibration"]["ok"]:
+        print("chip_smoke: the calibration run failed its checks", file=sys.stderr)
+        return 5
+    t0 = time.perf_counter()
+    runs["serve_calibrated"] = serve_calibrated(dev)
+    phase_s["serve_calibrated"] = runs["serve_calibrated"]["seconds"] = time.perf_counter() - t0
+    emit(runs["serve_calibrated"])
+    if not runs["serve_calibrated"]["ok"]:
+        print("chip_smoke: serving the calibrated checkpoint failed its checks", file=sys.stderr)
+        return 6
+
     emit({"phase": "seconds", **phase_s, "total": time.perf_counter() - T_START})
     kernels = []
     for name, info in _build.KERNELS.items():
@@ -1121,7 +1401,8 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": {k: r[k] for k in r if k in (
-                            "proj", "experts", "rows", "kv", "window", "B", "max_len")}})
+                            "proj", "experts", "rows", "kv", "window", "B", "max_len", "groups",
+                            "out_features", "in_features", "precise")}})
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"records": RECORDS, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -797,3 +797,102 @@ def test_1x16_engine_on_the_card_launches_its_kernels(dev):
     assert n["gather16_gemm"] > 0 and n["gather16_gemm"] % (7 * L) == 0
     mine = ("gather16_gemv", "gather16_gemm", "flash_decode_write")
     assert all(v == 0 for name, v in n.items() if name not in mine)
+
+
+# --- B13 / B14: the differentiable dequant of calibration ----------------------------------
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("K,og,ig,g", [(1, 129, 16, 8), (2, 333, 37, 8), (8, 65, 9, 8),
+                                       (2, 31, 5, 4), (2, 17, 6, 3)])
+def test_dequantize_kernel_matches_plain(dev, K, og, ig, g, precise):
+    """B13 against its plain version: bit-identical (the same f32 adds in
+    codebook order from zero), with and without scales; odd group counts,
+    g 8 (16-byte stores), 4 and 3 (one float at a time)."""
+    gen = torch.Generator(device=dev).manual_seed(K * og)
+    codes = torch.randint(0, 256, (og, ig, K), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    cb = torch.randn((K, 256, g), generator=gen, device=dev)
+    scales = torch.rand(og, generator=gen, device=dev) + 0.5
+    before = _build.KERNELS["dequantize_onehot"].launches
+    for sc in (None, scales):
+        got = k15.dequant_launch(codes, cb, sc, precise=precise)
+        assert torch.equal(got, k15.dequant_plain(codes, cb, sc, precise=precise))
+    assert _build.KERNELS["dequantize_onehot"].launches == before + 2
+
+
+CB_GRAD_SHAPES = [(1, 16, 1001, 8), (2, 256, 77777, 8), (8, 256, 4099, 8), (2, 512, 30001, 8),
+                  (3, 16, 513, 4)]
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("K,S,G,g", CB_GRAD_SHAPES)
+def test_cb_grad_kernel_matches_float64(dev, K, S, G, g, precise):
+    """B14 within 1e-5 of each segment's sum of |data| of a float64 sum (of
+    the bf16-rounded data when not precise); odd group counts, S up to 512
+    (uint8 codes fill the first 256 segments; the rest must come out 0)."""
+    gen = torch.Generator(device=dev).manual_seed(G)
+    codes = torch.randint(0, min(S, 256), (G, K), generator=gen, device=dev, dtype=torch.int32)
+    data = torch.randn((G, g), generator=gen, device=dev)
+    before = _build.KERNELS["cb_grad_segment"].launches
+    got = k15.cb_grad_segment(codes.to(torch.uint8), data, S, precise=precise)
+    assert _build.KERNELS["cb_grad_segment"].launches == before + 1
+    d64 = (data if precise else data.to(torch.bfloat16).float()).double()
+    want = torch.zeros((K, S, g), dtype=torch.float64, device=dev)
+    mass = torch.zeros_like(want)
+    for k in range(K):
+        want[k].index_add_(0, codes[:, k].long(), d64)
+        mass[k].index_add_(0, codes[:, k].long(), d64.abs())
+    assert bool(((got.double() - want).abs() <= 1e-5 * mass).all())
+
+
+def test_dequant_wrappers_raise(dev):
+    codes = torch.zeros((4, 2, 2), dtype=torch.uint8, device=dev)
+    cb = torch.zeros((2, 256, 8), device=dev)
+    with pytest.raises(ValueError, match="f32 codebooks"):
+        k15.dequant_launch(codes, cb.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="bad shapes"):
+        k15.dequant_launch(codes, torch.zeros((2, 256, 128), device=dev))  # 256 KB of codebooks
+    with pytest.raises(ValueError, match="bad shapes"):
+        k15.cb_grad_launch(codes.reshape(-1, 2), torch.zeros((8, 8), device=dev), 513)
+    with pytest.raises(ValueError, match="uint8 codes"):
+        k15.cb_grad_launch(codes.reshape(-1, 2).to(torch.int16), torch.zeros((8, 8), device=dev),
+                           256)
+
+
+def test_reference_matmul_on_the_card_runs_b13_and_b14(dev):
+    """Reference mode on the card dequantizes through B13 and its backward
+    runs B14, as on the TPU; the plain path on the CPU launches neither.
+    Values and codebook/scale gradients of a loss linear in y, on the card
+    and on the CPU in f32, lie within 1e-5 x each element's sum of |terms|
+    of the float64 plain path (the sums of |terms| are that path run on
+    |inputs|, which the loss's linearity allows)."""
+    from aqlm_tpu_torch.ops.dequant import random_aqlm_weight
+    from aqlm_tpu_torch.ops.runtime import QuantizedLinear, quantized_matmul
+
+    w = random_aqlm_weight(torch.Generator().manual_seed(0), SCHEME_2X8, 256, 512, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 512), generator=gen)
+    r = torch.randn((3, 256), generator=gen)
+
+    def run(d, dtype, absolute=False):
+        f = (lambda t: t.abs()) if absolute else (lambda t: t)
+        cb = f(w.codebooks).to(d, dtype).requires_grad_(True)
+        sc = f(w.scales).to(d, dtype).requires_grad_(True)
+        q = QuantizedLinear(codes=w.codes.to(d), codebooks=cb, scales=sc, bias=None,
+                            scheme=SCHEME_2X8, mode="reference")
+        _build.reset_launch_counts()
+        y = quantized_matmul(f(x).to(d, dtype), q)
+        g = torch.autograd.grad((y * f(r).to(d, dtype)).sum(), [cb, sc])
+        launches = (_build.KERNELS["dequantize_onehot"].launches,
+                    _build.KERNELS["cb_grad_segment"].launches)
+        return [t.detach().cpu().double() for t in (y, *g)], launches
+
+    exact, _ = run("cpu", torch.float64)
+    mass, _ = run("cpu", torch.float64, absolute=True)
+    cpu, cpu_launches = run("cpu", torch.float32)
+    card, card_launches = run(dev, torch.float32)
+    assert cpu_launches == (0, 0) and card_launches == (1, 1)
+    for got in (card, cpu):
+        for a, want, m in zip(got, exact, mass):
+            assert bool(((a - want).abs() <= 1e-5 * m).all())
