@@ -2,9 +2,10 @@
 
 ``params_from_numpy`` takes a nested structure of dicts, lists and numpy
 arrays in which each weight object is a dict with a ``"__class__"`` key
-(``"QuantizedLinear"``, ``"DenseLinear"``, ``"FusedCodesLinear"``,
-``"StackedInt8Experts"``, ``"StackedInt4Experts"`` or ``"StackedCodesExperts"``)
-and its fields, the scheme given by name (``"2x8g8"``); a QuantizedLinear is
+(``"QuantizedLinear"``, ``"DenseLinear"``, ``"LoraLinear"``,
+``"FusedCodesLinear"``, ``"StackedInt8Experts"``, ``"StackedInt4Experts"`` or
+``"StackedCodesExperts"``) and its fields (a LoraLinear's ``base`` is such a
+dict, its ``scale`` a number), the scheme given by name (``"2x8g8"``); a QuantizedLinear is
 in reference, codes (Kx8 tiled or untiled, or 1x16 with a packed codebook),
 int8 or int4 mode. A bf16 array arrives as its uint16 view wrapped in
 ``{"__bf16__": array}`` and becomes ``torch.bfloat16``. Codes copy across
@@ -18,7 +19,7 @@ import torch
 
 from aqlm_tpu_torch.config import AqlmScheme
 from aqlm_tpu_torch.device import resolve_device
-from aqlm_tpu_torch.models.common import DenseLinear
+from aqlm_tpu_torch.models.common import DenseLinear, LoraLinear
 from aqlm_tpu_torch.models.mixtral import StackedCodesExperts, StackedInt4Experts, StackedInt8Experts
 from aqlm_tpu_torch.ops.gather16 import codes16
 from aqlm_tpu_torch.ops.runtime import FusedCodesLinear, QuantizedLinear
@@ -44,6 +45,9 @@ def _convert(node, dev):
         t = lambda k: None if node.get(k) is None else tensor_from_numpy(node[k], dev)
         if kind == "DenseLinear":
             return DenseLinear(weight=t("weight"), bias=t("bias"))
+        if kind == "LoraLinear":
+            return LoraLinear(base=_convert(node["base"], dev), lora_a=t("lora_a"),
+                              lora_b=t("lora_b"), scale=float(node["scale"]))
         if kind == "StackedInt8Experts":
             return StackedInt8Experts(w8=t("w8"), scale=t("scale"))
         if kind == "StackedInt4Experts":

@@ -4,6 +4,7 @@ family registry, and the stacked serving form."""
 from aqlm_tpu_torch.models import falcon, family, llama, mixtral
 from aqlm_tpu_torch.models.common import (
     DenseLinear,
+    LoraLinear,
     apply_linear,
     attention,
     attention_headmajor,
@@ -18,6 +19,7 @@ __all__ = [
     "llama",
     "mixtral",
     "DenseLinear",
+    "LoraLinear",
     "apply_linear",
     "attention",
     "attention_headmajor",

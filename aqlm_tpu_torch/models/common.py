@@ -23,6 +23,7 @@ from aqlm_tpu_torch.ops.runtime import (
 
 __all__ = [
     "DenseLinear",
+    "LoraLinear",
     "apply_linear",
     "rms_norm",
     "rope_inv_freq",
@@ -42,9 +43,42 @@ class DenseLinear:
 
     data_fields: ClassVar[tuple] = ("weight", "bias")
 
+    @property
+    def out_features(self) -> int:
+        return self.weight.shape[0]
+
+
+@dataclasses.dataclass
+class LoraLinear:
+    """Low-rank adapter on a frozen base linear: y = base(x) + scale (x A^T) B^T.
+
+    The PEFT recipe of AQLM's 2-bit training: adapters train through the
+    serving matmul's activation backward while the codes, codebooks and
+    scales stay frozen. lora_a [r, IN], lora_b [OUT, r] (zeros at the start,
+    so the wrapped model starts equal to its base); scale = alpha / r."""
+
+    base: object  # DenseLinear | QuantizedLinear
+    lora_a: torch.Tensor
+    lora_b: torch.Tensor
+    scale: float
+
+    data_fields: ClassVar[tuple] = ("base", "lora_a", "lora_b")
+
+    @property
+    def out_features(self) -> int:
+        return self.lora_b.shape[0]
+
 
 def apply_linear(x: torch.Tensor, lin) -> torch.Tensor:
-    """x [..., IN] @ W^T for a DenseLinear, QuantizedLinear or indexed view."""
+    """x [..., IN] @ W^T for a DenseLinear, QuantizedLinear, LoraLinear or
+    indexed view."""
+    if isinstance(lin, LoraLinear):
+        # adapters in x's dtype; the scale rounds to y's dtype, and so does the
+        # delta before the add
+        y = apply_linear(x, lin.base)
+        delta = torch.matmul(torch.matmul(x, lin.lora_a.to(x.dtype).t()), lin.lora_b.to(x.dtype).t())
+        scale = float(torch.tensor(lin.scale, dtype=y.dtype))
+        return y + delta.to(y.dtype) * scale
     if isinstance(lin, IndexedQuantizedLinear):
         return quantized_matmul_indexed(x, lin)
     if isinstance(lin, IndexedFusedCodesLinear):

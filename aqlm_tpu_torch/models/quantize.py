@@ -1,7 +1,9 @@
 """Model-level quantization plumbing (PyTorch counterpart of
 ``aqlm_tpu.models.quantize``): random quantized models for tests and the
-chip smoke run, and the transcode of a calibrated (reference-mode) model to
-a runtime mode. Embeddings, lm_head and a Mixtral router stay dense."""
+chip smoke run, the transcode of a calibrated (reference-mode) model to a
+runtime mode, and per-projection edits (``map_quantized_linears``,
+``swap_in_quantized``). Embeddings, lm_head and a Mixtral router stay
+dense."""
 
 from __future__ import annotations
 
@@ -13,11 +15,12 @@ from aqlm_tpu_torch.config import AqlmScheme
 from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.models.common import DenseLinear
 from aqlm_tpu_torch.models.family import family_module
-from aqlm_tpu_torch.models.llama import ModelConfig
+from aqlm_tpu_torch.models.llama import QUANTIZABLE_PROJS, ModelConfig
 from aqlm_tpu_torch.ops.dequant import AqlmWeight, random_aqlm_weight
 from aqlm_tpu_torch.ops.runtime import QuantizedLinear
 
-__all__ = ["random_quantized_params", "random_quantize_projections", "convert_runtime_mode"]
+__all__ = ["random_quantized_params", "random_quantize_projections", "convert_runtime_mode",
+           "map_quantized_linears", "swap_in_quantized"]
 
 
 def convert_runtime_mode(params: dict, mode: str) -> dict:
@@ -60,6 +63,22 @@ def random_quantized_params(generator: torch.Generator, cfg: ModelConfig, scheme
                 continue
             w = random_aqlm_weight(generator, scheme, out_f, in_f, dtype=torch.float32, device=dev)
             layer[name] = QuantizedLinear.from_aqlm(w, mode=mode)
+    return params
+
+
+def map_quantized_linears(params: dict, fn) -> dict:
+    """Replace every QuantizedLinear among the layers' Llama projections
+    with ``fn(layer_idx, name, qlin)``, in place; returns ``params``."""
+    for li, layer in enumerate(params["layers"]):
+        for name in QUANTIZABLE_PROJS:
+            if isinstance(layer.get(name), QuantizedLinear):
+                layer[name] = fn(li, name, layer[name])
+    return params
+
+
+def swap_in_quantized(params: dict, layer_idx: int, name: str, w: AqlmWeight, mode: str) -> dict:
+    """Replace one projection with ``QuantizedLinear.from_aqlm(w, mode)``."""
+    params["layers"][layer_idx][name] = QuantizedLinear.from_aqlm(w, mode=mode)
     return params
 
 

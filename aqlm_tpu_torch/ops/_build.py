@@ -116,6 +116,16 @@ KERNELS = {
         "cb_grad_segment", "aqlm_tpu_torch/ops/csrc/calib_dequant.cu",
         "aqlm_tpu/ops/kernels.py:244", (),
     ),
+    # B5: the dense W^T from tiled codes (the codes-mode activation backward)
+    "gather_dequant_wt": KernelInfo(
+        "gather_dequant_wt", "aqlm_tpu_torch/ops/csrc/gather_dequant_wt.cu",
+        "aqlm_tpu/ops/gather_prefill.py:331", (),
+    ),
+    # B10: dx = bf16(g * scale) @ w8 (the int8-mode activation backward)
+    "int8_matmul_transposed": KernelInfo(
+        "int8_matmul_transposed", "aqlm_tpu_torch/ops/csrc/int8_matmul.cu",
+        "aqlm_tpu/ops/int8_matmul.py:153", (),
+    ),
 }
 
 
@@ -202,10 +212,13 @@ def _declare(lib) -> None:
     L = ctypes.c_longlong
     lib.calib_dequant_launch.argtypes = [P] * 4 + [L] + [I] * 5 + [P]
     lib.cb_grad_launch.argtypes = [P] * 3 + [L] + [I] * 4 + [P]
+    lib.gather_dequant_wt_launch.argtypes = [P] * 4 + [I] * 6 + [P]
+    lib.int8_matmul_t_launch.argtypes = [P] * 4 + [I] * 4 + [P]
     for fn in (lib.lut_gemv_launch, lib.lut_moe_gemv_launch, lib.gather_prefill_launch,
                lib.gather16_gemv_launch, lib.gather16_gemm_launch, lib.flash_decode_write_launch,
                lib.int8_matmul_launch, lib.int4_matmul_launch, lib.onehot_matmul_launch,
-               lib.calib_dequant_launch, lib.cb_grad_launch):
+               lib.calib_dequant_launch, lib.cb_grad_launch, lib.gather_dequant_wt_launch,
+               lib.int8_matmul_t_launch):
         fn.restype = I
 
 

@@ -58,6 +58,11 @@
 // matrix runs the kernels compiled without it, so its registers and code stay
 // those of the one-matrix kernel (compiled in, the offsets took the T = 1
 // GEMV from 64 registers to 94 and its split-K launches 11-13% slower).
+//
+// The activation backward (B10, int8_matmul_transposed: _call_t, pallas_call
+// at :153; the backward of every int8 projection, aqlm_tpu/ops/runtime.py:305)
+// is a kernel of its own below, so the forward instances keep their
+// registers: dx[t, i] = bf16( sum_o bf16(g[t, o] * w_scale[o]) * w8[o, i] ).
 #include <mma.h>
 
 #include "common.cuh"
@@ -500,6 +505,212 @@ int dispatch(const void* x, const void* w8, const void* w_scale, void* out, void
 #undef AQLM_INT8_CASE
 }
 
+// ---------------------------------------------------------------------------
+// backward (B10): dx = bf16(g * w_scale) @ w8
+// ---------------------------------------------------------------------------
+//
+// The contraction runs over OUT, w8's row index, so a [64 x 128] tile of w8
+// (64 output rows, 128 input columns) is read along its rows, contiguous in
+// memory, and widened into shared memory as a row-major B operand, where the
+// forward reads the same bytes as a column-major one. What bounds it: 2*T*OUT*
+// IN_pad operations on the bf16 tensor cores (Llama-2-7B's gate at T = 1024:
+// 92 GFLOP, 0.093 ms at 989 TFLOP/s); w8 is read once per 128-token tile.
+//
+// Design: a 256-thread block owns 128 tokens x 128 input columns and walks
+// OUT in 64-row slabs. The w8 slab arrives by cp.async, double buffered; the
+// gradient slab is loaded into registers one slab ahead (bf16 or f32),
+// multiplied by the scales in f32 and rounded to bf16 as the TPU wrapper
+// rounds it (aqlm_tpu/ops/int8_matmul.py:176), then stored to shared memory.
+// Eight warps run WMMA 16x16x16 bf16 products into f32 fragments (64 x 32
+// each); the epilogue casts to bf16. Ragged T, IN_pad (a multiple of 16) and
+// OUT (of 8) are masked. No split of the contraction: at T = 1024 the output
+// tiles alone fill the card (256 blocks at IN 4096, 704 at 11264).
+
+constexpr int TBM = 128;          // tokens per block
+constexpr int TBN = 128;          // input columns per block
+constexpr int TBK = 64;           // output rows (the contraction) per slab
+constexpr int TGLD = TBK + 8;     // padded shared row (bf16) of the scaled-gradient slab
+constexpr int TWLD = TBN + 8;     // padded shared row (bf16) of the widened W slab
+constexpr int T_GROUPS = TBM * TBK / 8 / GT;  // 8-wide gradient groups per thread (4)
+
+struct GemmTSmem {  // byte offsets in the dynamic shared memory
+  size_t g, w8[2], w, epi, total;
+  __host__ __device__ GemmTSmem() {
+    size_t o = 0;
+    g = o;
+    o += (size_t)TBM * TGLD * 2;
+    for (int i = 0; i < 2; ++i) {
+      w8[i] = o;
+      o += (size_t)TBK * TBN;
+    }
+    w = o;
+    o += (size_t)TBK * TWLD * 2;
+    epi = o;
+    o += (size_t)(GT / 32) * 16 * 16 * 4;
+    total = o;
+  }
+};
+
+template <typename GT_T>
+__global__ void __launch_bounds__(GT, 2)
+int8_gemm_t_kernel(const GT_T* __restrict__ g,          // [T, OUT]
+                   const int8_t* __restrict__ w8,       // [OUT, ld]
+                   const float* __restrict__ w_scale,   // [OUT]
+                   __nv_bfloat16* __restrict__ out,     // [T, ld]
+                   int T, int out_features, int ld) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const GemmTSmem L;
+  __nv_bfloat16* s_g = reinterpret_cast<__nv_bfloat16*>(smem + L.g);
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int col0 = blockIdx.x * TBN;  // first input column (of dx)
+  const int row0 = blockIdx.y * TBM;  // first token
+  const int n_slabs = (out_features + TBK - 1) / TBK;
+  const int c8 = tid % 8;             // the thread's 8-wide column group of a gradient slab
+
+  auto load_w = [&](int s, int stage) {
+    const int o0 = s * TBK;
+    int8_t* sw = reinterpret_cast<int8_t*>(smem + L.w8[stage]);
+    for (int i = tid; i < TBK * (TBN / 16); i += GT) {
+      const int r = i / (TBN / 16), c = i % (TBN / 16);
+      const bool valid = o0 + r < out_features && col0 + c * 16 < ld;
+      const int8_t* src = valid ? w8 + (size_t)(o0 + r) * ld + col0 + c * 16 : w8;
+      aqlm::cp_async16(sw + r * TBN + c * 16, src, valid);
+    }
+    aqlm::cp_async_commit();
+  };
+  // the thread's gradient groups of slab s, scaled in f32 and rounded to bf16
+  // pairs as they arrive (zeros past the edges)
+  uint32_t gv[T_GROUPS][4];
+  auto load_g = [&](int s) {
+    const int o = s * TBK + c8 * 8;
+    const bool cvalid = o < out_features;  // OUT % 8 == 0: a group is all in or all out
+    float sc[8];
+    if (cvalid) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(w_scale + o));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(w_scale + o) + 1);
+      sc[0] = a.x; sc[1] = a.y; sc[2] = a.z; sc[3] = a.w;
+      sc[4] = b.x; sc[5] = b.y; sc[6] = b.z; sc[7] = b.w;
+    }
+#pragma unroll
+    for (int q = 0; q < T_GROUPS; ++q) {
+      const int row = row0 + tid / 8 + q * (GT / 8);
+      float f[8];
+      if (cvalid && row < T) {
+        aqlm::load8(g + (size_t)row * out_features + o, f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) f[j] *= sc[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) f[j] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
+        gv[q][e] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
+  };
+  auto store_g = [&]() {
+#pragma unroll
+    for (int q = 0; q < T_GROUPS; ++q)
+      *reinterpret_cast<uint4*>(s_g + (tid / 8 + q * (GT / 8)) * TGLD + c8 * 8) =
+          make_uint4(gv[q][0], gv[q][1], gv[q][2], gv[q][3]);
+  };
+
+  const int wm = warp / 4, wn = warp % 4;  // warp's 64 x 32 sub-tile
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  if (n_slabs > 0) {
+    load_w(0, 0);
+    load_g(0);
+  }
+  for (int s = 0; s < n_slabs; ++s) {
+    const int stage = s & 1;
+    store_g();  // s_g is free: the barrier after the previous slab's products
+    if (s + 1 < n_slabs) {
+      load_w(s + 1, stage ^ 1);
+      aqlm::cp_async_wait<1>();
+    } else {
+      aqlm::cp_async_wait<0>();
+    }
+    __syncthreads();  // gradient slab and w8 slab s visible to all
+    {  // widen W: each thread 32 int8 of a row -> 32 bf16
+      const int r = tid / 4, h = tid % 4;
+      const uint4* src = reinterpret_cast<const uint4*>(smem + L.w8[stage] + r * TBN + h * 32);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(s_w + r * TWLD + h * 32);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float f[16];
+        s8x16_to_float(src[q], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
+          dst[q * 8 + e] = *reinterpret_cast<const uint32_t*>(&p);
+        }
+      }
+    }
+    if (s + 1 < n_slabs) load_g(s + 1);  // in flight over the products
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(a[i], s_g + (wm * 64 + i * 16) * TGLD + kk, TGLD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], s_w + kk * TWLD + wn * 32 + j * 16, TWLD);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();  // s_g, s_w and the stage free for reuse
+  }
+
+  // epilogue: each warp stages one 16x16 fragment at a time and casts
+  float* epi = reinterpret_cast<float*>(smem + L.epi) + warp * 256;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(epi, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int row = row0 + wm * 64 + i * 16 + e / 16;
+        const int col = col0 + wn * 32 + j * 16 + e % 16;
+        if (row < T && col < ld) out[(size_t)row * ld + col] = __float2bfloat16(epi[e]);
+      }
+      __syncwarp();
+    }
+}
+
+template <typename GT_T>
+cudaError_t gemm_t_launch(const void* g, const void* w8, const void* w_scale, void* out, int T,
+                          int out_features, int ld, cudaStream_t stream) {
+  const GemmTSmem L;
+  static size_t smem_set = 0;  // one per instantiation
+  if (L.total != smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(int8_gemm_t_kernel<GT_T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L.total);
+    if (e != cudaSuccess) return e;
+    smem_set = L.total;
+  }
+  const dim3 grid((ld + TBN - 1) / TBN, (T + TBM - 1) / TBM);
+  int8_gemm_t_kernel<GT_T><<<grid, GT, L.total, stream>>>(
+      (const GT_T*)g, (const int8_t*)w8, (const float*)w_scale, (__nv_bfloat16*)out, T,
+      out_features, ld);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // T <= 8 runs the decode path, more rows the prefill path. w8 [E, OUT, ld],
@@ -522,4 +733,14 @@ extern "C" int int8_matmul_launch(const void* x, const void* w8, const void* w_s
   // one matrix (or one expert) needs no offsets: the kernels compiled without them
   return dispatch<false>(x, w8, w_scale, out, partials, tickets, 1, 0, T, splits, cols_per_split,
                          out_features, in_features, ld, st);
+}
+
+// The activation backward: g [T, OUT] bf16 (g_f32 = 0) or f32, w8 [OUT, ld]
+// int8, w_scale [OUT] f32 -> out [T, ld] bf16. OUT a multiple of 8, ld of 16.
+extern "C" int int8_matmul_t_launch(const void* g, const void* w8, const void* w_scale, void* out,
+                                    int g_f32, int T, int out_features, int ld, void* stream) {
+  if (T < 1 || out_features % 8 || ld % 16) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (g_f32) return gemm_t_launch<float>(g, w8, w_scale, out, T, out_features, ld, st);
+  return gemm_t_launch<__nv_bfloat16>(g, w8, w_scale, out, T, out_features, ld, st);
 }

@@ -1,10 +1,12 @@
 """Kx8 gather-dequant prefill GEMM over the tiled codes layout.
 
 PyTorch counterpart of ``aqlm_tpu.ops.gather_prefill``. On a CUDA tensor
-every entry point launches kernel K2 (``csrc/gather_prefill.cu``); on a CPU
-tensor it runs the plain version. Numerics follow the TPU kernel: the
-codebook vectors are summed in f32 and rounded to bf16 before the product,
-which accumulates in f32; scales apply in the epilogue.
+every matmul entry point launches kernel K2 (``csrc/gather_prefill.cu``), and
+``gather_dequant_wt`` (the dense W^T of the codes-mode backward) launches
+B5 (``csrc/gather_dequant_wt.cu``); on a CPU tensor each runs its plain
+version. Numerics follow the TPU kernels: the codebook vectors are summed in
+f32 and rounded to bf16 before the product, which accumulates in f32; scales
+apply in the epilogue (for B5: times the f32 sum, then one rounding).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ __all__ = [
     "gather_prefill_matmul",
     "gather_prefill_matmul_indexed",
     "gather_prefill_matmul_grouped_indexed",
+    "gather_dequant_wt",
 ]
 
 _KERNEL_GROUP = 8
@@ -145,3 +148,64 @@ def gather_prefill_matmul_grouped_indexed(x, codes_tl_all, codebooks_all, scales
     li = int(layer_idx)
     y = _matmul(xb, codes_tl_all[li], codebooks_all[li], scales_all[li], proj_map, group)
     return y.reshape(*lead, -1)
+
+
+# ---------------------------------------------------------------------------
+# B5: the dense W^T from tiled codes (the codes-mode activation backward)
+# ---------------------------------------------------------------------------
+
+
+def dequant_wt_plain(codes_tl, codebooks, scales, dtype=torch.bfloat16):
+    """B5's plain version (same arguments as ``dequant_wt_launch``): the f32
+    codebook vectors summed in codebook order from k = 0, times the f32
+    scales, rounded once to ``dtype``. Returns W^T [IN, OUT]."""
+    wt = dequant_tiled_t(codes_tl, codebooks[None])
+    return (wt * scales.float()[None, :]).to(dtype)
+
+
+def dequant_wt_launch(codes_tl, codebooks, scales, dtype=torch.bfloat16):
+    """B5 on the card: codes_tl [NT, K*IG, tn] uint8 (ig-major rows);
+    codebooks [K, S<=256, 8] bf16; scales [OUT] f32; ``dtype`` bf16 or f32.
+    Returns W^T [IN, OUT] in ``dtype``."""
+    nt, kig, tn = codes_tl.shape
+    K, S, g = codebooks.shape
+    dev = codes_tl.device
+    if g != _KERNEL_GROUP:
+        raise NotImplementedError(f"gather_dequant_wt kernel takes in_group_size 8, got {g}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gather_dequant_wt kernel writes bf16 or f32, got {dtype}")
+    if (codes_tl.dtype != torch.uint8 or codebooks.dtype != torch.bfloat16
+            or scales.dtype != torch.float32):
+        raise ValueError("gather_dequant_wt kernel takes uint8 codes, bf16 codebooks and f32 scales")
+    if K < 1 or K > 8 or S > 256 or kig % K:
+        raise ValueError(f"gather_dequant_wt kernel: bad shapes codes {tuple(codes_tl.shape)} "
+                         f"codebooks {tuple(codebooks.shape)}")
+    if scales.shape != (nt * tn,):
+        raise ValueError(f"scales {tuple(scales.shape)} do not match OUT={nt * tn}")
+    for t in (codes_tl, codebooks, scales):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("gather_dequant_wt kernel operands must be contiguous on one CUDA device")
+    out = torch.empty((kig // K * g, nt * tn), dtype=dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    lib, _ = _build.library()
+    rc = lib.gather_dequant_wt_launch(codes_tl.data_ptr(), codebooks.data_ptr(), scales.data_ptr(),
+                                      out.data_ptr(), int(dtype == torch.bfloat16), nt, kig, tn,
+                                      K, S, _build.stream_ptr(dev))
+    _build.check(rc, "gather_dequant_wt")
+    _build.KERNELS["gather_dequant_wt"].launches += 1
+    return out
+
+
+def gather_dequant_wt(codes_tl, codebooks, scales, *, dtype=torch.bfloat16):
+    """W^T [IN, OUT] in ``dtype`` from tiled codes: each entry
+    ``dtype((sum_k f32 cb[k, code, j]) * scale[o])``, as
+    ``aqlm_tpu.ops.gather_prefill.gather_dequant_wt``.
+
+    codes_tl: [NT, K*IG, tn] uint8; codebooks: [K, S<=256, g]; scales: [OUT]."""
+    if codes_tl.device.type == "cpu":
+        return dequant_wt_plain(codes_tl, codebooks, scales, dtype)
+    if codes_tl.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes_tl.device}")
+    return dequant_wt_launch(codes_tl.contiguous(), codebooks.contiguous(), scales.contiguous(),
+                             dtype)

@@ -1,12 +1,14 @@
 """W8A16 matmul: int8 weights widened on chip, each weight byte read once.
 
 PyTorch counterpart of ``aqlm_tpu.ops.int8_matmul`` (``int8_matmul``,
-``int8_matmul_indexed`` and the all-expert MoE forms ``int8_moe_matmul`` and
-``int8_moe_matmul_indexed``). On a CUDA tensor every entry point launches the
+``int8_matmul_indexed``, the all-expert MoE forms ``int8_moe_matmul`` and
+``int8_moe_matmul_indexed``, and the activation backward
+``int8_matmul_transposed``). On a CUDA tensor every entry point launches a
 kernel of ``csrc/int8_matmul.cu``; on a CPU tensor it runs the plain version
 of the same function. The layer-indexed variants are the same kernel with a
 layer pointer offset; the MoE forms run every expert in one launch, the
-expert being one more grid axis of the same kernel.
+expert being one more grid axis of the same kernel. The backward has a
+kernel of its own (the contraction runs over w8's rows).
 
 Layout (shared with ``aqlm_tpu``, so weights and checkpoints carry across):
 ``w8`` is ``[OUT, IN_pad]`` int8, rows contiguous along the contraction dim,
@@ -30,6 +32,7 @@ __all__ = [
     "int8_matmul_indexed",
     "int8_moe_matmul",
     "int8_moe_matmul_indexed",
+    "int8_matmul_transposed",
 ]
 
 IN_PAD_MULTIPLE = 1024  # weight rows padded so large contraction tiles divide evenly
@@ -220,3 +223,74 @@ def int8_moe_matmul_indexed(x, w8_all, scale_all, layer_idx: int):
     copied. Returns [E, N, OUT]."""
     li = int(layer_idx)
     return int8_moe_matmul(x, w8_all[li], scale_all[li])
+
+
+# ---------------------------------------------------------------------------
+# the activation backward: dx = bf16(g * w_scale) @ w8
+# ---------------------------------------------------------------------------
+
+
+def scaled_grad(gb, w_scale):
+    """g [rows, OUT] times the scales in f32, rounded to bf16, as
+    ``aqlm_tpu``'s ``int8_matmul_transposed`` rounds it before its kernel."""
+    return (gb.float() * w_scale.float()[None, :]).to(torch.bfloat16)
+
+
+def plain_t(gb, w8, w_scale):
+    """The backward kernel's plain version (same arguments as ``launch_t``):
+    the f32 product of bf16(g * scale) and the widened weights, in bf16.
+    Returns [rows, IN_pad]."""
+    return torch.matmul(scaled_grad(gb, w_scale).float(), w8.float()).to(torch.bfloat16)
+
+
+def launch_t(gb, w8, w_scale):
+    """The backward kernel: gb [rows, OUT] bf16 or f32; w8 [OUT, IN_pad] int8;
+    w_scale [OUT] f32. The scale and the bf16 rounding are applied as the
+    gradient tile is loaded. Returns [rows, IN_pad] bf16."""
+    rows, out_features = gb.shape
+    dev = gb.device
+    if gb.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"int8_matmul_transposed kernel takes bf16 or f32 gradients, got {gb.dtype}")
+    if w8.dim() != 2 or w8.dtype != torch.int8 or w_scale.dtype != torch.float32:
+        raise ValueError(f"int8_matmul_transposed kernel takes int8 w8 [OUT, IN_pad] and f32 "
+                         f"scales, got {w8.dtype} {tuple(w8.shape)} and {w_scale.dtype}")
+    if w8.shape[0] != out_features or w_scale.shape != (out_features,):
+        raise ValueError(f"int8_matmul_transposed kernel: g {tuple(gb.shape)} against w8 "
+                         f"{tuple(w8.shape)} and w_scale {tuple(w_scale.shape)}")
+    in_pad = w8.shape[1]
+    if out_features % 8 or in_pad % 16:
+        raise ValueError(f"int8_matmul_transposed kernel: OUT {out_features} (a multiple of 8) "
+                         f"and IN_pad {in_pad} (of 16)")
+    for t in (gb, w8, w_scale):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("int8_matmul_transposed kernel operands must be contiguous on one "
+                             "CUDA device")
+    if gb.data_ptr() % 16 or w8.data_ptr() % 16 or w_scale.data_ptr() % 16:
+        raise ValueError("int8_matmul_transposed kernel needs 16-byte aligned operands")
+    out = torch.empty((rows, in_pad), dtype=torch.bfloat16, device=dev)
+    if rows == 0:
+        return out
+    lib, _ = _build.library()
+    rc = lib.int8_matmul_t_launch(gb.data_ptr(), w8.data_ptr(), w_scale.data_ptr(),
+                                  out.data_ptr(), int(gb.dtype == torch.float32), rows,
+                                  out_features, in_pad, _build.stream_ptr(dev))
+    _build.check(rc, "int8_matmul_transposed")
+    _build.KERNELS["int8_matmul_transposed"].launches += 1
+    return out
+
+
+def int8_matmul_transposed(g, w8, w_scale):
+    """dx = bf16(g * w_scale) @ w8, the backward of ``int8_matmul`` in x.
+
+    g: [..., OUT] bf16 or f32; w8: [OUT, IN_pad] int8; w_scale: [OUT] f32.
+    Returns [..., IN_pad] bf16 (the caller slices to its in_features), as
+    ``aqlm_tpu.ops.int8_matmul.int8_matmul_transposed``."""
+    lead = g.shape[:-1]
+    gb = g.reshape(-1, g.shape[-1]).contiguous()
+    if gb.device.type == "cpu":
+        dx = plain_t(gb, w8, w_scale)
+    elif gb.device.type == "cuda":
+        dx = launch_t(gb, w8, w_scale)
+    else:
+        raise ValueError(f"unsupported device {gb.device}")
+    return dx.reshape(*lead, -1)

@@ -25,6 +25,12 @@ covers:
   schemes with out_group_size 1, as on the TPU (``ops/dequant``); the plain
   gather on the CPU and for the other schemes.
 
+``quantized_matmul`` in the serving modes (codes, int8, int4) is a
+``torch.autograd.Function`` that backpropagates to the activations only, as
+``aqlm_tpu``'s custom VJP does (PEFT through a frozen backbone): in int8 the
+backward kernel B10 (``int8_matmul_transposed``), otherwise the product with
+``dense_weight_t`` (B5 for tiled codes, B13 for untiled ones).
+
 Everything else raises ``NotImplementedError`` naming the ROADMAP item that
 will port it.
 """
@@ -40,18 +46,34 @@ from aqlm_tpu_torch.config import AqlmScheme
 from aqlm_tpu_torch.ops.dequant import AqlmWeight, aqlm_matmul_reference, dequantize_weight
 from aqlm_tpu_torch.ops.gather16 import (
     codes16,
+    dequantize_gather16,
     gather_matmul_16,
     gather_matmul_16_indexed,
     pack_codebook_rows,
 )
 from aqlm_tpu_torch.ops.gather_prefill import (
+    gather_dequant_wt,
     gather_prefill_matmul,
     gather_prefill_matmul_grouped_indexed,
     gather_prefill_matmul_indexed,
 )
-from aqlm_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_indexed, quantize_int4
-from aqlm_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_indexed, quantize_int8
-from aqlm_tpu_torch.ops.kernels import fused_onehot_matmul, fused_onehot_matmul_indexed
+from aqlm_tpu_torch.ops.int4_matmul import (
+    dequantize_int4,
+    int4_matmul,
+    int4_matmul_indexed,
+    quantize_int4,
+)
+from aqlm_tpu_torch.ops.int8_matmul import (
+    int8_matmul,
+    int8_matmul_indexed,
+    int8_matmul_transposed,
+    quantize_int8,
+)
+from aqlm_tpu_torch.ops.kernels import (
+    dequantize_onehot,
+    fused_onehot_matmul,
+    fused_onehot_matmul_indexed,
+)
 from aqlm_tpu_torch.ops.lut_gemv import (
     LUT_GEMV_MAX_BATCH,
     lut_gemv_kx8_grouped_indexed,
@@ -123,6 +145,32 @@ class QuantizedLinear:
     data_fields: ClassVar[tuple] = ("codes", "codebooks", "scales", "bias", "codes_tl", "w8",
                                     "w8_scale", "w4", "w4_gscale", "codes_t", "packed_cb")
 
+    @property
+    def out_features(self) -> int:
+        if self.w8 is not None:
+            return self.w8.shape[0]
+        if self.w4 is not None:
+            return self.w4.shape[0]
+        if self.codes_tl is not None:
+            return self.codes_tl.shape[0] * self.codes_tl.shape[2]
+        if self.codes_t is not None:
+            return self.codes_t.shape[2]
+        return self.codes.shape[0] * self.scheme.out_group_size
+
+    @property
+    def in_features(self) -> int:
+        """The layout's input width: padded in int8 and int4 mode
+        (``pad_in_features``: 11008 -> 11264), as ``aqlm_tpu`` reports it."""
+        if self.w8 is not None:
+            return self.w8.shape[1]
+        if self.w4 is not None:
+            return self.w4.shape[1] * 2
+        if self.codes_tl is not None:
+            return self.codes_tl.shape[1] // self.scheme.num_codebooks * self.scheme.in_group_size
+        if self.codes_t is not None:
+            return self.codes_t.shape[1] * self.scheme.in_group_size
+        return self.codes.shape[1] * self.scheme.in_group_size
+
     @staticmethod
     def from_aqlm(w: AqlmWeight, mode: str = "codes") -> "QuantizedLinear":
         """Load-time transform of the canonical representation into a runtime layout."""
@@ -167,13 +215,28 @@ class QuantizedLinear:
         return QuantizedLinear(codes=None, codebooks=cb, scales=scales, bias=w.bias,
                                scheme=scheme, mode=mode, codes_tl=tile_codes(codes_t))
 
+    def dense_weight_t(self, dtype=torch.bfloat16) -> torch.Tensor:
+        """W^T [IN, OUT] in ``dtype`` (IN padded in int8 and int4 mode): B5
+        for tiled codes and B13 for untiled ones on the card."""
+        if self.mode == "int8":
+            return (self.w8.t().float() * self.w8_scale[None, :]).to(dtype)
+        if self.mode == "int4":
+            return dequantize_int4(self.w4, self.w4_gscale).t().to(dtype)
+        g = self.scheme.in_group_size
+        if self.mode == "codes":
+            if self.packed_cb is not None:
+                return dequantize_gather16(self.codes, self.packed_cb, self.scales,
+                                           group=g).t().to(dtype)
+            if self.codes_tl is not None:
+                return gather_dequant_wt(self.codes_tl, self.codebooks, self.scales, dtype=dtype)
+            return dequantize_onehot(self.codes_t, self.codebooks, self.scales, group=g,
+                                     dtype=dtype)
+        w = AqlmWeight(codes=self.codes, codebooks=self.codebooks, scales=self.scales, bias=None,
+                       scheme=self.scheme)
+        return dequantize_weight(w, dtype=dtype).t()
 
-def quantized_matmul(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
-    """y = x @ W_q^T + b through the runtime-mode kernel."""
-    if q.mode == "reference":
-        w = AqlmWeight(codes=q.codes, codebooks=q.codebooks, scales=q.scales,
-                       bias=q.bias, scheme=q.scheme)
-        return aqlm_matmul_reference(x, w)
+
+def _serving_matmul_impl(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     if q.mode == "int8":
         return int8_matmul(x, q.w8, q.w8_scale, q.bias)
     if q.mode == "int4":
@@ -186,6 +249,49 @@ def quantized_matmul(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     if _batch(x) <= LUT_GEMV_MAX_BATCH:
         return lut_gemv_kx8_tiled(x, q.codes_tl, q.codebooks, q.scales, q.bias, group=g)
     return gather_prefill_matmul(x, q.codes_tl, q.codebooks, q.scales, q.bias, group=g)
+
+
+def _serving_matmul_bwd(g: torch.Tensor, q: QuantizedLinear, in_features: int) -> torch.Tensor:
+    """dx of y = x @ W_q^T for the cotangent g [..., OUT], in g's dtype:
+    B10 in int8 mode, else bf16(g) @ dense_weight_t(bf16)^T with f32 sums,
+    sliced to the caller's ``in_features`` (int8/int4 layouts pad IN)."""
+    if q.mode == "int8":
+        dx = int8_matmul_transposed(g, q.w8, q.w8_scale)[..., :in_features]
+    else:
+        wt = q.dense_weight_t(torch.bfloat16)[:in_features]  # [IN, OUT]
+        gb = g.to(torch.bfloat16)
+        # at bf16 g a bf16 product (f32 sums, one rounding) is the f32 product cast to g's dtype
+        dx = (torch.matmul(gb, wt.t()) if g.dtype == torch.bfloat16
+              else torch.matmul(gb.float(), wt.float().t()))
+    return dx.to(g.dtype)
+
+
+class _ServingMatmul(torch.autograd.Function):
+    """The serving layouts' matmul with an activation-only backward
+    (``aqlm_tpu.ops.runtime._serving_matmul``): the weights are frozen and
+    get no gradient; only q and the input width are kept, never x."""
+
+    @staticmethod
+    def forward(ctx, x, q):
+        ctx.q, ctx.in_features = q, x.shape[-1]
+        return _serving_matmul_impl(x, q)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _serving_matmul_bwd(g, ctx.q, ctx.in_features), None
+
+
+def quantized_matmul(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
+    """y = x @ W_q^T + b through the runtime-mode kernel.
+
+    Reference mode is differentiable end to end (codebooks and scales get
+    gradients: the calibration path). The serving layouts backpropagate to
+    x only (``_ServingMatmul``)."""
+    if q.mode == "reference":
+        w = AqlmWeight(codes=q.codes, codebooks=q.codebooks, scales=q.scales,
+                       bias=q.bias, scheme=q.scheme)
+        return aqlm_matmul_reference(x, w)
+    return _ServingMatmul.apply(x, q)
 
 
 @dataclasses.dataclass

@@ -2,7 +2,8 @@
 ``aqlm_tpu.pv.trainer.split_trainable`` / ``merge_trainable``).
 
 A tree is dicts, lists, weight dataclasses (``QuantizedLinear``,
-``DenseLinear``: their ``data_fields``) and tensors. Float tensors train; integer tensors (the
+``DenseLinear``, ``LoraLinear`` around its base: their ``data_fields``) and
+tensors. Float tensors train; integer tensors (the
 codes) freeze. The split gives two trees of the same shape with ``None``
 holes; ``merge_trainable`` fills each hole from the other tree.
 """
@@ -13,7 +14,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["split_trainable", "merge_trainable", "tree_map"]
+__all__ = ["split_trainable", "merge_trainable", "tree_map", "tree_leaves"]
 
 
 def tree_map(fn, *trees):
@@ -29,6 +30,13 @@ def tree_map(fn, *trees):
     if first is None or isinstance(first, torch.Tensor):
         return fn(*trees)
     return first
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of ``tree``, in ``tree_map``'s order (None skipped)."""
+    found = []
+    tree_map(lambda t: found.append(t) if t is not None else None, tree)
+    return found
 
 
 def split_trainable(params):

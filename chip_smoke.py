@@ -23,9 +23,12 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    (K1's MoE instance at the decode rows, K2's f32 instance once per expert
    at the prefill rows), the 1x16 GEMV and GEMM at Llama-2-7B's q, gate
    and down at g=8 and q at g=16, B13 at Llama-2-7B's q, gate and down in
-   2x8 (precise: bit-identical; bf16 selection: one bf16 step) and B14 at
+   2x8 (precise: bit-identical; bf16 selection: one bf16 step), B14 at
    the groups of q and gate (within 1e-5 of each segment's sum of |data| of
-   a float64 sum)), with its time, the plain version's time, the least
+   a float64 sum), and the activation backward of the lora phase: B10
+   (``int8_matmul_transposed``) at its q, gate and down at 1024 rows and at
+   q at rows 1, 8 and 200 (one bf16 step), B5 (``gather_dequant_wt``) at
+   q, gate and down (bit-identical)), with its time, the plain version's time, the least
    time the card could take (bound) and, where one PyTorch call computes
    the same function, its time (for a MoE kernel with per-expert x, where
    none does, the sum of one call per expert, as an aside);
@@ -65,9 +68,20 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    served by Engine.generate (4 prompts, 16 new tokens): K1, K2 and K3
    launch, B13 and B14 do not; its prefill logits within 3e-2 max|logit|
    of the same checkpoint in reference mode on the card (B13);
-7. the seconds of each phase, the kernel list (launches over the engine,
-   calibration and serving runs), then {"ok": true, "device": {...}} as the
-   last line.
+7. LoRA training (``pv.lora.make_lora_step``, torch.optim.Adam), outside
+   inference mode: first a 2-layer full-width step on the card against the
+   same step on the CPU (plain versions), in 2x8 codes and in int8 (loss and
+   every adapter gradient, and the card's launches); then Llama-2-7B at full
+   width and depth, 2x8 codes then int8 with a dense bf16 head (each freed
+   before the next), adapters (r 8, alpha 16) on q/k/v/o of every layer, 6
+   steps on one batch of 2 x 512 ids: finite losses, the last below the
+   first, every adapter moved, every frozen tensor bit-unchanged, and per
+   step 7 x 32 forward launches (K2 or the int8 kernel) and 7 x 32 - 3
+   backward launches (B5 or B10), nothing else; seconds per step, trained
+   tokens/s, peak memory and a profiled step's device time by kernel;
+8. the seconds of each phase, the kernel list (launches over the engine,
+   calibration, serving and training runs), then {"ok": true, "device":
+   {...}} as the last line.
 
 Writes chiprun_out/chip_smoke.json with every record and
 chiprun_out/ptxas.txt with the kernels' register and shared-memory report.
@@ -789,6 +803,100 @@ def check_calib(gen, dev, failures):
     return reps
 
 
+# (name, out_features, in_features): the projections of a Llama-2-7B block
+# whose activation backward runs B5 (codes) or B10 (int8) in the lora phase
+BWD_PROJS = [("q", 4096, 4096), ("gate", 11008, 4096), ("down", 4096, 11008)]
+BWD_ROWS = 1024  # B * T of the lora phase's batch (2 x 512)
+
+
+def check_b10(gen, dev, failures):
+    """B10 (``int8_matmul_transposed``) at the lora phase's three OUT -> IN
+    pairs at 1024 rows, and at rows 1, 8 and 200 at q, bf16 gradients,
+    within one bf16 step of its plain version. Library: one
+    ``torch._weight_int8pack_mm`` over the bf16(g * scale) operand and a w8^T
+    [IN_pad, OUT] made once outside the timing, unit scales."""
+    from aqlm_tpu_torch.ops import int8_matmul as im
+
+    reps = {}
+    for name, out_f, in_f in BWD_PROJS:
+        ld = im.pad_in_features(in_f)
+        w8 = torch.randint(-127, 128, (N_LAYERS_TIMED, out_f, ld), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        w8[..., in_f:] = 0
+        scale = torch.rand((N_LAYERS_TIMED, out_f), generator=gen, device=dev) / (127 * in_f ** 0.5)
+        w_lib = w8[0].t().contiguous()  # yardstick only
+        ones = torch.ones(ld, dtype=torch.bfloat16, device=dev)
+        for rows in ([1, 8, 200, BWD_ROWS] if name == "q" else [BWD_ROWS]):
+            g = torch.randn((N_LAYERS_TIMED, rows, out_f), generator=gen, device=dev).to(torch.bfloat16)
+            run = lambda i=0: im.launch_t(g[i % N_LAYERS_TIMED], w8[i % N_LAYERS_TIMED],
+                                          scale[i % N_LAYERS_TIMED])
+            plain = lambda i=0: im.plain_t(g[0], w8[0], scale[0])
+            cmp = compare(run(0), plain(0))
+            ms = time_ms(run, 20)
+            plain_ms = time_ms(plain, 3)
+            b_ms, b_by = bound(out_f * ld + rows * out_f * 2 + out_f * 4 + rows * ld * 2,
+                               2.0 * rows * out_f * ld)
+            library_ms = library_error = None
+            try:
+                gs = im.scaled_grad(g[0], scale[0])
+                library = lambda i=0: torch._weight_int8pack_mm(gs, w_lib, ones)
+                library_ms = time_ms(library, 10)
+            except Exception as exc:  # the yardstick only: recorded, never on the port's path
+                library_error = str(exc).strip().splitlines()[0][:200]
+            rec = {"phase": "check", "kernel": "int8_matmul_transposed", "proj": name,
+                   "rows": rows, "out_features": out_f, "in_features": ld, "true_in": in_f,
+                   **cmp, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library": "torch._weight_int8pack_mm", "library_ms": library_ms,
+                   "library_error": library_error, "host_ms": host_ms(run)}
+            emit(rec)
+            if not cmp["ok"]:
+                failures.append(rec)
+            if name == "gate":
+                reps["int8_matmul_transposed"] = rec
+        del w8, scale, w_lib
+        torch.cuda.empty_cache()
+    return reps
+
+
+def check_b5(gen, dev, failures):
+    """B5 (``gather_dequant_wt``, bf16 W^T) at q, gate and down in 2x8,
+    bit-identical to its plain version. No one PyTorch call computes it."""
+    from aqlm_tpu_torch.ops import gather_prefill as gp
+    from aqlm_tpu_torch.ops import lut_gemv as lg
+
+    reps = {}
+    for name, out_f, in_f in BWD_PROJS:
+        tn = lg.lut_tile_n(out_f)
+        codes = torch.randint(0, 256, (N_LAYERS_TIMED, out_f // tn, in_f // 8 * 2, tn),
+                              generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
+        cb = (torch.randn((2, 256, 8), generator=gen, device=dev) / 4).to(torch.bfloat16)
+        scales = torch.rand(out_f, generator=gen, device=dev) + 0.5
+        got = gp.dequant_wt_launch(codes[0], cb, scales)
+        want = gp.dequant_wt_plain(codes[0], cb, scales)
+        same = bool(torch.equal(got, want))
+        cmp = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+               "bit_identical": same, "tol": "bit-identical", "ok": same}
+        del got, want
+        run = lambda i=0: gp.dequant_wt_launch(codes[i % N_LAYERS_TIMED], cb, scales)
+        plain = lambda i=0: gp.dequant_wt_plain(codes[0], cb, scales)
+        ms = time_ms(run, 20)
+        plain_ms = time_ms(plain, 3)
+        b_ms, b_by = _f32_bound(in_f * out_f * 2 + out_f * in_f // 4 + 2 * 256 * 8 * 2 + out_f * 4,
+                                2.0 * out_f * in_f)  # an add and the scale product a weight
+        rec = {"phase": "check", "kernel": "gather_dequant_wt", "proj": name,
+               "out_features": out_f, "in_features": in_f, "tn": tn, "K": 2, **cmp, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "host_ms": host_ms(run)}
+        emit(rec)
+        if not cmp["ok"]:
+            failures.append(rec)
+        if name == "gate":
+            reps["gather_dequant_wt"] = rec
+        del codes, cb, scales
+        torch.cuda.empty_cache()
+    return reps
+
+
 # (model, kv heads, query heads per kv head, head_dim): K3's decode shapes
 K3_SHAPES = [("llama2_7b", 32, 1, 128), ("falcon_7b", 1, 71, 64)]
 
@@ -873,10 +981,11 @@ def _to(node, dev):
         return {k: _to(v, dev) for k, v in node.items()}
     if isinstance(node, list):
         return [_to(v, dev) for v in node]
-    if dataclasses.is_dataclass(node):
+    if dataclasses.is_dataclass(node):  # a LoraLinear's base included
         return dataclasses.replace(node, **{
             f.name: _to(getattr(node, f.name), dev) for f in dataclasses.fields(node)
-            if isinstance(getattr(node, f.name), torch.Tensor)})
+            if isinstance(getattr(node, f.name), torch.Tensor)
+            or hasattr(getattr(node, f.name), "data_fields")})
     return node
 
 
@@ -1312,6 +1421,196 @@ def serve_calibrated(dev) -> dict:
             "ok": tokens_ok and ran and others and logits_ok and ref_b13 > 0}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: LoRA training through frozen codes and int8 backbones
+# ---------------------------------------------------------------------------
+
+LORA_RUNS = {"lora_codes": "codes", "lora_int8": "int8"}
+PATH_KERNELS["lora_codes"] = ("gather_prefill", "gather_dequant_wt")
+PATH_KERNELS["lora_int8"] = ("int8_matmul", "int8_matmul_transposed")
+LORA = dict(r=8, alpha=16.0, lr=3e-3, batch=2, seq=512, steps=6, ref_layers=2,
+            ref_shape=(128, 2), ref_aside_shape=(2, 128))
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj")
+
+
+def lora_wrap(params, cfg, gen, b_std=0.0):
+    """LoraLinear adapters on q/k/v/o of every layer (through
+    ``map_quantized_linears``, as a user wraps serving layouts): r 8, alpha
+    16, lora_a normal / sqrt(r) of the projection's true width
+    (``projection_shapes``, not the padded ``in_features``), lora_b zeros
+    (or normal * ``b_std``), from ``gen`` on the params' device."""
+    from aqlm_tpu_torch.models.common import LoraLinear
+    from aqlm_tpu_torch.models.llama import projection_shapes
+    from aqlm_tpu_torch.models.quantize import map_quantized_linears
+
+    shapes, r = projection_shapes(cfg), LORA["r"]
+
+    def wrap(li, name, q):
+        if name not in LORA_TARGETS:
+            return q
+        d = q.scales.device
+        a = torch.randn((r, shapes[name][1]), generator=gen, device=d) / r ** 0.5
+        b = torch.randn((q.out_features, r), generator=gen, device=d) * b_std
+        return LoraLinear(base=q, lora_a=a, lora_b=b, scale=LORA["alpha"] / r)
+
+    return map_quantized_linears(params, wrap)
+
+
+def lora_launch_formula(layers: int) -> dict:
+    """Launches of one step over ``layers`` layers: every projection's forward
+    (K2 or the int8 kernel: B * T > 8 rows) once, and its backward (B5 or B10)
+    once, but for layer 0's q, k and v, whose input (the normed embedding,
+    frozen) needs no gradient, so autograd never calls their backward."""
+    return {"forward": 7 * layers, "backward": 7 * layers - 3}
+
+
+def lora_reference(dev, mode) -> dict:
+    """One make_lora_step on a 2-layer full-width Llama-2-7B, kernels on the
+    card against the plain versions on the CPU, from the same params (built
+    on the CPU from seed 2; lora_b normal * 0.01, so the adapters have a
+    gradient at the first step). Gated on 128 x 2 ids: only position 0
+    enters the loss and its attention has one key, so the gradients are
+    well conditioned (the CPU alone, bf16 against f32 activations: within
+    2.4% of max|grad|; ``experiments/torch_lora_grad_sensitivity.py``). The
+    loss within 1e-2 of the CPU's, each adapter's gradient within 3e-2 of its
+    largest CPU magnitude (bf16 activations rounded at other points, as the
+    logits bound), q/k's exactly zero on both, and the card's launches as
+    ``lora_launch_formula``. On 2 x 128 ids the same comparison is reported
+    ungated: random weights make attention near one-hot, and a near tie
+    flips with one rounding (the CPU alone: 0.5-1.4 of max|grad|)."""
+    from aqlm_tpu_torch.config import AqlmScheme
+    from aqlm_tpu_torch.models.llama import ModelConfig
+    from aqlm_tpu_torch.models.quantize import random_quantized_params
+    from aqlm_tpu_torch.ops import _build
+    from aqlm_tpu_torch.pv import init_lora_state, make_lora_step
+    from aqlm_tpu_torch.pv.trainer import tree_leaves
+
+    layers = LORA["ref_layers"]
+    cfg = dataclasses.replace(ModelConfig.llama2_7b(), num_layers=layers)
+    cpu = torch.device("cpu")
+    params = random_quantized_params(torch.Generator().manual_seed(2), cfg,
+                                     AqlmScheme.parse("2x8g8"), mode=mode, device=cpu)
+    params = lora_wrap(params, cfg, torch.Generator().manual_seed(3), b_std=0.01)
+    res = {}
+    for key, shape in (("gated", LORA["ref_shape"]), ("aside", LORA["ref_aside_shape"])):
+        ids = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, shape))
+        out = []
+        for d in (dev, cpu):
+            state = init_lora_state(_to(params, d), lambda p: torch.optim.Adam(p, lr=LORA["lr"]))
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, loss = make_lora_step(cfg)(state, ids.to(d))
+            out.append((float(loss), [t.grad.float().cpu() for t in tree_leaves(state.adapters)],
+                        {k: v.launches for k, v in _build.KERNELS.items() if v.launches},
+                        time.perf_counter() - t0))
+            del state
+        (loss, grads, launches, card_s), (want_loss, want_grads, _, cpu_s) = out
+        ratios = [float((g - w).abs().max() / w.abs().max()) if w.any() else
+                  (0.0 if not g.any() else float("inf")) for g, w in zip(grads, want_grads)]
+        res[key] = {"ids": list(shape), "loss": loss, "cpu_loss": want_loss,
+                    "max_grad_err_over_max": max(ratios), "grad_err_over_max": ratios,
+                    "launches": launches, "card_step_s": card_s, "cpu_step_s": cpu_s}
+    g = res["gated"]
+    f = lora_launch_formula(layers)
+    fwd, bwd = PATH_KERNELS[f"lora_{mode}"]
+    counts_ok = g["launches"] == {fwd: f["forward"], bwd: f["backward"]}
+    loss_ok = np.isfinite(g["loss"]) and abs(g["loss"] - g["cpu_loss"]) <= 1e-2 * abs(g["cpu_loss"])
+    grads_ok = all(r <= 3e-2 for r in g["grad_err_over_max"])
+    return {"phase": "lora_reference", "mode": mode, "layers": layers, "hidden": 4096,
+            "adapters": len(g["grad_err_over_max"]), **g, "launch_formula": f,
+            "tol": "loss 1e-2 relative; each adapter grad max|cuda - cpu| <= 3e-2 max|cpu| "
+                   "(zero where the CPU's is zero)", "attention_aside": res["aside"],
+            "ok": bool(loss_ok and grads_ok and counts_ok)}
+
+
+def profile_lora_step(step, state, ids) -> dict:
+    """Device time by kernel over one more training step, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, ids)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA and dev_us(e) > 0]
+    total_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:12]
+    return {"wall_ms": wall_ms, "device_ms": total_ms, "device_busy_share": total_ms / wall_ms,
+            "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "calls": e.count} for e in top]}
+
+
+def lora_run(dev, run) -> dict:
+    """``make_lora_step`` at full Llama-2-7B width and depth, random weights
+    from seed 0: ``steps`` Adam steps on one fixed batch of 2 x 512 random
+    ids, adapters on q/k/v/o (``lora_wrap``), outside inference mode. Gates:
+    finite losses, the last below the first; every adapter moved; every
+    frozen tensor bit-unchanged; launches exactly ``steps`` times
+    ``lora_launch_formula`` and no other kernel (no K1, K3 or B15)."""
+    from aqlm_tpu_torch.config import AqlmScheme
+    from aqlm_tpu_torch.models.llama import ModelConfig
+    from aqlm_tpu_torch.models.quantize import random_quantized_params
+    from aqlm_tpu_torch.ops import _build
+    from aqlm_tpu_torch.pv import init_lora_state, make_lora_step
+    from aqlm_tpu_torch.pv.trainer import tree_leaves
+
+    mode, steps = LORA_RUNS[run], LORA["steps"]
+    cfg = ModelConfig.llama2_7b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                                     AqlmScheme.parse("2x8g8"), mode=mode, device=dev)
+    params = lora_wrap(params, cfg, torch.Generator(device=dev).manual_seed(1))
+    state = init_lora_state(params, lambda p: torch.optim.Adam(p, lr=LORA["lr"]))
+    del params
+    adapters0 = [t.detach().clone() for t in tree_leaves(state.adapters)]
+    frozen0 = [t.clone() for t in tree_leaves(state.frozen)]
+    step = make_lora_step(cfg)
+    ids = torch.randint(0, cfg.vocab_size, (LORA["batch"], LORA["seq"]),
+                        generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    _build.reset_launch_counts()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        state, loss = step(state, ids)
+        losses.append(float(loss))  # waits for the step
+        step_s.append(time.perf_counter() - s0)
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    f = lora_launch_formula(cfg.num_layers)
+    fwd, bwd = PATH_KERNELS[run]
+    counts_ok = (launches[fwd] == steps * f["forward"] and launches[bwd] == steps * f["backward"]
+                 and all(n == 0 for k, n in launches.items() if k not in (fwd, bwd)))
+    finite = all(np.isfinite(losses))
+    falls = finite and losses[-1] < losses[0]
+    moved = all(not torch.equal(a, b.detach()) for a, b in zip(adapters0, tree_leaves(state.adapters)))
+    frozen_ok = all(torch.equal(a, b) for a, b in zip(frozen0, tree_leaves(state.frozen)))
+    del adapters0, frozen0
+    prof = profile_lora_step(step, state, ids)
+    tokens = LORA["batch"] * LORA["seq"]
+    steady = statistics.median(step_s[1:])
+    rec = {"phase": "lora", "run": run, "model": "llama2_7b", "mode": mode, "scheme": "2x8g8",
+           "layers": cfg.num_layers, "hidden": cfg.hidden_size, "head": "dense bf16",
+           "targets": list(LORA_TARGETS), **{k: LORA[k] for k in ("r", "alpha", "lr", "batch", "seq", "steps")},
+           "optimizer": "torch.optim.Adam", "build_s": build_s, "step_s": step_s,
+           "s_per_step": steady, "trained_tok_s": tokens / steady, "peak_mem_gib": peak_gib,
+           "losses": losses, "launches": launches,
+           "launches_per_step": {fwd: launches[fwd] / steps, bwd: launches[bwd] / steps},
+           "launch_formula_per_step": f, "losses_finite": finite, "loss_falls": falls,
+           "adapters_moved": moved, "frozen_unchanged": frozen_ok, "launches_match": counts_ok,
+           "profile": prof, "ok": bool(falls and moved and frozen_ok and counts_ok)}
+    del state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1348,6 +1647,8 @@ def main() -> int:
         reps.update(check_moe_codes(gen, dev, failures))
         reps.update(check_gather16(gen, dev, failures))
         reps.update(check_calib(gen, dev, failures))
+        reps.update(check_b10(gen, dev, failures))
+        reps.update(check_b5(gen, dev, failures))
     phase_s["checks"] = time.perf_counter() - t0
     if failures:
         print(f"chip_smoke: {len(failures)} kernel checks out of tolerance", file=sys.stderr)
@@ -1387,6 +1688,24 @@ def main() -> int:
     if not runs["serve_calibrated"]["ok"]:
         print("chip_smoke: serving the calibrated checkpoint failed its checks", file=sys.stderr)
         return 6
+
+    # LoRA training: autograd, outside inference mode
+    for mode in LORA_RUNS.values():
+        t0 = time.perf_counter()
+        ref = lora_reference(dev, mode)
+        phase_s[f"lora_reference_{mode}"] = ref["seconds"] = time.perf_counter() - t0
+        emit(ref)
+        if not ref["ok"]:
+            print(f"chip_smoke: the {mode} training step disagrees with the CPU", file=sys.stderr)
+            return 7
+    for run in LORA_RUNS:
+        t0 = time.perf_counter()
+        runs[run] = lora_run(dev, run)
+        phase_s[run] = runs[run]["seconds"] = time.perf_counter() - t0
+        emit(runs[run])
+        if not runs[run]["ok"]:
+            print(f"chip_smoke: the {run} training run failed its checks", file=sys.stderr)
+            return 8
 
     emit({"phase": "seconds", **phase_s, "total": time.perf_counter() - T_START})
     kernels = []

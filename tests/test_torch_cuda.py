@@ -13,6 +13,7 @@ scaled product, as the TPU kernel does. K2's f32 instance, the prefill route
 of the all-expert codes matmul, is held against K2's plain version with an
 f32 output (the weight rounded to bf16, as K2 rounds it), within one step."""
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -896,3 +897,155 @@ def test_reference_matmul_on_the_card_runs_b13_and_b14(dev):
     for got in (card, cpu):
         for a, want, m in zip(got, exact, mass):
             assert bool(((a - want).abs() <= 1e-5 * m).all())
+
+
+# --- B5 / B10: the serving layouts' activation backward (LoRA through frozen backbones) ----
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,out_f,in_f", [(2, 128, 64), (1, 512, 4096), (2, 4096, 4096),
+                                          (2, 11008, 4096), (2, 4096, 11008), (2, 384, 8 * 37)])
+def test_gather_dequant_wt_kernel_matches_plain(dev, K, out_f, in_f, out_dtype):
+    """B5 bit-identical to its plain version (the same f32 adds in codebook
+    order from k = 0, the same scale product, one rounding): OUT 128 to
+    11008 (tiles of 128 and 512), a ragged IN (37 groups), K 1 and 2."""
+    gen = torch.Generator(device=dev).manual_seed(K * out_f + in_f)
+    codes_t = torch.randint(0, 256, (K, in_f // 8, out_f), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    codes = lg.tile_codes(codes_t)
+    cb = (torch.randn((K, 256, 8), generator=gen, device=dev) / 4).to(torch.bfloat16)
+    scales = torch.rand(out_f, generator=gen, device=dev) + 0.5
+    before = _build.KERNELS["gather_dequant_wt"].launches
+    got = gp.gather_dequant_wt(codes, cb, scales, dtype=out_dtype)
+    assert _build.KERNELS["gather_dequant_wt"].launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (in_f, out_f)
+    assert torch.equal(got, gp.dequant_wt_plain(codes, cb, scales, out_dtype))
+
+
+def test_gather_dequant_wt_small_codebooks(dev):
+    """S 16 (a 1x4-bit codebook of the Kx8 layout) and K 8."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for K, S in ((1, 16), (8, 256)):
+        codes = lg.tile_codes(torch.randint(0, S, (K, 16, 256), generator=gen, device=dev,
+                                            dtype=torch.int32).to(torch.uint8))
+        cb = torch.randn((K, S, 8), generator=gen, device=dev).to(torch.bfloat16)
+        scales = torch.rand(256, generator=gen, device=dev) + 0.5
+        assert torch.equal(gp.gather_dequant_wt(codes, cb, scales),
+                           gp.dequant_wt_plain(codes, cb, scales))
+
+
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 8, 77, 200, 1024])
+@pytest.mark.parametrize("out_f,in_f", [(4096, 4096), (11008, 4096), (4096, 11008), (200, 1152),
+                                        (64, 48)])
+def test_int8_matmul_transposed_kernel_matches_plain(dev, out_f, in_f, rows, g_dtype):
+    """B10 within one bf16 step of its plain version (the f32 sum runs in
+    another order); padded IN_pad (11008 -> 11264, 1152 -> 2048) comes out
+    zero past IN; ragged rows, OUT and IN tiles."""
+    gen = torch.Generator(device=dev).manual_seed(out_f + rows)
+    ld = im.pad_in_features(in_f)
+    w8 = torch.randint(-127, 128, (out_f, ld), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    w8[:, in_f:] = 0
+    scale = torch.rand(out_f, generator=gen, device=dev) / (127 * out_f ** 0.5)
+    g = torch.randn((rows, out_f), generator=gen, device=dev).to(g_dtype)
+    before = _build.KERNELS["int8_matmul_transposed"].launches
+    got = im.int8_matmul_transposed(g, w8, scale)
+    assert _build.KERNELS["int8_matmul_transposed"].launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, ld)
+    assert not got[:, in_f:].any()
+    _close(got, im.plain_t(g, w8, scale))
+
+
+def test_int8_matmul_transposed_kernel_is_deterministic(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w8 = torch.randint(-127, 128, (4096, 4096), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(4096, generator=gen, device=dev)
+    g = torch.randn((300, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    first = im.int8_matmul_transposed(g, w8, scale)
+    for _ in range(3):
+        assert torch.equal(im.int8_matmul_transposed(g, w8, scale), first)
+
+
+def test_backward_wrappers_raise(dev):
+    w8 = torch.zeros((64, 128), dtype=torch.int8, device=dev)
+    scale = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="bf16 or f32 gradients"):
+        im.launch_t(torch.zeros((2, 64), dtype=torch.float16, device=dev), w8, scale)
+    with pytest.raises(ValueError, match="against w8"):
+        im.launch_t(torch.zeros((2, 32), dtype=torch.bfloat16, device=dev), w8, scale)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        im.launch_t(torch.zeros((2, 60), dtype=torch.bfloat16, device=dev), w8[:60].contiguous(),
+                    scale[:60].contiguous())
+    codes = torch.zeros((1, 32, 128), dtype=torch.uint8, device=dev)
+    cb = torch.zeros((2, 256, 8), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="bf16 codebooks"):
+        gp.dequant_wt_launch(codes, cb.float(), torch.ones(128, device=dev))
+    with pytest.raises(ValueError, match="do not match"):
+        gp.dequant_wt_launch(codes, cb, torch.ones(64, device=dev))
+    with pytest.raises(NotImplementedError, match="in_group_size 8"):
+        gp.dequant_wt_launch(codes, torch.zeros((2, 256, 4), dtype=torch.bfloat16, device=dev),
+                             torch.ones(128, device=dev))
+
+
+@pytest.mark.parametrize("mode,kernel", [("int8", "int8_matmul_transposed"),
+                                         ("codes", "gather_dequant_wt")])
+def test_autograd_route_launches_the_backward_kernel(dev, mode, kernel, monkeypatch):
+    """quantized_matmul's backward on a CUDA tensor launches B10 (int8) or B5
+    (tiled codes), once per call, and never the plain version (which is made
+    to raise here); dx within one bf16 step of the same function on the CPU."""
+    from aqlm_tpu_torch.ops.dequant import random_aqlm_weight
+    from aqlm_tpu_torch.ops.runtime import QuantizedLinear, quantized_matmul
+
+    w = random_aqlm_weight(torch.Generator().manual_seed(0), SCHEME_2X8, 512, 1152, device="cpu")
+    q_cpu = QuantizedLinear.from_aqlm(w, mode=mode)
+    q = dataclasses.replace(q_cpu, **{n: None if getattr(q_cpu, n) is None
+                                      else getattr(q_cpu, n).to(dev) for n in q_cpu.data_fields})
+    x = torch.randn((33, 1152), generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    gy = torch.randn((33, 512), generator=torch.Generator().manual_seed(2))
+    xc = x.clone().requires_grad_(True)
+    (quantized_matmul(xc, q_cpu).float() * gy).sum().backward()
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(im, "plain_t", refuse)
+    monkeypatch.setattr(gp, "dequant_wt_plain", refuse)
+    _build.reset_launch_counts()
+    xd = x.to(dev).requires_grad_(True)
+    (quantized_matmul(xd, q).float() * gy.to(dev)).sum().backward()
+    assert _build.KERNELS[kernel].launches == 1
+    assert xd.grad.shape == (33, 1152) and xd.grad.dtype == torch.bfloat16
+    _close(xd.grad.cpu(), xc.grad)
+
+
+def test_tiny_lora_step_launch_counts(dev):
+    """One make_lora_step on a 2-layer codes model at T 16 (K2 forward) with
+    adapters on q/k/v/o: K2 7 per layer, B5 7 per layer less layer 0's
+    q/k/v (their input needs no gradient, so autograd never calls their
+    backward); then an int8 model: the int8 kernel and B10 the same."""
+    from aqlm_tpu_torch.models.common import LoraLinear
+    from aqlm_tpu_torch.models.quantize import map_quantized_linears
+    from aqlm_tpu_torch.pv import init_lora_state, make_lora_step
+
+    cfg = llama.ModelConfig.tiny(num_layers=2, hidden_size=256, intermediate_size=512,
+                                 num_heads=4, num_kv_heads=4)
+    shapes = llama.projection_shapes(cfg)
+    for mode, fwd, bwd in (("codes", "gather_prefill", "gather_dequant_wt"),
+                           ("int8", "int8_matmul", "int8_matmul_transposed")):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = random_quantized_params(gen, cfg, SCHEME_2X8, mode=mode, device=dev)
+        p = map_quantized_linears(p, lambda li, name, q: LoraLinear(
+            q, torch.randn((4, shapes[name][1]), generator=gen, device=dev) / 2,
+            torch.zeros((q.out_features, 4), device=dev), 4.0)
+            if name in ("q_proj", "k_proj", "v_proj", "o_proj") else q)
+        state = init_lora_state(p, lambda t: torch.optim.Adam(t, lr=3e-3))
+        step = make_lora_step(cfg)
+        ids = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen, device=dev)
+        _build.reset_launch_counts()
+        state, loss = step(state, ids)
+        torch.cuda.synchronize()
+        counts = {k: v.launches for k, v in _build.KERNELS.items() if v.launches}
+        assert counts == {fwd: 7 * 2, bwd: 7 * 2 - 3}, counts
+        assert bool(torch.isfinite(loss))

@@ -38,8 +38,10 @@ def to_numpy_tree(node):
                 out[f.name] = v.name
             elif f.name == "out_sizes":
                 out[f.name] = tuple(int(s) for s in v)
-            elif isinstance(v, str) or v is None:
+            elif isinstance(v, (str, float)) or v is None:
                 out[f.name] = v
+            elif dataclasses.is_dataclass(v):  # a LoraLinear's base
+                out[f.name] = to_numpy_tree(v)
             else:
                 out[f.name] = np_of(v)
         return out
