@@ -29,6 +29,7 @@ from aqlm_tpu_torch.models.common import (
     rope,
 )
 from aqlm_tpu_torch.ops.flash_decode import flash_decode_write_attention_indexed
+from aqlm_tpu_torch.ops.kv_write import kv_write4_inplace, kv_write_inplace
 from aqlm_tpu_torch.ops.runtime import (
     FusedCodesLinear,
     IndexedFusedCodesLinear,
@@ -152,16 +153,21 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor, offsets: list) -> None:
 
 def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tensor, *,
                     cache: KVCache | None = None, cache_offset=0,
-                    positions: torch.Tensor | None = None):
+                    positions: torch.Tensor | None = None,
+                    use_flash_decode: bool | None = None):
     """Causal LM forward over stacked layers (Llama, Mixtral or Falcon
     blocks). Returns (logits, cache).
 
     With a cache, K/V are written IN PLACE at [offset, offset + T) of each
     row (``cache_offset``: int or [B] int tensor) and queries attend over
-    positions <= their own. Single-token steps run the fused write + flash
-    attention kernel (K3) when max_len % 128 == 0 and either a codes-mode
-    layer is present or max_len >= 1024; otherwise attention is the
-    plain head-major attention over the cache. A sparse-MoE block runs its
+    positions <= their own. ``use_flash_decode`` picks how single-token
+    steps attend: True runs the fused write + flash attention kernel (K3),
+    False never does, None (the default) runs it when max_len % 128 == 0
+    and either a codes-mode layer is present or max_len >= 1024. Without
+    K3 a single-token step writes its rows with B8 (``kv_write``) at the
+    offsets on the device, and attention is the plain head-major attention
+    over the cache; a longer step (prefill) writes them by slices at the
+    offsets read back to the host. A sparse-MoE block runs its
     stacked experts through ``mixtral.moe_mlp_stacked_indexed`` or, left
     per expert, through the per-expert loop over layer views. A Falcon block
     is the parallel one: its LayerNorm output feeds attention and the GELU
@@ -184,15 +190,18 @@ def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tenso
         isinstance(v, FusedCodesLinear) or (isinstance(v, QuantizedLinear) and v.mode == "codes")
         for v in stacked_layers.values()
     )
-    flash = (cache is not None and t == 1 and cache.max_len % 128 == 0
-             and (has_codes or cache.max_len >= 1024))
+    if use_flash_decode is None:
+        use_flash_decode = (cache is not None and cache.max_len % 128 == 0
+                            and (has_codes or cache.max_len >= 1024))
+    flash = cache is not None and t == 1 and use_flash_decode
 
     mask = None
     host_offsets = None
     if cache is not None and not flash:
         key_pos = torch.arange(cache.max_len, device=dev)[None, :].expand(b, cache.max_len)
         mask = make_causal_mask(positions, key_pos, window=cfg.sliding_window)
-        host_offsets = offsets.tolist()
+        if t > 1:
+            host_offsets = offsets.tolist()
     elif cache is None:
         mask = make_causal_mask(positions, positions, window=cfg.sliding_window)
 
@@ -232,18 +241,27 @@ def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tenso
                     window=cfg.sliding_window,
                 )[0]
         elif cache is not None:
+            hm = lambda a: a.movedim(1, 2)  # [B, 1, H, *] -> [B, H, 1, *]
             if cache.quantized:
                 k8, ks = _quantize_kv(k)
                 v8, vs = _quantize_kv(v)
-                _write_rows(cache.k[i], k8, host_offsets)
-                _write_rows(cache.v[i], v8, host_offsets)
-                _write_rows(cache.k_scale[i], ks[..., None], host_offsets)
-                _write_rows(cache.v_scale[i], vs[..., None], host_offsets)
+                if t == 1:
+                    kv_write4_inplace(cache.k, cache.v, cache.k_scale, cache.v_scale, hm(k8),
+                                      hm(v8), hm(ks[..., None]), hm(vs[..., None]), i, offsets)
+                else:
+                    _write_rows(cache.k[i], k8, host_offsets)
+                    _write_rows(cache.v[i], v8, host_offsets)
+                    _write_rows(cache.k_scale[i], ks[..., None], host_offsets)
+                    _write_rows(cache.v_scale[i], vs[..., None], host_offsets)
                 k_all = _dequantize_kv(cache.k[i], cache.k_scale[i], q.dtype)
                 v_all = _dequantize_kv(cache.v[i], cache.v_scale[i], q.dtype)
             else:
-                _write_rows(cache.k[i], k.to(cache.k.dtype), host_offsets)
-                _write_rows(cache.v[i], v.to(cache.v.dtype), host_offsets)
+                if t == 1:
+                    kv_write_inplace(cache.k, hm(k), i, offsets)
+                    kv_write_inplace(cache.v, hm(v), i, offsets)
+                else:
+                    _write_rows(cache.k[i], k.to(cache.k.dtype), host_offsets)
+                    _write_rows(cache.v[i], v.to(cache.v.dtype), host_offsets)
                 k_all, v_all = cache.k[i].to(q.dtype), cache.v[i].to(q.dtype)
             attn = attention_headmajor(q, k_all, v_all, mask)
         else:

@@ -64,6 +64,16 @@ KERNELS = {
         "flash_decode_write", "aqlm_tpu_torch/ops/csrc/flash_decode.cu",
         "aqlm_tpu/ops/flash_decode.py:358", (),
     ),
+    # B6: K3's loops without the row write (the unindexed form is layer 0)
+    "flash_decode": KernelInfo(
+        "flash_decode", "aqlm_tpu_torch/ops/csrc/flash_decode.cu",
+        "aqlm_tpu/ops/flash_decode.py:152", ("aqlm_tpu/ops/flash_decode.py:656",),
+    ),
+    # B8: the in-place row write, k/v/scales in one launch (the one-array form too)
+    "kv_write": KernelInfo(
+        "kv_write", "aqlm_tpu_torch/ops/csrc/kv_write.cu",
+        "aqlm_tpu/ops/flash_decode.py:524", ("aqlm_tpu/ops/flash_decode.py:464",),
+    ),
     "int8_matmul": KernelInfo(
         "int8_matmul", "aqlm_tpu_torch/ops/csrc/int8_matmul.cu",
         "aqlm_tpu/ops/int8_matmul.py:231", ("aqlm_tpu/ops/int8_matmul.py:85",),
@@ -214,11 +224,14 @@ def _declare(lib) -> None:
     lib.cb_grad_launch.argtypes = [P] * 3 + [L] + [I] * 4 + [P]
     lib.gather_dequant_wt_launch.argtypes = [P] * 4 + [I] * 6 + [P]
     lib.int8_matmul_t_launch.argtypes = [P] * 4 + [I] * 4 + [P]
+    lib.flash_decode_launch.argtypes = [P] * 7 + [I] * 9 + [ctypes.c_float, P]
+    lib.kv_write_launch.argtypes = [ctypes.POINTER(P), ctypes.POINTER(P), ctypes.POINTER(I), I, P,
+                                    I, I, I, P]
     for fn in (lib.lut_gemv_launch, lib.lut_moe_gemv_launch, lib.gather_prefill_launch,
                lib.gather16_gemv_launch, lib.gather16_gemm_launch, lib.flash_decode_write_launch,
                lib.int8_matmul_launch, lib.int4_matmul_launch, lib.onehot_matmul_launch,
                lib.calib_dequant_launch, lib.cb_grad_launch, lib.gather_dequant_wt_launch,
-               lib.int8_matmul_t_launch):
+               lib.int8_matmul_t_launch, lib.flash_decode_launch, lib.kv_write_launch):
         fn.restype = I
 
 

@@ -39,6 +39,16 @@
 // path is a kernel of its own (flash_decode_write_chunked_kernel): folded
 // into the single-block template, it moved the instances' registers.
 // Splitting one row's keys across blocks (split-KV) is later work.
+//
+// B6, flash decode without the row write, replaces the TPU kernels
+// flash_decode_attention (_call, pallas_call at :152) and
+// flash_decode_attention_indexed (_call_idx, :656): the same two loops,
+// instanced without WRITE (flash_decode_kernel, flash_decode_chunked_kernel).
+// They take each row's length in place of offset + 1, read every key from
+// the cache, and at a length of 0 return what the TPU grid returns there,
+// the mean of V over the tiles it visits (key_range). The loops are shared
+// __device__ bodies under a WRITE flag, so K3's kernels keep their names,
+// signatures and code.
 #include "common.cuh"
 
 namespace {
@@ -86,20 +96,50 @@ __device__ __forceinline__ void load_v(const __nv_bfloat16* p, float* f) {
   }
 }
 
-template <int D, int REP, bool QUANT>
-__global__ void __launch_bounds__(NWARP * 32)
-flash_decode_write_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Hkv, REP, D]
-                          const typename Storage<QUANT>::T* __restrict__ k_new,  // [B, Hkv, D]
-                          const typename Storage<QUANT>::T* __restrict__ v_new,
-                          const float* __restrict__ ks_new,          // [B, Hkv] (int8 only)
-                          const float* __restrict__ vs_new,
-                          typename Storage<QUANT>::T* k_cache,       // [B, Hkv, S, D] one layer
-                          typename Storage<QUANT>::T* v_cache,
-                          float* ks_cache,                           // [B, Hkv, S] one layer
-                          float* vs_cache,
-                          const int* __restrict__ offsets,           // [B]
-                          __nv_bfloat16* __restrict__ out,           // [B, Hkv, REP, D]
-                          int Hkv, int S, int window, float scale) {
+// The key range of a row. WRITE (K3): keys [max(0, len - window), len),
+// len = offset + 1. Otherwise (B6) `pos` is the row's length: the same
+// range with len = pos, except that a row with no key in it (a length of 0)
+// takes what the TPU grid computes there: every key of the tiles it visits
+// is masked to the same logit (-1e30), so the result is the mean of V over
+// those tiles (ts keys each, n_tiles of the ceil(S / ts) when the window
+// skips the rest; flash_decode.py:32-38, :65-79). `uniform` marks that case.
+template <bool WRITE>
+__device__ __forceinline__ void key_range(int pos, int S, int window, int ts, int n_tiles,
+                                          int& kstart, int& kend, bool& uniform) {
+  uniform = false;
+  if constexpr (WRITE) {
+    kend = pos + 1;
+    kstart = window > 0 ? max(0, kend - window) : 0;
+  } else {
+    kend = min(pos, S);
+    kstart = window > 0 ? max(0, pos - window) : 0;
+    if (kend <= kstart) {
+      const int nt_full = (S + ts - 1) / ts;
+      const int st = n_tiles < nt_full ? min(max(pos - window, 0) / ts, nt_full - n_tiles) : 0;
+      kstart = st * ts;
+      kend = min(S, (st + n_tiles) * ts);
+      uniform = true;
+    }
+  }
+}
+
+// One (b, h) of single-block flash decode. WRITE (K3) first writes the new
+// row at offsets[b]; without it (B6) `offsets` holds the rows' lengths and
+// the cache is only read.
+template <int D, int REP, bool QUANT, bool WRITE>
+__device__ __forceinline__ void
+flash_decode_body(const __nv_bfloat16* __restrict__ q,       // [B, Hkv, REP, D]
+                  const typename Storage<QUANT>::T* __restrict__ k_new,  // [B, Hkv, D]
+                  const typename Storage<QUANT>::T* __restrict__ v_new,
+                  const float* __restrict__ ks_new,          // [B, Hkv] (int8 only)
+                  const float* __restrict__ vs_new,
+                  typename Storage<QUANT>::T* k_cache,       // [B, Hkv, S, D] one layer
+                  typename Storage<QUANT>::T* v_cache,
+                  float* ks_cache,                           // [B, Hkv, S] one layer
+                  float* vs_cache,
+                  const int* __restrict__ offsets,           // [B] (lengths without WRITE)
+                  __nv_bfloat16* __restrict__ out,           // [B, Hkv, REP, D]
+                  int Hkv, int S, int window, float scale, int ts, int n_tiles) {
   using T = typename Storage<QUANT>::T;
   constexpr int EPL = D / 32;
   __shared__ float s_q[REP][D];
@@ -110,15 +150,16 @@ flash_decode_write_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Hkv,
   const int bh = b * Hkv + h;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int offset = offsets[b];
-  if (offset < 0 || offset >= S) {
+  if (WRITE && (offset < 0 || offset >= S)) {
     // no row to write inside the cache: touch nothing, and make the row's
     // output NaN so the fault shows instead of corrupting device memory
     for (int i = tid; i < REP * D; i += blockDim.x)
       out[(size_t)bh * REP * D + i] = __float2bfloat16(NAN);
     return;
   }
-  const int len = offset + 1;
-  const int kstart = window > 0 ? max(0, len - window) : 0;
+  int kstart, len;
+  bool uniform;
+  key_range<WRITE>(offset, S, window, ts, n_tiles, kstart, len, uniform);
 
   T* kc = k_cache + (size_t)bh * S * D;
   T* vc = v_cache + (size_t)bh * S * D;
@@ -126,13 +167,15 @@ flash_decode_write_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Hkv,
   float* vsc = QUANT ? vs_cache + (size_t)bh * S : nullptr;
 
   // 1. write the new row in place
-  for (int d = tid; d < D; d += blockDim.x) {
-    kc[(size_t)offset * D + d] = k_new[(size_t)bh * D + d];
-    vc[(size_t)offset * D + d] = v_new[(size_t)bh * D + d];
-  }
-  if (QUANT && tid == 0) {
-    ksc[offset] = ks_new[bh];
-    vsc[offset] = vs_new[bh];
+  if constexpr (WRITE) {
+    for (int d = tid; d < D; d += blockDim.x) {
+      kc[(size_t)offset * D + d] = k_new[(size_t)bh * D + d];
+      vc[(size_t)offset * D + d] = v_new[(size_t)bh * D + d];
+    }
+    if (QUANT && tid == 0) {
+      ksc[offset] = ks_new[bh];
+      vsc[offset] = vs_new[bh];
+    }
   }
   for (int i = tid; i < REP * D; i += blockDim.x)
     s_q[i / D][i % D] = __bfloat162float(q[(size_t)bh * REP * D + i]);
@@ -172,7 +215,7 @@ flash_decode_write_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Hkv,
     float p[REP];
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
-      const float lg = valid ? logit[r] * ksc_v * scale : -INFINITY;
+      const float lg = valid ? (uniform ? 0.f : logit[r] * ksc_v * scale) : -INFINITY;
       float tmax = lg;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
@@ -244,25 +287,55 @@ flash_decode_write_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Hkv,
   }
 }
 
+// K3: write the new row, then attend (the body with WRITE).
+template <int D, int REP, bool QUANT>
+__global__ void __launch_bounds__(NWARP * 32)
+flash_decode_write_kernel(const __nv_bfloat16* __restrict__ q,
+                          const typename Storage<QUANT>::T* __restrict__ k_new,
+                          const typename Storage<QUANT>::T* __restrict__ v_new,
+                          const float* __restrict__ ks_new, const float* __restrict__ vs_new,
+                          typename Storage<QUANT>::T* k_cache, typename Storage<QUANT>::T* v_cache,
+                          float* ks_cache, float* vs_cache, const int* __restrict__ offsets,
+                          __nv_bfloat16* __restrict__ out, int Hkv, int S, int window,
+                          float scale) {
+  flash_decode_body<D, REP, QUANT, true>(q, k_new, v_new, ks_new, vs_new, k_cache, v_cache,
+                                         ks_cache, vs_cache, offsets, out, Hkv, S, window, scale,
+                                         0, 0);
+}
+
+// B6: attend over the cache as it is, keys below lengths[b] (the body
+// without WRITE).
+template <int D, int REP, bool QUANT>
+__global__ void __launch_bounds__(NWARP * 32)
+flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                    typename Storage<QUANT>::T* k_cache, typename Storage<QUANT>::T* v_cache,
+                    float* ks_cache, float* vs_cache, const int* __restrict__ lengths,
+                    __nv_bfloat16* __restrict__ out, int Hkv, int S, int window, float scale,
+                    int ts, int n_tiles) {
+  flash_decode_body<D, REP, QUANT, false>(q, nullptr, nullptr, nullptr, nullptr, k_cache, v_cache,
+                                          ks_cache, vs_cache, lengths, out, Hkv, S, window, scale,
+                                          ts, n_tiles);
+}
+
 // More query heads per kv head than one block holds: chunk blockIdx.z of
 // CH heads out of the group's rep, the ragged last chunk masked. The same
-// loop as above, except that every block takes the new row (and its
-// scales) at `offset` from k_new/v_new in register, and only chunk 0 writes
-// it to the cache: no block reads that cache row.
-template <int D, bool QUANT>
-__global__ void __launch_bounds__(NWARP * 32)
-flash_decode_write_chunked_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hkv, rep, D]
-                                  const typename Storage<QUANT>::T* __restrict__ k_new,
-                                  const typename Storage<QUANT>::T* __restrict__ v_new,
-                                  const float* __restrict__ ks_new,
-                                  const float* __restrict__ vs_new,
-                                  typename Storage<QUANT>::T* k_cache,
-                                  typename Storage<QUANT>::T* v_cache,
-                                  float* ks_cache,
-                                  float* vs_cache,
-                                  const int* __restrict__ offsets,
-                                  __nv_bfloat16* __restrict__ out,      // [B, Hkv, rep, D]
-                                  int Hkv, int S, int window, float scale, int rep) {
+// loop as above, except that with WRITE every block takes the new row (and
+// its scales) at `offset` from k_new/v_new in register, and only chunk 0
+// writes it to the cache: no block reads that cache row.
+template <int D, bool QUANT, bool WRITE>
+__device__ __forceinline__ void
+flash_decode_chunked_body(const __nv_bfloat16* __restrict__ q,  // [B, Hkv, rep, D]
+                          const typename Storage<QUANT>::T* __restrict__ k_new,
+                          const typename Storage<QUANT>::T* __restrict__ v_new,
+                          const float* __restrict__ ks_new,
+                          const float* __restrict__ vs_new,
+                          typename Storage<QUANT>::T* k_cache,
+                          typename Storage<QUANT>::T* v_cache,
+                          float* ks_cache,
+                          float* vs_cache,
+                          const int* __restrict__ offsets,  // [B] (lengths without WRITE)
+                          __nv_bfloat16* __restrict__ out,      // [B, Hkv, rep, D]
+                          int Hkv, int S, int window, float scale, int rep, int ts, int n_tiles) {
   using T = typename Storage<QUANT>::T;
   constexpr int EPL = D / 32;
   constexpr int CH = CHUNK_HEADS;
@@ -277,21 +350,22 @@ flash_decode_write_chunked_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H
   const int r0 = blockIdx.z * CH;
   const int nrep = min(CH, rep - r0);
   const size_t qo = ((size_t)bh * rep + r0) * D;  // q and out offset of this chunk's first head
-  if (offset < 0 || offset >= S) {
+  if (WRITE && (offset < 0 || offset >= S)) {
     for (int i = tid; i < nrep * D; i += blockDim.x) out[qo + i] = __float2bfloat16(NAN);
     return;
   }
-  const int len = offset + 1;
-  const int kstart = window > 0 ? max(0, len - window) : 0;
+  int kstart, len;
+  bool uniform;
+  key_range<WRITE>(offset, S, window, ts, n_tiles, kstart, len, uniform);
 
   T* kc = k_cache + (size_t)bh * S * D;
   T* vc = v_cache + (size_t)bh * S * D;
   float* ksc = QUANT ? ks_cache + (size_t)bh * S : nullptr;
   float* vsc = QUANT ? vs_cache + (size_t)bh * S : nullptr;
-  const T* kn = k_new + (size_t)bh * D;
-  const T* vn = v_new + (size_t)bh * D;
+  const T* kn = WRITE ? k_new + (size_t)bh * D : nullptr;
+  const T* vn = WRITE ? v_new + (size_t)bh * D : nullptr;
 
-  if (blockIdx.z == 0) {
+  if (WRITE && blockIdx.z == 0) {
     for (int d = tid; d < D; d += blockDim.x) {
       kc[(size_t)offset * D + d] = kn[d];
       vc[(size_t)offset * D + d] = vn[d];
@@ -322,7 +396,7 @@ flash_decode_write_chunked_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H
 #pragma unroll
     for (int r = 0; r < CH; ++r) logit[r] = 0.f;
     if (valid) {
-      const T* kr = key == offset ? kn : kc + (size_t)key * D;
+      const T* kr = (WRITE && key == offset) ? kn : kc + (size_t)key * D;
       constexpr int NE = 16 / (int)sizeof(T);  // elements per 16-byte load
 #pragma unroll
       for (int d0 = 0; d0 < D; d0 += NE) {
@@ -333,12 +407,12 @@ flash_decode_write_chunked_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H
 #pragma unroll
           for (int j = 0; j < NE; ++j) logit[r] = fmaf(s_q[r][d0 + j], f[j], logit[r]);
       }
-      if (QUANT) ksc_v = key == offset ? ks_new[bh] : ksc[key];
+      if (QUANT) ksc_v = (WRITE && key == offset) ? ks_new[bh] : ksc[key];
     }
     float p[CH];
 #pragma unroll
     for (int r = 0; r < CH; ++r) {
-      const float lg = valid ? logit[r] * ksc_v * scale : -INFINITY;
+      const float lg = valid ? (uniform ? 0.f : logit[r] * ksc_v * scale) : -INFINITY;
       float tmax = lg;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
@@ -354,7 +428,7 @@ flash_decode_write_chunked_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H
       for (int e = 0; e < EPL; ++e) acc[r][e] *= corr;
     }
     const float vsc_lane =
-        (QUANT && valid) ? (key == offset ? vs_new[bh] : vsc[key]) : 1.f;
+        (QUANT && valid) ? ((WRITE && key == offset) ? vs_new[bh] : vsc[key]) : 1.f;
     const int nvalid = min(32, len - t0);
 #pragma unroll
     for (int j0 = 0; j0 < 32; j0 += 8) {
@@ -364,7 +438,7 @@ flash_decode_write_chunked_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H
       for (int u = 0; u < 8; ++u) {
         const int row = t0 + j0 + u;
         if (j0 + u < nvalid) {
-          load_v<EPL>((row == offset ? vn : vc + (size_t)row * D) + lane * EPL, v[u]);
+          load_v<EPL>(((WRITE && row == offset) ? vn : vc + (size_t)row * D) + lane * EPL, v[u]);
         } else {
 #pragma unroll
           for (int e = 0; e < EPL; ++e) v[u][e] = 0.f;
@@ -407,6 +481,36 @@ flash_decode_write_chunked_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H
     }
     out[qo + i] = __float2bfloat16(num / fmaxf(den, 1e-30f));
   }
+}
+
+template <int D, bool QUANT>
+__global__ void __launch_bounds__(NWARP * 32)
+flash_decode_write_chunked_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const typename Storage<QUANT>::T* __restrict__ k_new,
+                                  const typename Storage<QUANT>::T* __restrict__ v_new,
+                                  const float* __restrict__ ks_new,
+                                  const float* __restrict__ vs_new,
+                                  typename Storage<QUANT>::T* k_cache,
+                                  typename Storage<QUANT>::T* v_cache, float* ks_cache,
+                                  float* vs_cache, const int* __restrict__ offsets,
+                                  __nv_bfloat16* __restrict__ out, int Hkv, int S, int window,
+                                  float scale, int rep) {
+  flash_decode_chunked_body<D, QUANT, true>(q, k_new, v_new, ks_new, vs_new, k_cache, v_cache,
+                                            ks_cache, vs_cache, offsets, out, Hkv, S, window,
+                                            scale, rep, 0, 0);
+}
+
+template <int D, bool QUANT>
+__global__ void __launch_bounds__(NWARP * 32)
+flash_decode_chunked_kernel(const __nv_bfloat16* __restrict__ q,
+                            typename Storage<QUANT>::T* k_cache,
+                            typename Storage<QUANT>::T* v_cache, float* ks_cache,
+                            float* vs_cache, const int* __restrict__ lengths,
+                            __nv_bfloat16* __restrict__ out, int Hkv, int S, int window,
+                            float scale, int rep, int ts, int n_tiles) {
+  flash_decode_chunked_body<D, QUANT, false>(q, nullptr, nullptr, nullptr, nullptr, k_cache,
+                                             v_cache, ks_cache, vs_cache, lengths, out, Hkv, S,
+                                             window, scale, rep, ts, n_tiles);
 }
 
 template <int D>
@@ -463,6 +567,43 @@ cudaError_t launch_d(int rep, bool quant, const void* q, const void* kn, const v
   }
 }
 
+// B6: the same instances without the row write.
+template <int D, int REP, bool QUANT>
+cudaError_t launch_read(const void* q, void* kc, void* vc, void* ksc, void* vsc,
+                        const void* lengths, void* out, int B, int Hkv, int S, int window,
+                        float scale, int ts, int n_tiles, int rep, cudaStream_t st) {
+  using T = typename Storage<QUANT>::T;
+  if constexpr (REP == 0) {  // chunks of CHUNK_HEADS query heads
+    const dim3 grid(Hkv, B, (rep + CHUNK_HEADS - 1) / CHUNK_HEADS);
+    flash_decode_chunked_kernel<D, QUANT><<<grid, NWARP * 32, 0, st>>>(
+        (const __nv_bfloat16*)q, (T*)kc, (T*)vc, (float*)ksc, (float*)vsc, (const int*)lengths,
+        (__nv_bfloat16*)out, Hkv, S, window, scale, rep, ts, n_tiles);
+  } else {
+    flash_decode_kernel<D, REP, QUANT><<<dim3(Hkv, B), NWARP * 32, 0, st>>>(
+        (const __nv_bfloat16*)q, (T*)kc, (T*)vc, (float*)ksc, (float*)vsc, (const int*)lengths,
+        (__nv_bfloat16*)out, Hkv, S, window, scale, ts, n_tiles);
+  }
+  return cudaGetLastError();
+}
+
+template <int D, bool QUANT>
+cudaError_t launch_read_d(int rep, const void* q, void* kc, void* vc, void* ksc, void* vsc,
+                          const void* lengths, void* out, int B, int Hkv, int S, int window,
+                          float scale, int ts, int n_tiles, cudaStream_t st) {
+#define AQLM_FD_READ(R) \
+  launch_read<D, R, QUANT>(q, kc, vc, ksc, vsc, lengths, out, B, Hkv, S, window, scale, ts, n_tiles, rep, st)
+  switch (rep) {
+    case 1: return AQLM_FD_READ(1);
+    case 2: return AQLM_FD_READ(2);
+    case 4: return AQLM_FD_READ(4);
+    case 8: return AQLM_FD_READ(8);
+    default:
+      if (rep < 1) return cudaErrorInvalidValue;
+      return AQLM_FD_READ(0);
+  }
+#undef AQLM_FD_READ
+}
+
 }  // namespace
 
 // window <= 0 means no sliding window.
@@ -479,5 +620,30 @@ extern "C" int flash_decode_write_launch(const void* q, const void* k_new, const
   if (D == 64)
     return launch_d<64>(rep, quant != 0, q, k_new, v_new, ks_new, vs_new, k_cache, v_cache,
                         ks_cache, vs_cache, offsets, out, B, Hkv, S, window, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// B6: flash decode over one layer of the cache as it is, keys below
+// lengths[b] (within the window when window > 0); ts and n_tiles are the TPU
+// grid's tile length and visited tile count, which decide the result of a
+// row with no key in range (see key_range).
+extern "C" int flash_decode_launch(const void* q, void* k_cache, void* v_cache, void* ks_cache,
+                                   void* vs_cache, const void* lengths, void* out, int B, int Hkv,
+                                   int S, int D, int rep, int quant, int window, int ts,
+                                   int n_tiles, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ts < 1 || n_tiles < 1) return cudaErrorInvalidValue;
+#define AQLM_FD_READ_D(DD, Q)                                                                  \
+  return launch_read_d<DD, Q>(rep, q, k_cache, v_cache, ks_cache, vs_cache, lengths, out, B, Hkv, \
+                              S, window, scale, ts, n_tiles, st)
+  if (D == 128) {
+    if (quant) AQLM_FD_READ_D(128, true);
+    AQLM_FD_READ_D(128, false);
+  }
+  if (D == 64) {
+    if (quant) AQLM_FD_READ_D(64, true);
+    AQLM_FD_READ_D(64, false);
+  }
+#undef AQLM_FD_READ_D
   return cudaErrorInvalidValue;
 }

@@ -1,14 +1,20 @@
-"""Fused KV write + single-token flash-decode attention over the stacked cache.
+"""Single-token flash-decode attention over the head-major KV cache.
 
-PyTorch counterpart of ``aqlm_tpu.ops.flash_decode.
-flash_decode_write_attention_indexed``. On a CUDA tensor it launches kernel
-K3 (``csrc/flash_decode.cu``); on a CPU tensor it runs the plain version.
-Both write the new row into the cache IN PLACE and return the cache tensors
-they were given, so callers read the same objects back.
+PyTorch counterparts of ``aqlm_tpu.ops.flash_decode``:
+
+- ``flash_decode_write_attention_indexed`` (K3): writes the new row into the
+  cache IN PLACE and attends over it, returning the cache tensors it was
+  given, so callers read the same objects back;
+- ``flash_decode_attention_indexed`` and ``flash_decode_attention`` (B6):
+  attend over the cache as it is, keys below each row's length; the
+  unindexed form is the indexed one at layer 0.
+
+On a CUDA tensor each launches its kernel (``csrc/flash_decode.cu``); on a
+CPU tensor it runs the plain version.
 
 Layouts: q [B, 1, Hq, D]; k/v cache [L, B, Hkv, S, D] int8 or bf16; scales
-[L, B, Hkv, S, 1] f32 (int8 only); offsets [B] int32 (row b is written at
-offsets[b] and attends to keys < offsets[b] + 1).
+[L, B, Hkv, S, 1] f32 (int8 only); offsets [B] int32 (K3: row b is written
+at offsets[b] and attends to keys < offsets[b] + 1); lengths [B] int32 (B6).
 """
 
 from __future__ import annotations
@@ -17,7 +23,10 @@ import torch
 
 from aqlm_tpu_torch.ops import _build
 
-__all__ = ["flash_decode_write_attention_indexed", "NEG_INF"]
+__all__ = [
+    "flash_decode_write_attention_indexed", "flash_decode_attention_indexed",
+    "flash_decode_attention", "NEG_INF",
+]
 
 NEG_INF = -1e30
 
@@ -53,6 +62,35 @@ def plain(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window):
     return out.to(torch.bfloat16)
 
 
+def _check(q_hm, k_c, v_c, ks_c, vs_c, rows, *new) -> bool:
+    """Raise unless the operands suit the flash-decode kernels: q_hm [B, Hkv,
+    rep, D] bf16, a cache [B, Hkv, S, D] in int8 (with f32 scale planes) or
+    bf16, ``rows`` [B] int32 (offsets or lengths), and ``new`` (K3's new rows
+    and their scales), all contiguous on one device. Returns whether the
+    cache is int8."""
+    b, hkv, rep, d = q_hm.shape
+    quant = k_c.dtype == torch.int8
+    if d not in (64, 128) or rep < 1:
+        raise NotImplementedError(f"flash_decode kernel takes head_dim 64/128 and at least one query "
+                                  f"head per kv head, got D={d}, rep={rep}")
+    if not quant and k_c.dtype != torch.bfloat16:
+        raise ValueError(f"flash_decode kernel takes an int8 or bf16 cache, got {k_c.dtype}")
+    if quant and (ks_c is None or vs_c is None or ks_c.dtype != torch.float32
+                  or vs_c.dtype != torch.float32 or any(t is None for t in new)):
+        raise ValueError("an int8 cache needs f32 scale planes (and new-row scales)")
+    if rows.dtype != torch.int32 or rows.shape != (b,):
+        raise ValueError("offsets and lengths must be int32 [B]")
+    if (k_c.shape != (b, hkv, k_c.shape[2], d) or v_c.shape != k_c.shape
+            or v_c.dtype != k_c.dtype):
+        raise ValueError(f"cache {tuple(k_c.shape)} does not match q {tuple(q_hm.shape)}")
+    ops = [q_hm, k_c, v_c, rows] + [t for t in new if t is not None]
+    ops += [ks_c, vs_c] if quant else []
+    for t in ops:
+        if t.device != q_hm.device or not t.is_contiguous():
+            raise ValueError("flash_decode kernel operands must be contiguous on one CUDA device")
+    return quant
+
+
 def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window):
     """K3 on one layer's cache (same arguments as ``plain``). Each offset must
     lie in [0, S), as the caller (the Engine) guarantees; the kernel does not
@@ -61,23 +99,8 @@ def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window)
     b, hkv, rep, d = q_hm.shape
     s_len = k_c.shape[2]
     dev = q_hm.device
-    quant = k_c.dtype == torch.int8
-    if d not in (64, 128) or rep < 1:
-        raise NotImplementedError(f"flash_decode kernel takes head_dim 64/128 and at least one query "
-                                  f"head per kv head, got D={d}, rep={rep}")
-    if not quant and k_c.dtype != torch.bfloat16:
-        raise ValueError(f"flash_decode kernel takes an int8 or bf16 cache, got {k_c.dtype}")
-    if quant and (ks_c is None or vs_c is None or ks_c.dtype != torch.float32
-                  or nks is None or nvs is None):
-        raise ValueError("an int8 cache needs f32 scale planes and new-row scales")
-    if offsets.dtype != torch.int32 or offsets.shape != (b,):
-        raise ValueError("offsets must be int32 [B]")
-    if k_c.shape != (b, hkv, s_len, d) or v_c.shape != k_c.shape or v_c.dtype != k_c.dtype:
-        raise ValueError(f"cache {tuple(k_c.shape)} does not match q {tuple(q_hm.shape)}")
-    ops = [q_hm, nk, nv, k_c, v_c, offsets] + ([nks, nvs, ks_c, vs_c] if quant else [])
-    for t in ops:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("flash_decode kernel operands must be contiguous on one CUDA device")
+    quant = _check(q_hm, k_c, v_c, ks_c, vs_c, offsets, nk, nv,
+                   *((nks, nvs) if k_c.dtype == torch.int8 else ()))
     if rep not in (1, 2, 4, 8) and (nk.data_ptr() % 16 or nv.data_ptr() % 16):
         # the chunked instances read the new row as cache rows are read
         raise ValueError("flash_decode kernel needs 16-byte aligned new rows at this head count")
@@ -135,3 +158,111 @@ def flash_decode_write_attention_indexed(
     else:
         raise ValueError(f"unsupported device {q.device}")
     return attn.reshape(b, 1, hq, d), k_all, v_all, ks_all, vs_all
+
+
+# ---------------------------------------------------------------------------
+# B6: flash decode over the cache as it is (no row write)
+# ---------------------------------------------------------------------------
+
+
+def tiles(s_len: int, window: int | None) -> tuple[int, int, int]:
+    """The TPU grid's tile length, tile count and visited tile count: with a
+    window shorter than the cache only ceil(window / ts) + 1 tiles are
+    visited (``aqlm_tpu/ops/flash_decode.py:102-111``)."""
+    ts = min(512, s_len)
+    nt_full = -(-s_len // ts)
+    n_tiles = nt_full
+    if window is not None and window < s_len:
+        n_tiles = min(nt_full, -(-window // ts) + 1)
+    return ts, nt_full, n_tiles
+
+
+def plain_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window):
+    """B6's plain version on one layer's cache [B, Hkv, S, D] (+ scales
+    [B, Hkv, S, 1]); q_hm [B, Hkv, rep, D] bf16; lengths [B].
+
+    Keys in [max(0, len - window), len) attend. Keys of the tiles the TPU
+    grid visits that fall outside get the logit NEG_INF, as the TPU kernel
+    gives them, so a row with no key in range (a length of 0) returns the
+    mean of V over the visited tiles, as the TPU kernel does."""
+    s_len = k_c.shape[2]
+    if ks_c is not None:
+        k, v = k_c.float() * ks_c.float(), v_c.float() * vs_c.float()
+    else:
+        k, v = k_c.float(), v_c.float()
+    logits = torch.einsum("bhrd,bhsd->bhrs", q_hm.float(), k) * scale
+    length = lengths.long()[:, None]
+    pos = torch.arange(s_len, device=k_c.device)[None, :]
+    valid = pos < length
+    if window is not None:
+        valid = valid & (pos >= length - window)
+    ts, nt_full, n_tiles = tiles(s_len, window)
+    start = torch.zeros_like(length)
+    if n_tiles < nt_full:
+        start = torch.clamp(torch.clamp(length - window, min=0) // ts, 0, nt_full - n_tiles)
+    visited = (pos >= start * ts) & (pos < (start + n_tiles) * ts)
+    logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
+    logits = torch.where(visited[:, None, None, :], logits, torch.full_like(logits, -torch.inf))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhrs,bhsd->bhrd", p, v) / torch.clamp(l, min=1e-30)
+    return out.to(torch.bfloat16)
+
+
+def launch_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window):
+    """B6 on one layer's cache (same arguments as ``plain_attend``). The
+    cache is only read; lengths are not read back to the host."""
+    b, hkv, rep, d = q_hm.shape
+    s_len = k_c.shape[2]
+    dev = q_hm.device
+    quant = _check(q_hm, k_c, v_c, ks_c, vs_c, lengths)
+    ts, _, n_tiles = tiles(s_len, window)
+    out = torch.empty((b, hkv, rep, d), dtype=torch.bfloat16, device=dev)
+    lib, _ = _build.library()
+    rc = lib.flash_decode_launch(
+        q_hm.data_ptr(), k_c.data_ptr(), v_c.data_ptr(),
+        ks_c.data_ptr() if quant else None, vs_c.data_ptr() if quant else None,
+        lengths.data_ptr(), out.data_ptr(), b, hkv, s_len, d, rep, int(quant),
+        0 if window is None else int(window), ts, n_tiles, float(scale), _build.stream_ptr(dev),
+    )
+    _build.check(rc, "flash_decode")
+    _build.KERNELS["flash_decode"].launches += 1
+    return out
+
+
+def flash_decode_attention_indexed(q, k_all, v_all, ks_all, vs_all, layer_idx: int, lengths, *,
+                                   scale: float | None = None, window: int | None = None):
+    """Flash decode of the single query token over layer ``layer_idx`` of the
+    stacked cache, read in place: keys < lengths[b] (within ``window`` when
+    given). q [B, 1, Hq, D]; k_all/v_all [L, B, Hkv, S, D]; ks_all/vs_all
+    [L, B, Hkv, S, 1] f32 or None. Returns [B, 1, Hq, D] bf16."""
+    b, t, hq, d = q.shape
+    if t != 1:
+        raise ValueError("flash decode is the single-token path")
+    hkv = k_all.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not split over {hkv} kv heads")
+    if scale is None:
+        scale = d ** -0.5
+    li = int(layer_idx)
+    q_hm = q.reshape(b, hkv, hq // hkv, d).to(torch.bfloat16).contiguous()
+    k_c, v_c = k_all[li], v_all[li]
+    ks_c = None if ks_all is None else ks_all[li]
+    vs_c = None if vs_all is None else vs_all[li]
+    if q.device.type == "cpu":
+        out = plain_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window)
+    elif q.device.type == "cuda":
+        out = launch_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window)
+    else:
+        raise ValueError(f"unsupported device {q.device}")
+    return out.reshape(b, 1, hq, d)
+
+
+def flash_decode_attention(q, k_hm, v_hm, k_scale, v_scale, lengths, *,
+                           scale: float | None = None, window: int | None = None):
+    """``flash_decode_attention_indexed`` over one layer's cache: k_hm/v_hm
+    [B, Hkv, S, D], k_scale/v_scale [B, Hkv, S, 1] f32 or None."""
+    lift = lambda a: None if a is None else a[None]
+    return flash_decode_attention_indexed(q, lift(k_hm), lift(v_hm), lift(k_scale), lift(v_scale),
+                                          0, lengths, scale=scale, window=window)

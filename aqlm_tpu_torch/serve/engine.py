@@ -5,12 +5,16 @@
   layer loop over the in-place KV cache;
 - per-request prefill into a free slot, padded to a bucket; prompts longer
   than the largest bucket prefill in chunks;
-- requests join and leave the batch between steps; a prompt whose prefix
-  already sits in another slot's cache rows copies them instead of
-  recomputing (prefix cache).
+- requests join and leave the batch between steps, or leave it early by
+  ``abort``; a prompt whose prefix already sits in another slot's cache rows
+  copies them instead of recomputing (prefix cache, ``prefix_cache``);
+- with ``decode_chunk > 1`` one step runs up to that many forwards, each
+  token sampled on the device and fed to the next, and reads the tokens
+  back once per chunk: no host sync between the chunk's first forward and
+  its last.
 
-Speculative decoding and ``decode_chunk > 1`` are not ported yet and raise
-``NotImplementedError``.
+Speculative decoding is not ported yet: ``draft_params`` raises
+``NotImplementedError`` (the ``spec_*`` fields are accepted and stored).
 """
 
 from __future__ import annotations
@@ -46,8 +50,12 @@ class ServeConfig:
     fuse_projections: bool = True  # QKV / gate+up fusion of int8, int4 and codes layers
     lm_head_int8: bool = False  # int8-quantize the output head
     donate_params: bool = False  # free the caller's params during load (big models)
+    use_flash_decode: bool | None = None  # None = forward_stacked's rule; True/False force K3
+    prefix_cache: bool = True  # reuse KV rows for shared prompt prefixes
     min_prefix: int = 16  # smallest prefix worth a copy instead of recompute
-    decode_chunk: int = 1  # >1 not ported
+    spec_min_acceptance: float = 0.7  # speculative decoding's (not ported: stored only)
+    spec_warmup: int = 64
+    decode_chunk: int = 1  # >1: up to this many tokens per step, one host sync per chunk
 
 
 def serving_params(params: dict, cfg: llama.ModelConfig, serve: ServeConfig) -> dict:
@@ -97,8 +105,6 @@ class Engine:
                  *, device=None, draft_params: dict | None = None):
         if draft_params is not None:
             raise not_ported("speculative decoding", "A8")
-        if serve.decode_chunk > 1:
-            raise not_ported("decode_chunk > 1", "A6")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, engine on {self.device}")
@@ -177,7 +183,8 @@ class Engine:
         )
         last = logits[0, true_len - 1][None].float()
         tok = sample_tokens(last, self._gen, self._tensor([temp], torch.float32),
-                            self._tensor([top_p], torch.float32), top_k=self.serve.top_k)[0]
+                            self._tensor([top_p], torch.float32), top_k=self.serve.top_k,
+                            any_sampling=temp > 0)[0]
         logp = torch.log_softmax(last[0], dim=-1)
         return int(tok), float(logp[tok])
 
@@ -205,6 +212,20 @@ class Engine:
     def get_request(self, rid: int) -> Request:
         return self.requests[rid]
 
+    def abort(self, rid: int) -> bool:
+        """Cancel a request: a pending one leaves the queue, an active one
+        frees its slot for the next step. False if it is unknown or done."""
+        req = self.requests.get(rid)
+        if req is None or req.done:
+            return False
+        req.done = True
+        if req.slot is not None and req.slot in self._active:
+            del self._active[req.slot]
+            heapq.heappush(self._free_slots, req.slot)
+        elif req in self._pending:
+            self._pending.remove(req)
+        return True
+
     def _find_prefix(self, slot: int, prompt: np.ndarray) -> int:
         """Longest reusable prompt prefix held in some slot's cache rows
         (0 below min_prefix); capped at len(prompt) - 1 so the last prompt
@@ -231,7 +252,7 @@ class Engine:
             req = self._pending.popleft()
             slot = heapq.heappop(self._free_slots)
             req.slot = slot
-            reused = self._find_prefix(slot, req.prompt)
+            reused = self._find_prefix(slot, req.prompt) if self.serve.prefix_cache else 0
             self._slot_prompts[slot] = req.prompt.copy()
             for start, length, bucket in self._chunks_from(reused, len(req.prompt)):
                 ids = np.zeros(bucket, np.int64)
@@ -258,38 +279,81 @@ class Engine:
             del self._active[slot]
             heapq.heappush(self._free_slots, slot)
 
-    @torch.inference_mode()
-    def step(self) -> dict:
-        """Admit pending requests, run one batched decode step.
-        Returns {rid: new_token} for the tokens produced this step."""
-        self._admit()
-        if not self._active:
-            return {}
-        bucket = self._decode_bucket()
+    def _forward_sample(self, tokens, offsets, temps, top_ps, bucket: int, any_sampling: bool):
+        """One decode forward over slots [0, bucket) and its sampling, all on
+        the device: (tokens [bucket], their logprobs [bucket])."""
         logits, _ = forward_stacked(
-            self.params, self.cfg, self._tensor(self._last_token[:bucket, None], torch.long),
-            cache=self.cache.rows(0, bucket),
-            cache_offset=self._tensor(self._offsets[:bucket], torch.int32),
+            self.params, self.cfg, tokens, cache=self.cache.rows(0, bucket),
+            cache_offset=offsets, use_flash_decode=self.serve.use_flash_decode,
         )
         last = logits[:, -1, :].float()
-        toks = sample_tokens(last, self._gen, self._tensor(self._temps[:bucket], torch.float32),
-                             self._tensor(self._top_ps[:bucket], torch.float32),
-                             top_k=self.serve.top_k)
+        toks = sample_tokens(last, self._gen, temps, top_ps, top_k=self.serve.top_k,
+                             any_sampling=any_sampling)
         lps = torch.log_softmax(last, dim=-1).gather(-1, toks[:, None])[:, 0]
+        return toks, lps
+
+    def _decode_chunk(self, tokens, offsets, temps, top_ps, bucket: int, n: int,
+                      any_sampling: bool):
+        """n decode forwards, each fed the tokens the one before sampled, with
+        no host sync: (tokens [n, bucket], logprobs [n, bucket]) on the device."""
+        toks = torch.empty((n, bucket), dtype=torch.long, device=self.device)
+        lps = torch.empty((n, bucket), dtype=torch.float32, device=self.device)
+        for i in range(n):
+            nxt, lp = self._forward_sample(tokens, offsets, temps, top_ps, bucket, any_sampling)
+            toks[i], lps[i] = nxt, lp
+            tokens, offsets = nxt[:, None], offsets + 1
+        return toks, lps
+
+    def _decode_steps(self, bucket: int, n: int) -> dict:
+        """n decode steps over slots [0, bucket) with one read-back: a single
+        step at n = 1 ({rid: token}), a chunk above ({rid: [tokens]}, as
+        ``aqlm_tpu``'s ``_chunk_step``). Slots that reach EOS or their budget
+        inside a chunk decode on; their tail tokens are dropped here, and the
+        rows they wrote lie past the finished request, overwritten when the
+        slot is reused."""
+        toks, lps = self._decode_chunk(
+            self._tensor(self._last_token[:bucket, None], torch.long),
+            self._tensor(self._offsets[:bucket], torch.int32),
+            self._tensor(self._temps[:bucket], torch.float32),
+            self._tensor(self._top_ps[:bucket], torch.float32),
+            bucket, n, bool((self._temps[:bucket] > 0).any()),
+        )
         toks, lps = toks.cpu().numpy(), lps.cpu().numpy()
         emitted = {}
         for slot, req in list(self._active.items()):
-            tok = int(toks[slot])
-            req.generated.append(tok)
-            req.logprobs.append(float(lps[slot]))
-            emitted[req.rid] = tok
-            self._offsets[slot] += 1
-            self._last_token[slot] = tok
-            self._budgets[slot] -= 1
+            take = min(n, int(self._budgets[slot]))
+            sub = [int(t) for t in toks[:take, slot]]
+            eos = req.sampling.eos_token_id
+            if eos is not None and eos in sub:
+                sub = sub[: sub.index(eos) + 1]
+                self._budgets[slot] = 0
+            req.generated.extend(sub)
+            req.logprobs.extend(float(l) for l in lps[: len(sub), slot])
+            emitted[req.rid] = sub if n > 1 else sub[0]
+            self._offsets[slot] += n  # the cache advanced n rows regardless
+            self._budgets[slot] -= n
+            self._last_token[slot] = toks[-1, slot]
             if self._offsets[slot] >= self.serve.max_len - 1:
                 self._budgets[slot] = 0
             self._maybe_finish(slot)
         return emitted
+
+    @torch.inference_mode()
+    def step(self) -> dict:
+        """Admit pending requests, run one batched decode step.
+        Returns {rid: new_token} for the tokens produced this step
+        ({rid: [tokens]} for a chunk when decode_chunk > 1)."""
+        self._admit()
+        if not self._active:
+            return {}
+        n = 1
+        if self.serve.decode_chunk > 1 and not self._pending:
+            # chunked decode: n steps per host sync, no more than the longest
+            # remaining budget or anyone's cache room
+            room = min(self.serve.max_len - 1 - int(self._offsets[s]) for s in self._active)
+            n = max(1, min(self.serve.decode_chunk, room,
+                           max(int(self._budgets[s]) for s in self._active)))
+        return self._decode_steps(self._decode_bucket(), n)
 
     def generate(self, prompts, sampling: SamplingParams = SamplingParams()) -> list:
         """Blocking batch generate: returns a list of generated-token lists."""

@@ -41,11 +41,18 @@ class SamplingParams:
 
 
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator | None,
-                  temperature: torch.Tensor, top_p: torch.Tensor, top_k: int = 0) -> torch.Tensor:
+                  temperature: torch.Tensor, top_p: torch.Tensor, top_k: int = 0, *,
+                  any_sampling: bool | None = None) -> torch.Tensor:
     """Next token ids [B] (int64): argmax where temperature == 0, else a
-    draw from the filtered distribution."""
+    draw from the filtered distribution.
+
+    ``any_sampling`` says whether some row has temperature > 0, when the
+    caller knows it on the host (the Engine keeps the temperatures there);
+    None reads it from ``temperature``, which waits for the device."""
     greedy = torch.argmax(logits.float(), dim=-1)
-    if not bool((temperature > 0).any()):
+    if any_sampling is None:
+        any_sampling = bool((temperature > 0).any())
+    if not any_sampling:
         return greedy
     probs = torch.softmax(filter_logits(logits, temperature, top_p, top_k), dim=-1)
     sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]

@@ -28,7 +28,13 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    a float64 sum), and the activation backward of the lora phase: B10
    (``int8_matmul_transposed``) at its q, gate and down at 1024 rows and at
    q at rows 1, 8 and 200 (one bf16 step), B5 (``gather_dequant_wt``) at
-   q, gate and down (bit-identical)), with its time, the plain version's time, the least
+   q, gate and down (bit-identical), B6 (``flash_decode``, K3 without the
+   row write) at K3's two shapes, int8 and bf16, lengths 1/512/513/2048,
+   with and without a window of 256, and its unindexed form once (one bf16
+   step, the cache unchanged), and B8 (``kv_write``) into the int8_short
+   run's cache [32, 4, 32, 2048, 128], the one-array write of a bf16 cache
+   and the four-array write of the int8 one (bit-identical)), with its
+   time, the plain version's time, the least
    time the card could take (bound) and, where one PyTorch call computes
    the same function, its time (for a MoE kernel with per-expert x, where
    none does, the sum of one call per expert, as an aside);
@@ -57,6 +63,11 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    times per layer per prefill forward, the Falcon run B15 5 times per K1/K2
    launch (q/k/v/o/fc2 against fc1), and the 1x16 run its GEMV 7 times per
    layer per decode forward and its GEMM a multiple of 7 x 32 times;
+   then ``int8_short``: Llama-2-7B in int8 (int8 lm_head) at max_len 512,
+   where decode writes its rows with B8 and attends by the plain attention,
+   4 prompts of 64-380 tokens, 64 new tokens, greedy, with decode_chunk 1
+   and 8: identical tokens, B8 32 times per decode forward, K3 and B6 never,
+   no synchronising call inside a chunk;
 5. calibration: ``aqlm_tpu_torch.cli.quantize.main`` in-process on
    random:llama2_7b:2 (two layers at full width) in 2x8 g8 on random ids
    (16 x 512 tokens, 2 epochs of 10 AMSGrad steps, a beam sweep after each,
@@ -98,6 +109,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -897,6 +909,17 @@ def check_b5(gen, dev, failures):
     return reps
 
 
+def _sdpa_ms(q_hm, k_c, v_c, lengths, window, S, L, dev):
+    """Yardstick only: one SDPA call over a bf16 cache [L, B, H, S, D] (a
+    layer a replay, as the kernels are timed) and the same lengths."""
+    pos = torch.arange(S, device=dev)
+    lens = lengths[:, None]
+    lo = (lens - window) if window else torch.zeros_like(lens)
+    mask = ((pos[None] < lens) & (pos[None] >= lo))[:, None, None, :]
+    return time_ms(lambda i=0: torch.nn.functional.scaled_dot_product_attention(
+        q_hm, k_c[i % L], v_c[i % L], attn_mask=mask), 50)
+
+
 # (model, kv heads, query heads per kv head, head_dim): K3's decode shapes
 K3_SHAPES = [("llama2_7b", 32, 1, 128), ("falcon_7b", 1, 71, 64)]
 
@@ -945,16 +968,7 @@ def check_k3(gen, dev, failures):
         row_bytes = 2 * (D + 4) if quant else 2 * 2 * D
         nbytes = sum(keys) * H * row_bytes + 2 * B * H * rep * D * 2 + B * H * row_bytes + B * 4
         b_ms, b_by = bound(nbytes, sum(keys) * H * rep * 4.0 * D)
-        library_ms = None
-        if not quant:
-            # yardstick only: one SDPA call over the same bf16 cache and lengths
-            pos = torch.arange(S, device=dev)
-            lens = (offsets + 1)[:, None]
-            lo = (lens - window) if window else torch.zeros_like(lens)
-            mask = ((pos[None] < lens) & (pos[None] >= lo))[:, None, None, :]
-            sdpa = lambda i=0: torch.nn.functional.scaled_dot_product_attention(
-                q_hm, kv[0][i % L], kv[1][i % L], attn_mask=mask)
-            library_ms = time_ms(sdpa, 50)
+        library_ms = None if quant else _sdpa_ms(q_hm, kv[0], kv[1], offsets + 1, window, S, L, dev)
         rec = {"phase": "check", "kernel": "flash_decode_write", "model": model,
                "kv": "int8" if quant else "bf16", "window": window, "B": B, "Hkv": H, "rep": rep,
                "D": D, "max_len": S, "offsets": offsets.tolist(), **cmp, "ms": ms,
@@ -966,6 +980,129 @@ def check_k3(gen, dev, failures):
         if model == "llama2_7b" and quant and window is None:
             reps["flash_decode_write"] = rec
         del kv, sc, ref_kv, ref_sc
+        torch.cuda.empty_cache()
+    return reps
+
+
+def check_b6(gen, dev, failures):
+    """B6 (``flash_decode``, K3's loops without the row write) at K3's two
+    decode shapes, int8 and bf16, lengths 1, 512, 513 and 2048, no window and
+    a window of 256 (which skips the tiles outside it), layer i % L of the
+    stacked cache; then the unindexed form once. The cache must stay as it
+    was. The library time is SDPA over the bf16 twin of the cache (the int8
+    cache dequantized)."""
+    from aqlm_tpu_torch.ops import flash_decode as fd
+
+    L, B, S = 4, 4, 2048
+    lengths = torch.tensor([1, 512, 513, 2048], dtype=torch.int32, device=dev)
+    reps = {}
+    cases = [(*shape, quant, window, True) for shape, quant, window in itertools.product(
+        K3_SHAPES, (True, False), (None, 256))] + [(*K3_SHAPES[0], True, None, False)]
+    for model, H, rep, D, quant, window, indexed in cases:
+        q = torch.randn((B, 1, H * rep, D), generator=gen, device=dev).to(torch.bfloat16)
+        if quant:
+            kv = [torch.randint(-127, 128, (L, B, H, S, D), generator=gen, device=dev,
+                                dtype=torch.int32).to(torch.int8) for _ in range(2)]
+            sc = [torch.rand((L, B, H, S, 1), generator=gen, device=dev) / 50 for _ in range(2)]
+        else:
+            kv = [torch.randn((L, B, H, S, D), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2)]
+            sc = [None, None]
+        ref = [None if t is None else t.clone() for t in kv + sc]
+        if indexed:
+            run = lambda i=0: fd.flash_decode_attention_indexed(
+                q, kv[0], kv[1], sc[0], sc[1], i % L, lengths, window=window)
+        else:
+            at = lambda t, i: None if t is None else t[i % L]
+            run = lambda i=0: fd.flash_decode_attention(
+                q, at(kv[0], i), at(kv[1], i), at(sc[0], i), at(sc[1], i), lengths, window=window)
+        q_hm = q.reshape(B, H, rep, D)
+        layer0 = lambda t: None if t is None else t[0]
+        plain = lambda i=0: fd.plain_attend(q_hm, *[layer0(t) for t in kv + sc], lengths,
+                                            D ** -0.5, window)
+        cmp = compare(run(0).reshape(B, H, rep, D), plain(0))
+        cmp["ok"] = cmp["ok"] and all(t is None or torch.equal(t, r) for t, r in zip(kv + sc, ref))
+        ms = time_ms(run, 50)
+        plain_ms = time_ms(plain, 5)
+        twin = kv if not quant else [(kv[j].float() * sc[j]).to(torch.bfloat16) for j in range(2)]
+        library_ms = _sdpa_ms(q_hm, twin[0], twin[1], lengths, window, S, L, dev)
+        del twin
+        keys = [min(int(n), window or S) for n in lengths.tolist()]
+        row_bytes = 2 * (D + 4) if quant else 2 * 2 * D
+        nbytes = sum(keys) * H * row_bytes + 2 * B * H * rep * D * 2 + B * 4
+        b_ms, b_by = bound(nbytes, sum(keys) * H * rep * 4.0 * D)
+        rec = {"phase": "check", "kernel": "flash_decode", "model": model,
+               "form": "indexed" if indexed else "unindexed",
+               "kv": "int8" if quant else "bf16", "window": window, "B": B, "Hkv": H, "rep": rep,
+               "D": D, "max_len": S, "lengths": lengths.tolist(), **cmp, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+               "library": "scaled_dot_product_attention over the bf16 twin",
+               "host_ms": host_ms(run)}
+        emit(rec)
+        if not cmp["ok"]:
+            failures.append(rec)
+        if model == "llama2_7b" and quant and window is None and indexed:
+            reps["flash_decode"] = rec
+        del kv, sc, ref
+        torch.cuda.empty_cache()
+    return reps
+
+
+def check_b8(gen, dev, failures):
+    """B8 (``kv_write``) at the int8_short run's cache, [32, 4, 32, 2048,
+    128]: the one-array write of a bf16 cache and the four-array write of the
+    int8 one (k, v and both f32 scale planes), bit-identical to the plain
+    version (indexed assignment), into layer i % 32. The library time is one
+    ``index_put_`` for the one-array write; the four-array write has no
+    single call (four ``index_put_`` calls, as an aside)."""
+    from aqlm_tpu_torch.ops import kv_write as kw
+
+    L, B, H, S, D = 32, 4, 32, 2048, 128
+    offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)
+    rows, heads = torch.arange(B, device=dev)[:, None], torch.arange(H, device=dev)[None, :]
+    off = offsets.long()[:, None]
+    reps = {}
+    for form in ("kv_write", "kv_write4"):
+        if form == "kv_write":
+            caches = [torch.randn((L, B, H, S, D), generator=gen, device=dev).to(torch.bfloat16)]
+            news = [torch.randn((B, H, 1, D), generator=gen, device=dev).to(torch.bfloat16)]
+            run = lambda i=0: kw.kv_write_inplace(caches[0], news[0], i % L, offsets)
+        else:
+            caches = [torch.randint(-127, 128, (L, B, H, S, D), generator=gen, device=dev,
+                                    dtype=torch.int32).to(torch.int8) for _ in range(2)] + [
+                torch.rand((L, B, H, S, 1), generator=gen, device=dev) for _ in range(2)]
+            news = [torch.randint(-127, 128, (B, H, 1, D), generator=gen, device=dev,
+                                  dtype=torch.int32).to(torch.int8) for _ in range(2)] + [
+                torch.rand((B, H, 1, 1), generator=gen, device=dev) for _ in range(2)]
+            run = lambda i=0: kw.kv_write4_inplace(*caches, *news, i % L, offsets)
+        ref = [c.clone() for c in caches]
+        plain = lambda i=0: kw.plain([c[i % L] for c in ref], [n[:, :, 0] for n in news], offsets)
+        run(0)
+        plain(0)
+        same = all(torch.equal(c, r) for c, r in zip(caches, ref))
+        ms = time_ms(run, 50)
+        plain_ms = time_ms(plain, 20)
+        puts = lambda i=0: [c[i % L].index_put_((rows, heads, off), n[:, :, 0])
+                            for c, n in zip(ref, news)]
+        put_ms = time_ms(puts, 50)
+        row_bytes = sum(n[0, 0, 0].numel() * n.element_size() for n in news)
+        nbytes = 2 * B * H * row_bytes + B * 4  # the new rows read, the cache rows written
+        b_ms, b_by = bound(nbytes, 0.0)
+        rec = {"phase": "check", "kernel": "kv_write", "form": form,
+               "kv": "bf16" if form == "kv_write" else "int8", "cache": [L, B, H, S, D],
+               "offsets": offsets.tolist(), "max_abs_err": 0.0 if same else float("inf"),
+               "tol": "bit-identical", "ok": same, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": put_ms if form == "kv_write" else None,
+               "library": "index_put_" if form == "kv_write" else None,
+               "library_aside_ms": None if form == "kv_write" else put_ms,
+               "host_ms": host_ms(run)}
+        emit(rec)
+        if not same:
+            failures.append(rec)
+        if form == "kv_write4":  # the int8_short run's write
+            reps["kv_write"] = rec
+        del caches, ref
         torch.cuda.empty_cache()
     return reps
 
@@ -1288,6 +1425,133 @@ def profile_decode(engine, cfg, rng) -> dict:
             "host_top": [{"name": e.key[:80], "ms": e.self_cpu_time_total / 1e3, "calls": e.count}
                          for e in host_top],
             "aggregate_s": time.perf_counter() - t0}
+
+
+PATH_KERNELS["int8_short"] = ("int8_matmul", "kv_write")
+
+
+def count_syncs(fn, *args):
+    """(fn(*args), the synchronising CUDA calls it made), as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing" in str(w.message) for w in caught)
+SHORT_LENGTHS = [64, 150, 270, 380]  # the int8_short run's prompts
+SHORT_REPEATS = 3  # timed generate calls per decode_chunk setting
+
+
+def int8_short_run(dev) -> dict:
+    """Llama-2-7B in int8 with the int8 lm_head at full width and depth, under
+    ServeConfig(max_batch=4, max_len=512, kv_quantized=True): the default
+    rule keeps K3 off at this max_len, so a decode forward writes its rows
+    with B8 (one kv_write4 launch per layer) and attends by the plain
+    attention. Four prompts of 64-380 tokens, 64 new tokens each, greedy,
+    once with decode_chunk 1 and once with 8 (each engine freed before the
+    next is built): the tokens must be identical, B8 must launch exactly 32
+    times per decode forward (so never in prefill), K3 and B6 never, and the
+    forwards of each step and each chunk (``Engine._decode_chunk``, between
+    the inputs' upload and the tokens' read-back) must make no synchronising
+    call (counted by ``torch.cuda.set_sync_debug_mode("warn")``, a deliberate
+    read-back as its control). Each engine generates the same prompts
+    SHORT_REPEATS times; reports each setting's decode tok/s (median and
+    runs) and the chunked engine's device-busy share."""
+    from aqlm_tpu_torch.ops import _build
+    from aqlm_tpu_torch.serve import Engine, SamplingParams, ServeConfig
+
+    cfg = model_config("llama2_7b")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SHORT_LENGTHS]
+    warm = [rng.integers(0, cfg.vocab_size, 64)]
+    new_tokens = 64
+    rec = {"phase": "engine", "run": "int8_short", "model": "llama2_7b",
+           "layers": cfg.num_layers, "scheme": "2x8g8", "mode": "int8", "lm_head_int8": True,
+           "kv": "int8", "max_batch": 4, "max_len": 512, "prompt_lengths": SHORT_LENGTHS,
+           "new_tokens": new_tokens, "launches": {}}
+    # the counter's control: one deliberate read-back must count
+    rec["sync_counter_control"] = count_syncs(lambda: torch.ones(1, device=dev).sum().item())[1]
+    outs, ok = {}, rec["sync_counter_control"] >= 1
+    for chunk in (1, 8):
+        params = run_params(dev, "int8", cfg, seed=0)
+        engine = Engine(params, cfg, ServeConfig(max_batch=4, max_len=512, kv_quantized=True,
+                                                 lm_head_int8=True, decode_chunk=chunk))
+        del params
+        engine.generate(warm, SamplingParams(max_new_tokens=10))  # first calls, one chunk
+        steps, forwards, syncs = [], [0], []
+        inner_step, inner_fwd, inner_chunk = engine.step, engine._forward_sample, engine._decode_chunk
+
+        def timed_step():
+            n_pending = len(engine._pending)
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            emitted = inner_step()
+            torch.cuda.synchronize()
+            n_tok = sum(len(v) if isinstance(v, list) else 1 for v in emitted.values())
+            steps.append((time.perf_counter() - s0, len(engine._pending) == n_pending, n_tok))
+            return emitted
+
+        def counted_forward(*args):
+            forwards[0] += 1
+            return inner_fwd(*args)
+
+        def sync_checked_chunk(*args):
+            out, n = count_syncs(inner_chunk, *args)
+            syncs.append(n)
+            return out
+
+        engine.step, engine._forward_sample = timed_step, counted_forward
+        engine._decode_chunk = sync_checked_chunk
+        # the same generate SHORT_REPEATS times: one chunk-8 run times only 7
+        # chunks, and the host's speed moves a step between runs. From the
+        # second on, prompts reuse the rows the one before left (prefix
+        # cache), as in the other engine, so run i's tokens match its run i
+        _build.reset_launch_counts()
+        tok_s, gen_s, runs_out = [], [], []
+        for _ in range(SHORT_REPEATS):
+            steps.clear()
+            t0 = time.perf_counter()
+            runs_out.append(engine.generate(prompts, SamplingParams(max_new_tokens=new_tokens)))
+            torch.cuda.synchronize()
+            gen_s.append(time.perf_counter() - t0)
+            decode = [st for st in steps if st[1] and st[2] > 0]
+            tok_s.append(sum(st[2] for st in decode) / sum(st[0] for st in decode))
+        launches = {k: v.launches for k, v in _build.KERNELS.items()}
+        for k, n in launches.items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + n
+        out = runs_out[0]
+        tag = f"chunk{chunk}"
+        rec[tag] = {"decode_chunk": chunk, "decode_tok_s": statistics.median(tok_s),
+                    "decode_tok_s_runs": tok_s, "decode_steps_timed_per_run": len(decode),
+                    "decode_tokens_timed_per_run": sum(st[2] for st in decode),
+                    "generate_s_runs": gen_s, "steps_per_run": len(steps),
+                    "decode_forwards": forwards[0],
+                    "kv_write_per_decode_forward": launches["kv_write"] / forwards[0],
+                    "decode_calls": len(syncs), "syncs": sum(syncs),
+                    "first_tokens": [o[:4] for o in out]}
+        outs[chunk] = runs_out
+        ok = (ok and all(len(o) == new_tokens and all(0 <= t < cfg.vocab_size for t in o)
+                         for r in runs_out for o in r)
+              and launches["kv_write"] == cfg.num_layers * forwards[0]
+              and launches["int8_matmul"] > 0
+              and all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS["int8_short"])
+              and len(syncs) > 0 and all(n == 0 for n in syncs))
+        if chunk > 1:
+            engine.step, engine._forward_sample, engine._decode_chunk = (
+                inner_step, inner_fwd, inner_chunk)
+            t0 = time.perf_counter()
+            rec["profile"] = profile_decode(engine, cfg, rng)
+            rec["profile"]["seconds"] = time.perf_counter() - t0
+        del engine.step, engine._forward_sample, engine._decode_chunk
+        del engine
+        torch.cuda.empty_cache()
+    rec["tokens_identical"] = outs[1] == outs[8]  # every run, decode_chunk 1 against 8
+    rec["decode_tok_s"] = rec["chunk8"]["decode_tok_s"]
+    rec["ok"] = ok and rec["tokens_identical"]
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1639,6 +1903,8 @@ def main() -> int:
     with torch.inference_mode():
         reps = check_k1_k2(gen, dev, failures)
         reps.update(check_k3(gen, dev, failures))
+        reps.update(check_b6(gen, dev, failures))
+        reps.update(check_b8(gen, dev, failures))
         reps.update(check_int8(gen, dev, failures))
         reps.update(check_int4(gen, dev, failures))
         reps.update(check_int8_moe(gen, dev, failures))
@@ -1672,6 +1938,14 @@ def main() -> int:
         if not runs[run]["ok"]:
             print(f"chip_smoke: the {run} engine run failed its checks", file=sys.stderr)
             return 4
+
+    t0 = time.perf_counter()
+    runs["int8_short"] = int8_short_run(dev)
+    phase_s["engine_int8_short"] = runs["int8_short"]["seconds"] = time.perf_counter() - t0
+    emit(runs["int8_short"])
+    if not runs["int8_short"]["ok"]:
+        print("chip_smoke: the int8_short engine run failed its checks", file=sys.stderr)
+        return 4
 
     # calibration runs with autograd: outside inference mode
     t0 = time.perf_counter()
@@ -1713,14 +1987,17 @@ def main() -> int:
         r = reps[name]
         by_run = {run: rec["launches"][name] for run, rec in runs.items()
                   if name in PATH_KERNELS[run]}
+        # B6 is on no path (nor is it in aqlm_tpu's engine): phase 2 alone launches it
+        aside = {} if by_run else {"launches_note": "on no path: launched by phase 2's checks only"}
         kernels.append({"name": name, "route": "cuda", "source": info.source,
                         "replaces": info.replaces, "also_replaces": list(info.also_replaces),
-                        "launches": sum(by_run.values()), "launches_by_run": by_run,
+                        "launches": sum(by_run.values()), "launches_by_run": by_run, **aside,
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": {k: r[k] for k in r if k in (
                             "proj", "experts", "rows", "kv", "window", "B", "max_len", "groups",
+                            "form", "cache", "lengths",
                             "out_features", "in_features", "precise")}})
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"records": RECORDS, "kernels": kernels}, f, indent=1)

@@ -30,6 +30,7 @@ from aqlm_tpu_torch.ops import gather_prefill as gp
 from aqlm_tpu_torch.ops import int4_matmul as i4
 from aqlm_tpu_torch.ops import int8_matmul as im
 from aqlm_tpu_torch.ops import kernels as k15
+from aqlm_tpu_torch.ops import kv_write as kw
 from aqlm_tpu_torch.ops import lut_gemv as lg
 from aqlm_tpu_torch.serve import Engine, SamplingParams, ServeConfig
 
@@ -1049,3 +1050,201 @@ def test_tiny_lora_step_launch_counts(dev):
         counts = {k: v.launches for k, v in _build.KERNELS.items() if v.launches}
         assert counts == {fwd: 7 * 2, bwd: 7 * 2 - 3}, counts
         assert bool(torch.isfinite(loss))
+
+
+# --------------------------------------------------------------------------- K1, K2, B15 at 1 and 8 codebooks
+
+
+def _codes_k(gen, dev, sizes, in_f, K):
+    """Stacked tiled codes at K codebooks of 256 (2 layers), codebooks, scales."""
+    tn = min(lg.lut_tile_n(s) for s in sizes)
+    nt, kig = sum(sizes) // tn, in_f // 8 * K
+    codes = torch.randint(0, 256, (2, nt, kig, tn), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    cb = (torch.randn((2, len(sizes), K, 256, 8), generator=gen, device=dev) / (2 * K)).to(
+        torch.bfloat16)
+    scales = torch.rand((2, sum(sizes)), generator=gen, device=dev) + 0.5
+    return codes, cb, scales
+
+
+@pytest.mark.parametrize("rows", [1, 8, 77])
+@pytest.mark.parametrize("K", [1, 8])
+def test_codes_kernels_at_1_and_8_codebooks(dev, K, rows):
+    """K1 (<= 8 rows) and K2 (77 rows) over 1x8 and 8x8 codes (8x8: K1 holds
+    32 KiB of codebooks in shared memory), and B15 over the untiled layout."""
+    gen = torch.Generator(device=dev).manual_seed(K * 100 + rows)
+    sizes, in_f = (256, 128, 128), 1024
+    codes, cb, scales = _codes_k(gen, dev, sizes, in_f, K)
+    x = torch.randn((rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+    kernel = "lut_gemv" if rows <= 8 else "gather_prefill"
+    before = _build.KERNELS[kernel].launches
+    if rows <= 8:
+        got = lg.lut_gemv_kx8_grouped_indexed(x, codes, cb, scales, sizes, 1, group=8)
+    else:
+        got = gp.gather_prefill_matmul_grouped_indexed(x, codes, cb, scales, sizes, 1, group=8)
+    assert _build.KERNELS[kernel].launches == before + 1
+    pm = lg.proj_map_for(sizes, codes.shape[-1], dev)
+    want = (lg.plain(x, codes[1], cb[1], scales[1], pm, torch.bfloat16) if rows <= 8
+            else gp.plain(x, codes[1], cb[1], scales[1], pm))
+    _close(got, want)
+
+    ucodes = torch.randint(0, 256, (2, K, in_f // 8, 200), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.uint8)
+    ucb = (torch.randn((2, K, 256, 8), generator=gen, device=dev) / (2 * K)).to(torch.bfloat16)
+    uscales = torch.rand((2, 200), generator=gen, device=dev) + 0.5
+    before = _build.KERNELS["onehot_matmul"].launches
+    got = k15.fused_onehot_matmul_indexed(x, ucodes, ucb, uscales, 1, None, group=8)
+    assert _build.KERNELS["onehot_matmul"].launches == before + 1
+    _close(got, k15.plain(x, ucodes[1], ucb[1], uscales[1]), steps=2)
+
+
+# --------------------------------------------------------------------------- B6 and B8
+
+
+def _decode_cache(gen, dev, quantized, L, B, H, S, d):
+    if quantized:
+        kv = [torch.randint(-127, 128, (L, B, H, S, d), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.int8) for _ in range(2)]
+        sc = [torch.rand((L, B, H, S, 1), generator=gen, device=dev) / 50 for _ in range(2)]
+        return kv, sc
+    return [torch.randn((L, B, H, S, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2)], [None, None]
+
+
+@pytest.mark.parametrize("window", [None, 40, 600])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("rep,d", [(1, 128), (2, 64), (8, 128), (6, 64), (71, 64)])
+def test_flash_decode_attention_kernel_matches_plain(dev, rep, d, quantized, window):
+    """B6 (K3's loops without the write) over layer 1 of a stacked cache at
+    lengths 0 (the mean of V over the TPU grid's visited tiles), 1, 512, 513
+    and S; a window of 600 skips one of the four 512-key tiles. The cache is
+    left as it was."""
+    gen = torch.Generator(device=dev).manual_seed(rep + d)
+    L, B, H, S = 2, 5, 1 if rep == 71 else 2, 2048
+    lengths = torch.tensor([0, 1, 512, 513, S], dtype=torch.int32, device=dev)
+    q = torch.randn((B, 1, H * rep, d), generator=gen, device=dev).to(torch.bfloat16)
+    kv, sc = _decode_cache(gen, dev, quantized, L, B, H, S, d)
+    ref = [None if t is None else t.clone() for t in kv + sc]
+    before = _build.KERNELS["flash_decode"].launches
+    got = fd.flash_decode_attention_indexed(q, kv[0], kv[1], sc[0], sc[1], 1, lengths,
+                                            window=window)
+    assert _build.KERNELS["flash_decode"].launches == before + 1
+    cpu = lambda t: None if t is None else t.cpu()
+    want = fd.flash_decode_attention_indexed(q.cpu(), *[cpu(t) for t in kv + sc], 1,
+                                             lengths.cpu(), window=window)
+    _close(got.cpu(), want)
+    for t, r in zip(kv + sc, ref):
+        if r is not None:
+            assert torch.equal(t, r)
+    layer1 = lambda t: None if t is None else t[1]
+    one = fd.flash_decode_attention(q, *[layer1(t) for t in kv + sc], lengths, window=window)
+    assert torch.equal(one, got)
+
+
+def test_flash_decode_attention_wrapper_raises(dev):
+    q = torch.zeros((2, 1, 4, 64), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((2, 2, 64, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        fd.flash_decode_attention(q, k, k, None, None, torch.zeros(2, dtype=torch.int64,
+                                                                   device=dev))
+    with pytest.raises(ValueError, match="int8 or bf16"):
+        fd.flash_decode_attention(q, k.float(), k.float(), None, None,
+                                  torch.zeros(2, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="f32 scale planes"):
+        fd.flash_decode_attention(q, k.to(torch.int8), k.to(torch.int8), None, None,
+                                  torch.zeros(2, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.int8, 128), (torch.int8, 64),
+                                     (torch.float32, 64), (torch.float16, 4)])
+def test_kv_write_kernel_matches_plain(dev, dtype, d):
+    """B8 bit-identical to indexed assignment; offsets outside [0, S) write
+    nothing; rows of 16 bytes and more move by 16 bytes, 8-byte rows by 4."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    L, B, H, S = 3, 6, 4, 96
+    cache = (torch.randn((L, B, H, S, d), generator=gen, device=dev) * 50).to(dtype)
+    new = (torch.randn((B, H, 1, d), generator=gen, device=dev) * 50).to(dtype)
+    offsets = torch.tensor([0, 95, 33, -1, 96, 7], dtype=torch.int32, device=dev)
+    want = cache.cpu()
+    want_out = kw.kv_write_inplace(want, new.cpu(), 2, offsets.cpu())
+    before = _build.KERNELS["kv_write"].launches
+    got = kw.kv_write_inplace(cache, new, 2, offsets)
+    assert _build.KERNELS["kv_write"].launches == before + 1 and got is cache
+    assert torch.equal(got.cpu(), want_out)
+
+
+def test_kv_write4_kernel_matches_plain(dev):
+    """One launch writes k, v and both f32 scale planes of the int8 cache."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    L, B, H, S, d = 4, 4, 32, 256, 128
+    kv, sc = _decode_cache(gen, dev, True, L, B, H, S, d)
+    new = [torch.randint(-127, 128, (B, H, 1, d), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.int8) for _ in range(2)]
+    nsc = [torch.rand((B, H, 1, 1), generator=gen, device=dev) for _ in range(2)]
+    offsets = torch.tensor([0, 255, 100, 256], dtype=torch.int32, device=dev)
+    want = kw.kv_write4_inplace(*[t.cpu() for t in kv + sc + new + nsc], 3, offsets.cpu())
+    before = _build.KERNELS["kv_write"].launches
+    got = kw.kv_write4_inplace(*kv, *sc, *new, *nsc, 3, offsets)
+    assert _build.KERNELS["kv_write"].launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_kv_write_wrapper_raises(dev):
+    cache = torch.zeros((2, 2, 2, 8, 16), dtype=torch.int8, device=dev)
+    new = torch.zeros((2, 2, 1, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        kw.kv_write_inplace(cache, new, 0, torch.zeros(2, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="do not match"):
+        kw.kv_write_inplace(cache, new[:, :, :, :8], 0, torch.zeros(2, dtype=torch.int32,
+                                                                      device=dev))
+
+
+def _count_syncs(fn, *args):
+    """(fn(*args), the synchronising CUDA calls it made), as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def test_int8_engine_decode_chunk_on_the_card(dev):
+    """max_len 512 keeps K3 off for int8 layers: decode writes its rows with
+    B8, one launch per layer per decode forward and none in prefill, and
+    attends by the plain attention. Chunks of 4 give the tokens of single
+    steps, and the forwards inside a chunk do not synchronise (a deliberate
+    read-back, the counter's control, counts one)."""
+    cfg = llama.ModelConfig.tiny(num_layers=2, hidden_size=256, intermediate_size=256,
+                                 num_heads=4, num_kv_heads=2)
+    prompts = [np.arange(5), np.arange(40), np.arange(3, 20)]
+    outs, syncs = [], []
+    for chunk in (1, 4):
+        params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                                         SCHEME_2X8, mode="int8")
+        engine = Engine(params, cfg, ServeConfig(max_batch=4, max_len=512, prefill_buckets=(16, 32),
+                                                 kv_quantized=True, lm_head_int8=True,
+                                                 decode_chunk=chunk))
+        inner_chunk, inner_fwd, forwards = engine._decode_chunk, engine._forward_sample, []
+
+        def counted(*args, inner=inner_chunk):
+            out, n = _count_syncs(inner, *args)
+            syncs.append(n)
+            return out
+
+        engine._decode_chunk = counted
+        engine._forward_sample = lambda *a, inner=inner_fwd: forwards.append(1) or inner(*a)
+        _build.reset_launch_counts()
+        outs.append(engine.generate(prompts, SamplingParams(max_new_tokens=9)))
+        n = {k: v.launches for k, v in _build.KERNELS.items()}
+        assert n["kv_write"] == len(forwards) * cfg.num_layers
+        assert n["flash_decode_write"] == n["flash_decode"] == 0 and n["int8_matmul"] > 0
+    assert outs[0] == outs[1]
+    assert syncs and all(s == 0 for s in syncs), syncs
+    assert _count_syncs(lambda: torch.ones(1, device=dev).sum().item())[1] >= 1

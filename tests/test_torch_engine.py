@@ -112,12 +112,3 @@ def test_port_engine_runs_on_its_own_random_params():
     out = engine.generate([np.arange(5), np.arange(37)], SamplingParams(max_new_tokens=3))
     assert [len(o) for o in out] == [3, 3]
     assert all(0 <= tok < cfg.vocab_size for o in out for tok in o)
-
-
-@pytest.mark.parametrize("kw,item", [(dict(decode_chunk=4), "A6")])
-def test_unported_engine_options_raise(kw, item):
-    cfg = llama.ModelConfig.tiny(**CFG)
-    params = random_quantized_params(torch.Generator().manual_seed(0), cfg,
-                                     AqlmScheme.parse("2x8g8"), dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        Engine(params, cfg, ServeConfig(**kw), device="cpu")
