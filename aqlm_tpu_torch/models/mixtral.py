@@ -13,7 +13,7 @@ codes experts are stacked into ``[E, ...]`` operands (``stack_experts``) and
 run in one all-expert kernel launch per projection
 (``ops.int8_matmul.int8_moe_matmul``, ``ops.int4_matmul.int4_moe_matmul``,
 ``ops.lut_gemv.lut_moe_gemv_kx8``; the last returns f32 and, past 8 rows,
-launches the prefill kernel once per expert).
+runs the prefill kernel's expert grid axis).
 """
 
 from __future__ import annotations

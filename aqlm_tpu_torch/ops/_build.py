@@ -97,7 +97,7 @@ KERNELS = {
         "lut_moe_gemv", "aqlm_tpu_torch/ops/csrc/lut_gemv.cu",
         "aqlm_tpu/ops/lut_gemv.py:351", ("aqlm_tpu/ops/lut_gemv.py:272",),
     ),
-    # the same function at more than 8 rows: K2's f32 instance, one launch per expert
+    # the same function at more than 8 rows: K2's f32 instance, all experts in one launch
     "moe_gather_prefill": KernelInfo(
         "moe_gather_prefill", "aqlm_tpu_torch/ops/csrc/gather_prefill.cu",
         "aqlm_tpu/ops/lut_gemv.py:351", ("aqlm_tpu/ops/lut_gemv.py:272",),
@@ -130,6 +130,11 @@ KERNELS = {
     "gather_dequant_wt": KernelInfo(
         "gather_dequant_wt", "aqlm_tpu_torch/ops/csrc/gather_dequant_wt.cu",
         "aqlm_tpu/ops/gather_prefill.py:331", (),
+    ),
+    # B16: the lane-gather wrap probe (on no path: the port's kernels never consult it)
+    "gather_wraps": KernelInfo(
+        "gather_wraps", "aqlm_tpu_torch/ops/csrc/gather_wraps.cu",
+        "aqlm_tpu/ops/kernels.py:75", (),
     ),
     # B10: dx = bf16(g * scale) @ w8 (the int8-mode activation backward)
     "int8_matmul_transposed": KernelInfo(
@@ -212,26 +217,28 @@ def _declare(lib) -> None:
     # pointers..., ints..., stream (see the extern "C" signatures in csrc/)
     lib.lut_gemv_launch.argtypes = [P] * 8 + [I] * 10 + [P]
     lib.lut_moe_gemv_launch.argtypes = [P] * 7 + [I] * 4 + [ctypes.c_longlong] + [I] * 6 + [P]
-    lib.gather_prefill_launch.argtypes = [P] * 8 + [I] * 9 + [P]
+    L = ctypes.c_longlong
+    lib.gather_prefill_launch.argtypes = [P] * 8 + [I] * 15 + [L, I, P]
     lib.gather16_gemv_launch.argtypes = [P] * 5 + [I] * 5 + [P]
     lib.gather16_gemm_launch.argtypes = [P] * 7 + [I] * 5 + [P]
-    lib.flash_decode_write_launch.argtypes = [P] * 11 + [I] * 7 + [ctypes.c_float, P]
+    lib.flash_decode_write_launch.argtypes = [P] * 13 + [I] * 8 + [ctypes.c_float, P]
     lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 8 + [P]
     lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 8 + [P]
     lib.onehot_matmul_launch.argtypes = [P] * 7 + [I] * 8 + [P]
-    L = ctypes.c_longlong
     lib.calib_dequant_launch.argtypes = [P] * 4 + [L] + [I] * 5 + [P]
     lib.cb_grad_launch.argtypes = [P] * 3 + [L] + [I] * 4 + [P]
     lib.gather_dequant_wt_launch.argtypes = [P] * 4 + [I] * 6 + [P]
     lib.int8_matmul_t_launch.argtypes = [P] * 4 + [I] * 4 + [P]
-    lib.flash_decode_launch.argtypes = [P] * 7 + [I] * 9 + [ctypes.c_float, P]
+    lib.flash_decode_launch.argtypes = [P] * 9 + [I] * 10 + [ctypes.c_float, P]
     lib.kv_write_launch.argtypes = [ctypes.POINTER(P), ctypes.POINTER(P), ctypes.POINTER(I), I, P,
                                     I, I, I, P]
+    lib.gather_wraps_launch.argtypes = [P] * 3 + [I, P]
     for fn in (lib.lut_gemv_launch, lib.lut_moe_gemv_launch, lib.gather_prefill_launch,
                lib.gather16_gemv_launch, lib.gather16_gemm_launch, lib.flash_decode_write_launch,
                lib.int8_matmul_launch, lib.int4_matmul_launch, lib.onehot_matmul_launch,
                lib.calib_dequant_launch, lib.cb_grad_launch, lib.gather_dequant_wt_launch,
-               lib.int8_matmul_t_launch, lib.flash_decode_launch, lib.kv_write_launch):
+               lib.int8_matmul_t_launch, lib.flash_decode_launch, lib.kv_write_launch,
+               lib.gather_wraps_launch):
         fn.restype = I
 
 

@@ -10,7 +10,10 @@ PyTorch counterparts of ``aqlm_tpu.ops.flash_decode``:
   unindexed form is the indexed one at layer 0.
 
 On a CUDA tensor each launches its kernel (``csrc/flash_decode.cu``); on a
-CPU tensor it runs the plain version.
+CPU tensor it runs the plain version. At a head count other than 1, 2, 4 or
+8 per kv head the kernels split each row's keys over blocks (split-KV) and
+merge the splits' partial softmax states in a fixed order; the plain
+versions compute the same way (``split_partials``, ``merge_partials``).
 
 Layouts: q [B, 1, Hq, D]; k/v cache [L, B, Hkv, S, D] int8 or bf16; scales
 [L, B, Hkv, S, 1] f32 (int8 only); offsets [B] int32 (K3: row b is written
@@ -25,16 +28,78 @@ from aqlm_tpu_torch.ops import _build
 
 __all__ = [
     "flash_decode_write_attention_indexed", "flash_decode_attention_indexed",
-    "flash_decode_attention", "NEG_INF",
+    "flash_decode_attention", "NEG_INF", "SINGLE_BLOCK_REPS", "split_plan", "split_partials",
+    "merge_partials",
 ]
 
 NEG_INF = -1e30
+SINGLE_BLOCK_REPS = (1, 2, 4, 8)  # query heads per kv head of the single-block kernels
+SPLIT_TILE = 64  # keys per tile of the split-KV kernels; a split holds 1-4 (or more) tiles
 
 
-def plain(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window):
+def split_plan(b: int, hkv: int, rep: int, s_len: int, splits: int | None = None,
+               sm_count: int = 132) -> tuple[int, int]:
+    """(keys per split, splits) of the split-KV kernels: the fewest tiles a
+    split (1, 2 or 4) that keeps the grid within two blocks per SM, or, given
+    ``splits``, that many parts of whole tiles."""
+    if splits is None:
+        hch = -(-rep // 128)
+        tiles = 1
+        while tiles < 4 and b * hkv * hch * -(-s_len // (SPLIT_TILE * tiles)) > 2 * sm_count:
+            tiles *= 2
+        kps = SPLIT_TILE * tiles
+    else:
+        if splits < 1:
+            raise ValueError(f"splits must be at least 1, got {splits}")
+        kps = SPLIT_TILE * -(-s_len // (SPLIT_TILE * splits))
+    return kps, -(-s_len // kps)
+
+
+def split_partials(logits, v, kps: int):
+    """Per-split softmax state of ``logits`` [B, H, rep, S] over ``v``
+    [B, H, S, D], S cut into splits of ``kps`` keys: (m [B, H, rep, Z], l,
+    acc [B, H, rep, Z, D]), m the split's largest logit (-inf where every
+    key is -inf, then l = 0), l the sum of exp(logit - m), acc its products
+    with v. All f32."""
+    s_len = logits.shape[-1]
+    z = -(-s_len // kps)
+    pad = z * kps - s_len
+    if pad:
+        logits = torch.nn.functional.pad(logits, (0, pad), value=-torch.inf)
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    lg = logits.reshape(*logits.shape[:-1], z, kps)
+    m = lg.amax(dim=-1)
+    p = torch.exp(lg - torch.where(torch.isneginf(m), 0.0, m)[..., None])
+    acc = torch.einsum("bhrzk,bhzkd->bhrzd", p, v.reshape(*v.shape[:2], z, kps, v.shape[-1]))
+    return m, p.sum(dim=-1), acc
+
+
+def merge_partials(m, l, acc):
+    """The kernels' combine: the splits' states merged in split order 0, 1,
+    ... (empty splits, l = 0, skipped); f32 [B, H, rep, D]."""
+    mx = torch.where(l > 0, m, torch.full_like(m, NEG_INF)).amax(dim=-1)
+    num = torch.zeros_like(acc[..., 0, :])
+    den = torch.zeros_like(mx)
+    for z in range(m.shape[-1]):
+        c = torch.where(l[..., z] > 0, torch.exp(m[..., z] - mx), torch.zeros_like(mx))
+        num = num + c[..., None] * acc[..., z, :]
+        den = den + c * l[..., z]
+    return num / torch.clamp(den, min=1e-30)[..., None]
+
+
+def _attend(logits, v, splits):
+    """softmax(logits) @ v in f32, as ``splits`` parts merged in order."""
+    kps, _ = split_plan(1, 1, 1, logits.shape[-1], splits or 1)
+    return merge_partials(*split_partials(logits, v, kps))
+
+
+def plain(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window, splits=None,
+          out_dtype=torch.bfloat16):
     """K3's plain version. One layer's cache [B, Hkv, S, D] (+ scales
     [B, Hkv, S, 1]); q_hm [B, Hkv, rep, D] bf16; nk/nv [B, Hkv, D]; nks/nvs
-    [B, Hkv] or None."""
+    [B, Hkv] or None. The keys are cut into ``splits`` parts (None: one)
+    whose softmax states merge as the split-KV kernel merges them; the f32
+    result is cast to ``out_dtype``."""
     b = q_hm.shape[0]
     s_len = k_c.shape[2]
     rows = torch.arange(b, device=k_c.device)
@@ -55,11 +120,7 @@ def plain(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window):
     if window is not None:
         valid = valid & (key_pos >= length - window)
     logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhrs,bhsd->bhrd", p, v) / torch.clamp(l, min=1e-30)
-    return out.to(torch.bfloat16)
+    return _attend(logits, v, splits).to(out_dtype)
 
 
 def _check(q_hm, k_c, v_c, ks_c, vs_c, rows, *new) -> bool:
@@ -91,29 +152,47 @@ def _check(q_hm, k_c, v_c, ks_c, vs_c, rows, *new) -> bool:
     return quant
 
 
-def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window):
-    """K3 on one layer's cache (same arguments as ``plain``). Each offset must
-    lie in [0, S), as the caller (the Engine) guarantees; the kernel does not
-    read offsets back to the host, so a row whose offset lies outside writes
+def _partials(q_hm, s_len, splits):
+    """(keys per split, part_acc, part_ml) of a split-KV launch, allocated on
+    torch's current stream; (0, None, None) for the single-block kernels."""
+    b, hkv, rep, d = q_hm.shape
+    if rep in SINGLE_BLOCK_REPS:
+        return 0, None, None
+    kps, z = split_plan(b, hkv, rep, s_len, splits, _build.sm_count(q_hm.device.index))
+    acc = torch.empty((b, hkv, z, rep, d), dtype=torch.float32, device=q_hm.device)
+    ml = torch.empty((b, hkv, z, rep, 2), dtype=torch.float32, device=q_hm.device)
+    return kps, acc, ml
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window, splits=None):
+    """K3 on one layer's cache (same arguments as ``plain``; ``splits``
+    overrides the split-KV kernel's split count). Each offset must lie in
+    [0, S), as the caller (the Engine) guarantees; the kernel does not read
+    offsets back to the host, so a row whose offset lies outside writes
     nothing and returns NaN instead of raising."""
     b, hkv, rep, d = q_hm.shape
     s_len = k_c.shape[2]
     dev = q_hm.device
     quant = _check(q_hm, k_c, v_c, ks_c, vs_c, offsets, nk, nv,
                    *((nks, nvs) if k_c.dtype == torch.int8 else ()))
-    if rep not in (1, 2, 4, 8) and (nk.data_ptr() % 16 or nv.data_ptr() % 16):
-        # the chunked instances read the new row as cache rows are read
+    if rep not in SINGLE_BLOCK_REPS and (nk.data_ptr() % 16 or nv.data_ptr() % 16):
+        # the split-KV kernel copies the new row as cache rows are copied
         raise ValueError("flash_decode kernel needs 16-byte aligned new rows at this head count")
     out = torch.empty((b, hkv, rep, d), dtype=torch.bfloat16, device=dev)
+    kps, part_acc, part_ml = _partials(q_hm, s_len, splits)
     lib, _ = _build.library()
     rc = lib.flash_decode_write_launch(
         q_hm.data_ptr(), nk.data_ptr(), nv.data_ptr(),
         nks.data_ptr() if quant else None, nvs.data_ptr() if quant else None,
         k_c.data_ptr(), v_c.data_ptr(),
         ks_c.data_ptr() if quant else None, vs_c.data_ptr() if quant else None,
-        offsets.data_ptr(), out.data_ptr(),
-        b, hkv, s_len, d, rep, int(quant), 0 if window is None else int(window), float(scale),
-        _build.stream_ptr(dev),
+        offsets.data_ptr(), out.data_ptr(), _ptr(part_acc), _ptr(part_ml),
+        b, hkv, s_len, d, rep, int(quant), 0 if window is None else int(window), kps,
+        float(scale), _build.stream_ptr(dev),
     )
     _build.check(rc, "flash_decode_write")
     _build.KERNELS["flash_decode_write"].launches += 1
@@ -177,9 +256,11 @@ def tiles(s_len: int, window: int | None) -> tuple[int, int, int]:
     return ts, nt_full, n_tiles
 
 
-def plain_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window):
+def plain_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window, splits=None,
+                 out_dtype=torch.bfloat16):
     """B6's plain version on one layer's cache [B, Hkv, S, D] (+ scales
-    [B, Hkv, S, 1]); q_hm [B, Hkv, rep, D] bf16; lengths [B].
+    [B, Hkv, S, 1]); q_hm [B, Hkv, rep, D] bf16; lengths [B]; ``splits``
+    and ``out_dtype`` as for ``plain``.
 
     Keys in [max(0, len - window), len) attend. Keys of the tiles the TPU
     grid visits that fall outside get the logit NEG_INF, as the TPU kernel
@@ -203,28 +284,27 @@ def plain_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window):
     visited = (pos >= start * ts) & (pos < (start + n_tiles) * ts)
     logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
     logits = torch.where(visited[:, None, None, :], logits, torch.full_like(logits, -torch.inf))
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhrs,bhsd->bhrd", p, v) / torch.clamp(l, min=1e-30)
-    return out.to(torch.bfloat16)
+    return _attend(logits, v, splits).to(out_dtype)
 
 
-def launch_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window):
-    """B6 on one layer's cache (same arguments as ``plain_attend``). The
-    cache is only read; lengths are not read back to the host."""
+def launch_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window, splits=None):
+    """B6 on one layer's cache (same arguments as ``plain_attend``;
+    ``splits`` as for ``launch``). The cache is only read; lengths are not
+    read back to the host."""
     b, hkv, rep, d = q_hm.shape
     s_len = k_c.shape[2]
     dev = q_hm.device
     quant = _check(q_hm, k_c, v_c, ks_c, vs_c, lengths)
     ts, _, n_tiles = tiles(s_len, window)
     out = torch.empty((b, hkv, rep, d), dtype=torch.bfloat16, device=dev)
+    kps, part_acc, part_ml = _partials(q_hm, s_len, splits)
     lib, _ = _build.library()
     rc = lib.flash_decode_launch(
         q_hm.data_ptr(), k_c.data_ptr(), v_c.data_ptr(),
         ks_c.data_ptr() if quant else None, vs_c.data_ptr() if quant else None,
-        lengths.data_ptr(), out.data_ptr(), b, hkv, s_len, d, rep, int(quant),
-        0 if window is None else int(window), ts, n_tiles, float(scale), _build.stream_ptr(dev),
+        lengths.data_ptr(), out.data_ptr(), _ptr(part_acc), _ptr(part_ml), b, hkv, s_len, d, rep,
+        int(quant), 0 if window is None else int(window), ts, n_tiles, kps, float(scale),
+        _build.stream_ptr(dev),
     )
     _build.check(rc, "flash_decode")
     _build.KERNELS["flash_decode"].launches += 1

@@ -1,7 +1,9 @@
 """Kx8 gather-dequant prefill GEMM over the tiled codes layout.
 
 PyTorch counterpart of ``aqlm_tpu.ops.gather_prefill``. On a CUDA tensor
-every matmul entry point launches kernel K2 (``csrc/gather_prefill.cu``), and
+every matmul entry point launches kernel K2 (``csrc/gather_prefill.cu``,
+laid out by the pure ``plan``; ``moe_launch`` runs all experts of a
+stacked projection in one launch), and
 ``gather_dequant_wt`` (the dense W^T of the codes-mode backward) launches
 B5 (``csrc/gather_dequant_wt.cu``); on a CPU tensor each runs its plain
 version. Numerics follow the TPU kernels: the codebook vectors are summed in
@@ -11,12 +13,15 @@ apply in the epilogue (for B5: times the f32 sum, then one rounding).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from aqlm_tpu_torch.ops import _build
 from aqlm_tpu_torch.ops.lut_gemv import dequant_tiled_t, proj_map_for
 
 __all__ = [
+    "SMEM_LIMIT", "Plan", "plan", "smem_bytes",
     "gather_prefill_matmul",
     "gather_prefill_matmul_indexed",
     "gather_prefill_matmul_grouped_indexed",
@@ -24,7 +29,79 @@ __all__ = [
 ]
 
 _KERNEL_GROUP = 8
-_KERNEL_BK = 64  # input-slab width of the kernel
+_BN, _BK = 128, 64  # output columns of a block, input-slab width of the kernel
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
+_STAGES = (4, 3)  # ring depths tried, deepest first
+# the planner's time model of one block-slab (us, at BM 256 / 128) and of the
+# split path's partial sums (written and read once, at the card's memory rate)
+_SLAB_US = {256: 0.55, 128: 0.35}
+_BYTES_PER_US = 3.35e6
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One K2 launch: rows a block (``bm``), ring stages, blocks along the
+    input dimension (``splits`` of ``per_split`` 64-wide slabs), the grid
+    (column tiles, row tiles, experts x splits) and the dynamic shared
+    memory, which the kernel checks against its own layout."""
+
+    bm: int
+    stages: int
+    splits: int
+    per_split: int
+    grid: tuple
+    smem: int
+
+    @property
+    def partials_shape(self):
+        return None if self.splits == 1 else (self.grid[2], self.grid[1] * self.bm,
+                                              self.grid[0] * _BN)
+
+
+def smem_bytes(bm: int, K: int, S: int, stages: int) -> int:
+    """K2's dynamic shared memory (the kernel's ``Layout``): the activation
+    and code slabs of every stage, two W^T tiles, the codebooks, the stage
+    barriers, the split path's flag, and 1024 bytes to align the
+    128B-swizzled activation tiles."""
+    x_and_codes = stages * (bm * _BK * 2 + (_BK // _KERNEL_GROUP) * K * _BN)
+    return x_and_codes + 2 * _BK * _BN * 2 + K * S * 16 + (2 * stages + 4) * 8 + 16 + 1024
+
+
+def plan(T: int, out_features: int, in_features: int, K: int, S: int, experts: int = 1,
+         out_dtype=torch.bfloat16, sm_count: int = 132) -> Plan:
+    """Tiles, stages, splits, grid and shared memory of one K2 launch, a pure
+    function of the shapes. 256 rows a block past 128 rows (each weight is
+    dequantised ceil(T / 256) times), else 128; the deepest ring that fits in
+    SMEM_LIMIT; the input dimension split over blocks only where the time
+    model (waves of one block per SM x slabs a block, plus the partial sums'
+    bytes) says it pays, as for short prompts and narrow projections."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gather_prefill kernel writes bf16 or f32, got {out_dtype}")
+    if T < 1 or experts < 1 or out_features % _BN or in_features % _BK or not 1 <= K <= 8 \
+            or not 1 <= S <= 256:
+        raise ValueError(f"gather_prefill kernel: no plan for T={T} OUT={out_features} "
+                         f"IN={in_features} K={K} S={S} E={experts}")
+    bm = 128 if T <= 128 else 256
+    col_tiles, row_tiles, n_slabs = out_features // _BN, -(-T // bm), in_features // _BK
+    stages = next((st for st in _STAGES if smem_bytes(bm, K, S, st) <= SMEM_LIMIT), None)
+    if stages is None:
+        raise ValueError(f"gather_prefill kernel: K={K} S={S} needs "
+                         f"{smem_bytes(bm, K, S, _STAGES[-1])} bytes of shared memory, "
+                         f"more than {SMEM_LIMIT}")
+    tiles = col_tiles * row_tiles * experts
+
+    def cost(s):
+        waves = -(-tiles * s // sm_count)
+        part = 0 if s == 1 else 8 * s * row_tiles * bm * out_features * experts / _BYTES_PER_US
+        return waves * -(-n_slabs // s) * _SLAB_US[bm] + part
+
+    splits = 1
+    if tiles < sm_count:
+        splits = min(range(1, max(1, min(16, n_slabs // 4)) + 1), key=cost)
+    per_split = -(-n_slabs // splits)
+    splits = -(-n_slabs // per_split)  # no empty split
+    return Plan(bm, stages, splits, per_split, (col_tiles, row_tiles, experts * splits),
+                smem_bytes(bm, K, S, stages))
 
 
 def plain(xb, codes_tl, codebooks, scales, proj_map, out_dtype=None):
@@ -34,65 +111,76 @@ def plain(xb, codes_tl, codebooks, scales, proj_map, out_dtype=None):
     return y.to(out_dtype or xb.dtype)
 
 
-def launch(xb, codes_tl, codebooks, scales, proj_map, group, out_dtype=torch.bfloat16, out=None,
-           counter="gather_prefill"):
-    """K2 on one layer's arrays: xb [T, IN] bf16; codes_tl [NT, K*IG, tn]
-    uint8; codebooks [P, K, S, 8] bf16; scales [OUT] f32; proj_map or None.
-    The output is bf16 or f32 (``out_dtype``), written into ``out`` when
-    given; the launch counts on ``counter``'s kernel."""
-    nt, kig, tn = codes_tl.shape
-    P, K, S, g = codebooks.shape
-    T, in_features = xb.shape
-    dev = xb.device
+def _launch(x, codes_e, cb_e, scales_e, proj_map, group, out_dtype, counter):
+    """K2 over E experts in one launch: x [T, IN] shared or [E, T, IN] one
+    per expert, bf16; codes_e [E, NT, K*IG, tn] uint8; cb_e [E, P, K, S, 8]
+    bf16; scales_e [E, OUT] f32; proj_map [NT] int32 or None. Returns
+    [E, T, OUT] in ``out_dtype``."""
+    E, nt, kig, tn = codes_e.shape
+    _, P, K, S, g = cb_e.shape
+    T, in_features = x.shape[-2:]
+    dev = x.device
     if group != _KERNEL_GROUP or g != _KERNEL_GROUP:
         raise NotImplementedError(f"gather_prefill kernel takes in_group_size 8, got {group}")
-    if xb.dtype != torch.bfloat16 or out_dtype not in (torch.bfloat16, torch.float32):
+    if x.dtype != torch.bfloat16 or out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"gather_prefill kernel takes bf16 activations and a bf16 or f32 output, "
-                         f"got {xb.dtype} -> {out_dtype}")
-    if codes_tl.dtype != torch.uint8 or codebooks.dtype != torch.bfloat16 or scales.dtype != torch.float32:
+                         f"got {x.dtype} -> {out_dtype}")
+    if codes_e.dtype != torch.uint8 or cb_e.dtype != torch.bfloat16 or scales_e.dtype != torch.float32:
         raise ValueError("gather_prefill kernel takes uint8 codes, bf16 codebooks and f32 scales")
     if (K > 8 or S > 256 or kig % K or in_features != kig // K * g
-            or in_features % _KERNEL_BK or tn % 128):
-        raise ValueError(f"gather_prefill kernel: bad shapes x {tuple(xb.shape)} codes "
-                         f"{tuple(codes_tl.shape)} codebooks {tuple(codebooks.shape)}")
-    if scales.shape != (nt * tn,):
-        raise ValueError(f"scales {tuple(scales.shape)} do not match OUT={nt * tn}")
+            or in_features % _BK or tn % _BN or cb_e.shape[0] != E
+            or (x.dim() == 3 and x.shape[0] != E) or x.dim() not in (2, 3)):
+        raise ValueError(f"gather_prefill kernel: bad shapes x {tuple(x.shape)} codes "
+                         f"{tuple(codes_e.shape)} codebooks {tuple(cb_e.shape)}")
+    if scales_e.shape != (E, nt * tn):
+        raise ValueError(f"scales {tuple(scales_e.shape)} do not match OUT={nt * tn}")
     if proj_map is not None and (proj_map.dtype != torch.int32 or proj_map.shape != (nt,)):
         raise ValueError("proj_map must be int32 [NT]")
-    for t in (xb, codes_tl, codebooks, scales) + (() if proj_map is None else (proj_map,)):
+    for t in (x, codes_e, cb_e, scales_e) + (() if proj_map is None else (proj_map,)):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("gather_prefill kernel operands must be contiguous on one CUDA device")
     if P > 1 and proj_map is None:
         raise ValueError("grouped codebooks need a proj_map")
-    if codes_tl.data_ptr() % 16 or xb.data_ptr() % 16:
+    if codes_e.data_ptr() % 16 or x.data_ptr() % 16:
         raise ValueError("gather_prefill kernel needs 16-byte aligned codes and activations")
-    if out is None:
-        out = torch.empty((T, nt * tn), dtype=out_dtype, device=dev)
-    elif (out.shape != (T, nt * tn) or out.dtype != out_dtype or out.device != dev
-          or not out.is_contiguous()):
-        raise ValueError("gather_prefill kernel: bad output buffer")
+    out = torch.empty((E, T, nt * tn), dtype=out_dtype, device=dev)
     if T == 0:
         return out
-    # split the input dimension over blocks when the output tiles alone
-    # would not fill the card twice; the blocks' partial sums meet in `partials`
-    tiles, row_tiles, n_slabs = nt * tn // 128, -(-T // 128), in_features // _KERNEL_BK
-    splits = max(1, min(-(-2 * _build.sm_count(dev.index) // (tiles * row_tiles)), n_slabs // 4))
-    splits = -(-n_slabs // -(-n_slabs // splits))  # no empty split
+    p = plan(T, nt * tn, in_features, K, S, E, out_dtype, _build.sm_count(dev.index))
     partials = tickets = None
-    if splits > 1:
-        partials = torch.empty((splits, row_tiles * 128, nt * tn), dtype=torch.float32, device=dev)
-        tickets = torch.zeros(row_tiles * tiles, dtype=torch.int32, device=dev)
+    if p.splits > 1:
+        partials = torch.empty(p.partials_shape, dtype=torch.float32, device=dev)
+        tickets = torch.zeros((E, p.grid[1], p.grid[0]), dtype=torch.int32, device=dev)
     lib, _ = _build.library()
     rc = lib.gather_prefill_launch(
-        xb.data_ptr(), codes_tl.data_ptr(), codebooks.data_ptr(), scales.data_ptr(),
+        x.data_ptr(), codes_e.data_ptr(), cb_e.data_ptr(), scales_e.data_ptr(),
         None if proj_map is None else proj_map.data_ptr(), out.data_ptr(),
         None if partials is None else partials.data_ptr(),
         None if tickets is None else tickets.data_ptr(), int(out_dtype == torch.bfloat16),
-        T, splits, nt, kig, tn, K, S, in_features, _build.stream_ptr(dev),
+        p.bm, p.stages, p.smem, T, p.splits, p.per_split, E, nt, kig, tn, K, S, in_features,
+        int(x.dim() == 3), nt * kig * tn, P * K * S * g,
+        _build.stream_ptr(dev),
     )
     _build.check(rc, "gather_prefill")
     _build.KERNELS[counter].launches += 1
     return out
+
+
+def launch(xb, codes_tl, codebooks, scales, proj_map, group, out_dtype=torch.bfloat16):
+    """K2 on one layer's arrays: xb [T, IN] bf16; codes_tl [NT, K*IG, tn]
+    uint8; codebooks [P, K, S, 8] bf16; scales [OUT] f32; proj_map or None.
+    Returns [T, OUT] in ``out_dtype`` (bf16 or f32)."""
+    return _launch(xb, codes_tl[None], codebooks[None], scales[None], proj_map, group, out_dtype,
+                   "gather_prefill")[0]
+
+
+def moe_launch(x, codes_tl_e, codebooks_e, scales_e, group):
+    """K2's f32 instance over every expert in one launch: x [N, IN] shared
+    or [E, N, IN] one per expert, bf16; codes_tl_e [E, NT, K*IG, tn] uint8;
+    codebooks_e [E, K, S, 8] bf16; scales_e [E, OUT] f32. Returns f32
+    [E, N, OUT]; counts on ``moe_gather_prefill``."""
+    return _launch(x, codes_tl_e, codebooks_e[:, None], scales_e, None, group, torch.float32,
+                   "moe_gather_prefill")
 
 
 def _matmul(xb, codes_tl, codebooks, scales, proj_map, group):

@@ -23,6 +23,9 @@ calibration path and every reference-mode matmul on the card):
   weight gradient's groups by code, S <= ``CB_GRAD_MAX_SEGMENTS``, in the
   same source.
 
+and B16 ``gather_wraps``, the lane-gather wrap probe (``csrc/gather_wraps.cu``),
+which no kernel of the port consults.
+
 Each has a plain version beside it, which a CPU tensor runs.
 """
 
@@ -30,11 +33,12 @@ from __future__ import annotations
 
 import torch
 
+from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.ops import _build
 
 __all__ = ["ONEHOT_GEMV_MAX_ROWS", "CB_GRAD_MAX_SEGMENTS", "fused_onehot_matmul",
            "fused_onehot_matmul_indexed", "dequantize_groups", "dequantize_onehot",
-           "cb_grad_segment"]
+           "cb_grad_segment", "gather_wraps"]
 
 ONEHOT_GEMV_MAX_ROWS = 8  # the GEMV form's largest row count; more rows take the GEMM form
 _KERNEL_GROUP = 8  # in_group_size the CUDA kernel is written for
@@ -297,3 +301,67 @@ def cb_grad_segment(codes, data, num_segments: int, *, precise: bool = True):
         return cb_grad_launch(codes.contiguous(), data.float().contiguous(), num_segments,
                               precise=precise)
     raise ValueError(f"unsupported device {codes.device}")
+
+
+# ---------------------------------------------------------------------------
+# B16: does a gather across the 128 lanes take an index past 127 modulo 128?
+# ---------------------------------------------------------------------------
+
+_GATHER_WRAPS: dict = {}  # device type -> the probe's answer
+
+
+def wrap_probe_inputs(device):
+    """The probe's (8, 128) f32 table (each row 0..127) and indices 128..255."""
+    lanes = torch.arange(128, device=device)
+    tab = lanes.to(torch.float32).expand(8, 128).contiguous()
+    idx = (lanes + 128).to(torch.int32).expand(8, 128).contiguous()
+    return tab, idx
+
+
+def gather_wraps_plain(tab, idx):
+    """B16's plain version: the gather at ``idx % 128`` (a wrapping gather)."""
+    return torch.take_along_dim(tab, (idx % 128).long(), dim=1)
+
+
+def gather_wraps_launch(tab, idx):
+    """B16 on the card: ``tab`` [rows, 128] f32 gathered along its lanes at
+    ``idx`` [rows, 128] int32 by warp shuffles; rows <= 32."""
+    rows = tab.shape[0]
+    if tab.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise ValueError("gather_wraps kernel takes an f32 table and int32 indices")
+    if tab.shape != (rows, 128) or idx.shape != tab.shape or not 1 <= rows <= 32:
+        raise ValueError(f"gather_wraps kernel takes [rows <= 32, 128], got {tuple(tab.shape)} "
+                         f"and {tuple(idx.shape)}")
+    for t in (tab, idx):
+        if t.device != tab.device or not t.is_contiguous():
+            raise ValueError("gather_wraps kernel operands must be contiguous on one CUDA device")
+    out = torch.empty_like(tab)
+    lib, _ = _build.library()
+    rc = lib.gather_wraps_launch(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), rows,
+                                 _build.stream_ptr(tab.device))
+    _build.check(rc, "gather_wraps")
+    _build.KERNELS["gather_wraps"].launches += 1
+    return out
+
+
+def gather_wraps(device=None) -> bool:
+    """Whether a gather across lanes takes an out-of-range lane index modulo
+    128, as ``aqlm_tpu.ops.kernels.gather_wraps`` asks of the TPU: the probe's
+    gather of the (8, 128) table at indices 128..255 equals the table. On
+    the card B16 runs it by warp shuffles; on the CPU the answer is False,
+    as JAX's interpret mode (which clamps) gives. ``AQLM_GATHER_WRAP=0/1``
+    overrides the probe. One answer per device type, kept for the process.
+    No kernel of the port consults it."""
+    import os
+
+    dev = resolve_device(device)
+    if dev.type not in _GATHER_WRAPS:
+        env = os.environ.get("AQLM_GATHER_WRAP")
+        if env is not None:
+            _GATHER_WRAPS[dev.type] = env not in ("0", "false", "")
+        elif dev.type == "cpu":
+            _GATHER_WRAPS[dev.type] = False
+        else:
+            tab, idx = wrap_probe_inputs(dev)
+            _GATHER_WRAPS[dev.type] = bool(torch.equal(gather_wraps_launch(tab, idx), tab))
+    return _GATHER_WRAPS[dev.type]

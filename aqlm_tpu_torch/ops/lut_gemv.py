@@ -11,8 +11,9 @@ rows ig-major (row = ig*K + k), NT = OUT / tn.
 
 The all-expert forms ``lut_moe_gemv_kx8`` and ``lut_moe_gemv_kx8_indexed``
 run every expert of a Mixtral projection at once and return f32: up to 8
-rows in one launch of K1's MoE instance (an expert grid axis), more rows as
-one launch of K2's f32 instance per expert (``gather_prefill``).
+rows in one launch of K1's MoE instance (an expert grid axis), more rows in
+one launch of K2's f32 instance (``gather_prefill``, also an expert grid
+axis).
 """
 
 from __future__ import annotations
@@ -287,20 +288,15 @@ def moe_launch(x, codes_tl_e, codebooks_e, scales_e, group):
 
 
 def moe_prefill_launch(x, codes_tl_e, codebooks_e, scales_e, group):
-    """More than 8 rows: K2's f32 instance once per expert, each writing its
-    expert's slice of the f32 [E, N, OUT] output (x bf16, shared or per
-    expert). K2 rounds each dequantized weight to bf16 before the product;
-    the plain version (``moe_plain``) keeps it in f32."""
+    """More than 8 rows: K2's f32 instance over every expert in one launch
+    (its expert grid axis), each expert writing its slice of the f32
+    [E, N, OUT] output (x bf16, shared or per expert). K2 rounds each
+    dequantized weight to bf16 before the product; the plain version
+    (``moe_plain``) keeps it in f32."""
     from aqlm_tpu_torch.ops import gather_prefill
 
     _moe_check(x, codes_tl_e, codebooks_e, scales_e, group)
-    E, nt, _, tn = codes_tl_e.shape
-    out = torch.empty((E, x.shape[-2], nt * tn), dtype=torch.float32, device=x.device)
-    for e in range(E):
-        gather_prefill.launch(x[e] if x.dim() == 3 else x, codes_tl_e[e], codebooks_e[e][None],
-                              scales_e[e], None, group, out_dtype=torch.float32, out=out[e],
-                              counter="moe_gather_prefill")
-    return out
+    return gather_prefill.moe_launch(x, codes_tl_e, codebooks_e, scales_e, group)
 
 
 def lut_moe_gemv_kx8(x, codes_tl_e, codebooks_e, scales_e, *, group: int):

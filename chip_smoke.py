@@ -19,9 +19,10 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    projections, each MoE kernel at both for Mixtral-8x7B's gate/up, shared
    x, and down, per-expert x, B15 at both for Falcon-7B's q, k, v, o and
    fc2, K3 at Llama-2-7B's 32 kv heads and at Falcon-7B's 71 query heads
-   over one, the all-expert codes matmul at Mixtral-8x7B's gate/up and down
-   (K1's MoE instance at the decode rows, K2's f32 instance once per expert
-   at the prefill rows), the 1x16 GEMV and GEMM at Llama-2-7B's q, gate
+   over one (split-KV there, its split count recorded), the all-expert codes
+   matmul at Mixtral-8x7B's gate/up and down (K1's MoE instance at the
+   decode rows, K2's f32 instance over all experts in one launch at the
+   prefill rows), the 1x16 GEMV and GEMM at Llama-2-7B's q, gate
    and down at g=8 and q at g=16, B13 at Llama-2-7B's q, gate and down in
    2x8 (precise: bit-identical; bf16 selection: one bf16 step), B14 at
    the groups of q and gate (within 1e-5 of each segment's sum of |data| of
@@ -33,7 +34,8 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    with and without a window of 256, and its unindexed form once (one bf16
    step, the cache unchanged), and B8 (``kv_write``) into the int8_short
    run's cache [32, 4, 32, 2048, 128], the one-array write of a bf16 cache
-   and the four-array write of the int8 one (bit-identical)), with its
+   and the four-array write of the int8 one (bit-identical)), and B16
+   (``gather_wraps``, the lane-gather wrap probe: bit-identical), with its
    time, the plain version's time, the least
    time the card could take (bound) and, where one PyTorch call computes
    the same function, its time (for a MoE kernel with per-expert x, where
@@ -59,8 +61,9 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    each run; each run must launch the kernels of its own path and none of
    the others' (B13 and B14 included), an int8 or int4 Mixtral run its MoE
    kernel 3 times per layer per forward, the codes Mixtral K1's MoE
-   instance 3 times per layer per decode forward and K2's f32 instance 3 x 8
-   times per layer per prefill forward, the Falcon run B15 5 times per K1/K2
+   instance 3 times per layer per decode forward and K2's f32 instance 3
+   times per layer per prefill forward (all experts in one launch), the
+   Falcon run B15 5 times per K1/K2
    launch (q/k/v/o/fc2 against fc1), and the 1x16 run its GEMV 7 times per
    layer per decode forward and its GEMM a multiple of 7 x 32 times;
    then ``int8_short``: Llama-2-7B in int8 (int8 lm_head) at max_len 512,
@@ -569,7 +572,7 @@ def check_moe_codes(gen, dev, failures):
     """The all-expert codes matmul at Mixtral-8x7B's gate/up (shared x) and
     down (per-expert x): K1's MoE instance at the decode rows, one bf16 step
     from its plain version (the f32-weight function aqlm_tpu computes); K2's
-    f32 instance, once per expert, at the prefill rows, one bf16 step from
+    f32 instance, all experts in one launch, at the prefill rows, one bf16 step from
     K2's plain version with an f32 output (the weight rounded to bf16, as K2
     rounds it), and also held against the f32-weight function within the
     weight's rounding bound 2^-8 * (|x| @ |W|^T) * scale + 1e-3 max|plain|
@@ -924,6 +927,16 @@ def _sdpa_ms(q_hm, k_c, v_c, lengths, window, S, L, dev):
 K3_SHAPES = [("llama2_7b", 32, 1, 128), ("falcon_7b", 1, 71, 64)]
 
 
+def _split(fd, B, H, rep, S) -> dict:
+    """The split-KV kernel's keys per split and split count at a shape (none
+    for the single-block kernels)."""
+    if rep in fd.SINGLE_BLOCK_REPS:
+        return {"splits": None}
+    kps, splits = fd.split_plan(B, H, rep, S, sm_count=torch.cuda.get_device_properties(0)
+                                .multi_processor_count)
+    return {"splits": splits, "keys_per_split": kps}
+
+
 def check_k3(gen, dev, failures):
     from aqlm_tpu_torch.ops import flash_decode as fd
 
@@ -971,7 +984,8 @@ def check_k3(gen, dev, failures):
         library_ms = None if quant else _sdpa_ms(q_hm, kv[0], kv[1], offsets + 1, window, S, L, dev)
         rec = {"phase": "check", "kernel": "flash_decode_write", "model": model,
                "kv": "int8" if quant else "bf16", "window": window, "B": B, "Hkv": H, "rep": rep,
-               "D": D, "max_len": S, "offsets": offsets.tolist(), **cmp, "ms": ms,
+               "D": D, "max_len": S, "offsets": offsets.tolist(), **_split(fd, B, H, rep, S),
+               **cmp, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
                "host_ms": host_ms(run)}
         emit(rec)
@@ -1034,7 +1048,8 @@ def check_b6(gen, dev, failures):
         rec = {"phase": "check", "kernel": "flash_decode", "model": model,
                "form": "indexed" if indexed else "unindexed",
                "kv": "int8" if quant else "bf16", "window": window, "B": B, "Hkv": H, "rep": rep,
-               "D": D, "max_len": S, "lengths": lengths.tolist(), **cmp, "ms": ms,
+               "D": D, "max_len": S, "lengths": lengths.tolist(), **_split(fd, B, H, rep, S),
+               **cmp, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
                "library": "scaled_dot_product_attention over the bf16 twin",
                "host_ms": host_ms(run)}
@@ -1105,6 +1120,35 @@ def check_b8(gen, dev, failures):
         del caches, ref
         torch.cuda.empty_cache()
     return reps
+
+
+def check_b16(gen, dev, failures):
+    """B16 (``gather_wraps``): the probe's gather of the (8, 128) f32 table at
+    indices 128..255 by warp shuffles, and a random table at random indices
+    0..255, against the plain gather at idx % 128 (bit-identical); the probe
+    itself must answer True on the card. No one PyTorch call gathers at
+    indices past the table: no library time."""
+    from aqlm_tpu_torch.ops import kernels as k
+
+    tab, idx = k.wrap_probe_inputs(dev)
+    rand = torch.randn((8, 128), generator=gen, device=dev)
+    ridx = torch.randint(0, 256, (8, 128), generator=gen, device=dev, dtype=torch.int32)
+    exact = (torch.equal(k.gather_wraps_launch(tab, idx), k.gather_wraps_plain(tab, idx))
+             and torch.equal(k.gather_wraps_launch(rand, ridx), k.gather_wraps_plain(rand, ridx)))
+    k._GATHER_WRAPS.pop("cuda", None)
+    wraps = k.gather_wraps(dev)
+    run = lambda i=0: k.gather_wraps_launch(tab, idx)
+    b_ms, b_by = bound(3 * 8 * 128 * 4, 0)
+    rec = {"phase": "check", "kernel": "gather_wraps", "rows": 8, "lanes": 128,
+           "max_abs_err": float((run(0) - k.gather_wraps_plain(tab, idx)).abs().max()),
+           "tol": "bit-identical", "gather_wraps": wraps, "ok": exact and wraps,
+           "ms": time_ms(run, 50), "plain_ms": time_ms(lambda i=0: k.gather_wraps_plain(tab, idx), 50),
+           "bound_ms": b_ms, "bound_by": b_by, "library": "none", "library_ms": None,
+           "host_ms": host_ms(run)}
+    emit(rec)
+    if not rec["ok"]:
+        failures.append(rec)
+    return {"gather_wraps": rec}
 
 
 # ---------------------------------------------------------------------------
@@ -1334,14 +1378,13 @@ def engine_run(dev, run):
     if run == "mixtral_codes":
         # decode: qkv and o per layer on K1, gate, up and down on K1's MoE
         # instance; prefill: qkv and o on K2, gate, up and down on K2's f32
-        # instance once per expert
+        # instance, all experts in one launch
         per_forward = {"decode_forwards": decode_forwards, "prefill_forwards": prefill_forwards,
                        "moe_k1_per_decode_forward": launches["lut_moe_gemv"] / decode_forwards,
                        "moe_k2_per_prefill_forward":
                            launches["moe_gather_prefill"] / prefill_forwards}
         ran = (ran and per_forward["moe_k1_per_decode_forward"] == 3 * cfg.num_layers
-               and per_forward["moe_k2_per_prefill_forward"]
-               == 3 * cfg.num_experts * cfg.num_layers
+               and per_forward["moe_k2_per_prefill_forward"] == 3 * cfg.num_layers
                and launches["lut_gemv"] == 2 * cfg.num_layers * decode_forwards
                and launches["gather_prefill"] == 2 * cfg.num_layers * prefill_forwards)
     elif run == "codes_1x16":
@@ -1905,6 +1948,7 @@ def main() -> int:
         reps.update(check_k3(gen, dev, failures))
         reps.update(check_b6(gen, dev, failures))
         reps.update(check_b8(gen, dev, failures))
+        reps.update(check_b16(gen, dev, failures))
         reps.update(check_int8(gen, dev, failures))
         reps.update(check_int4(gen, dev, failures))
         reps.update(check_int8_moe(gen, dev, failures))
@@ -1987,7 +2031,7 @@ def main() -> int:
         r = reps[name]
         by_run = {run: rec["launches"][name] for run, rec in runs.items()
                   if name in PATH_KERNELS[run]}
-        # B6 is on no path (nor is it in aqlm_tpu's engine): phase 2 alone launches it
+        # B6 and B16 are on no path (nor in aqlm_tpu's engine): phase 2 alone launches them
         aside = {} if by_run else {"launches_note": "on no path: launched by phase 2's checks only"}
         kernels.append({"name": name, "route": "cuda", "source": info.source,
                         "replaces": info.replaces, "also_replaces": list(info.also_replaces),
@@ -1997,7 +2041,7 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": {k: r[k] for k in r if k in (
                             "proj", "experts", "rows", "kv", "window", "B", "max_len", "groups",
-                            "form", "cache", "lengths",
+                            "form", "cache", "lengths", "splits", "keys_per_split", "lanes",
                             "out_features", "in_features", "precise")}})
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"records": RECORDS, "kernels": kernels}, f, indent=1)

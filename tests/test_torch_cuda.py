@@ -553,9 +553,10 @@ def test_onehot_matmul_wrapper_raises(dev):
 @pytest.mark.parametrize("quantized", [True, False])
 @pytest.mark.parametrize("rep,d", [(3, 128), (6, 64), (71, 64)])
 def test_flash_decode_kernel_chunked_heads_match_plain(dev, rep, d, quantized, window):
-    """Query heads per kv head outside 1/2/4/8 run in chunks of 8 (71: nine,
-    the last one 7 wide), each block taking the new row in register and chunk
-    0 writing it: the output and the written cache match the plain version."""
+    """Query heads per kv head outside 1/2/4/8 run split-KV on the tensor
+    cores (71: five 16-head mma tiles, the last one 7 wide), every block
+    taking the new row from k_new/v_new and the split holding it writing it:
+    the output and the written cache match the plain version."""
     gen = torch.Generator(device=dev).manual_seed(rep)
     L, B, H, S = 2, 4, 1 if rep == 71 else 2, 2048
     offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)
@@ -657,10 +658,11 @@ def test_lut_moe_gemv_kernel_is_deterministic(dev):
 @pytest.mark.parametrize("rows", [9, 64, 200])
 @pytest.mark.parametrize("shape", MOE_CODES_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_moe_gather_prefill_kernel_matches_plain(dev, shape, rows, per_expert):
-    """Past 8 rows: K2's f32 instance once per expert, against K2's plain
-    version with an f32 output, and against the f32-weight function (the
-    plain version on the CPU) within the bf16 weight's rounding bound
-    2^-8 * (|x| @ |W|^T) * scale + 1e-3 max|plain|."""
+    """Past 8 rows: K2's f32 instance over every expert in one launch (its
+    expert grid axis), against K2's plain version with an f32 output, and
+    against the f32-weight function (the plain version on the CPU) within the
+    bf16 weight's rounding bound 2^-8 * (|x| @ |W|^T) * scale + 1e-3
+    max|plain|."""
     E, out_f, in_f = shape
     gen = torch.Generator(device=dev).manual_seed(rows)
     codes, cb, scales = _moe_codes(gen, dev, E, out_f, in_f)
@@ -668,7 +670,7 @@ def test_moe_gather_prefill_kernel_matches_plain(dev, shape, rows, per_expert):
                     device=dev).to(torch.bfloat16)
     before = _build.KERNELS["moe_gather_prefill"].launches
     got = lg.lut_moe_gemv_kx8_indexed(x, codes, cb, scales, 1, group=8)
-    assert _build.KERNELS["moe_gather_prefill"].launches == before + E
+    assert _build.KERNELS["moe_gather_prefill"].launches == before + 1
     assert got.shape == (E, rows, out_f) and got.dtype == torch.float32
     want = torch.stack([gp.plain(x[e] if per_expert else x, codes[1, e], cb[1, e][None],
                                  scales[1, e], None, torch.float32) for e in range(E)])
@@ -760,8 +762,9 @@ def test_gather16_wrapper_raises(dev):
 
 def test_mixtral_codes_engine_on_the_card_launches_its_kernels(dev):
     """Caller-stacked 2x8 codes experts: K1's MoE instance 3 times per layer
-    per decode forward, K2's f32 instance 3 x E times per layer per prefill
-    forward, K1/K2 on the fused attention, K3; nothing else."""
+    per decode forward, K2's f32 instance (all experts in one launch) 3 times
+    per layer per prefill forward, K1/K2 on the fused attention, K3; nothing
+    else."""
     cfg = mixtral.MixtralConfig.tiny_moe(num_layers=2, hidden_size=256, intermediate_size=512,
                                          num_heads=4, num_kv_heads=2, num_experts=3)
     params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg, SCHEME_2X8)
@@ -777,7 +780,7 @@ def test_mixtral_codes_engine_on_the_card_launches_its_kernels(dev):
     decode, prefill = n["flash_decode_write"] // L, n["gather_prefill"] // (2 * L)
     assert decode > 0 and prefill > 0
     assert n["lut_moe_gemv"] == 3 * L * decode and n["lut_gemv"] == 2 * L * decode
-    assert n["moe_gather_prefill"] == 3 * cfg.num_experts * L * prefill
+    assert n["moe_gather_prefill"] == 3 * L * prefill
     mine = CODES_KERNELS + ("lut_moe_gemv", "moe_gather_prefill")
     assert all(v == 0 for name, v in n.items() if name not in mine)
 
@@ -1248,3 +1251,77 @@ def test_int8_engine_decode_chunk_on_the_card(dev):
     assert outs[0] == outs[1]
     assert syncs and all(s == 0 for s in syncs), syncs
     assert _count_syncs(lambda: torch.ones(1, device=dev).sum().item())[1] >= 1
+
+
+# --------------------------------------------------------------------------- redesigned K2 and K3
+
+
+@pytest.mark.parametrize("rows", [9, 64, 77, 200, 300, 1024])
+@pytest.mark.parametrize("sizes,in_f", [((512,), 4096), ((256, 128, 128), 1024), ((128,), 11008)])
+def test_gather_prefill_kernel_over_its_plans(dev, sizes, in_f, rows):
+    """K2 at row counts that take both block heights (128, 256) and, for the
+    narrow projections, the split input dimension: one launch, within one
+    bf16 step of the plain version, and deterministic."""
+    gen = torch.Generator(device=dev).manual_seed(rows + in_f)
+    codes, cb, scales = _codes(gen, dev, sizes, in_f)
+    x = torch.randn((rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+    p = gp.plan(rows, sum(sizes), in_f, 2, 256, 1, torch.bfloat16, _build.sm_count(dev.index))
+    before = _build.KERNELS["gather_prefill"].launches
+    got = gp.gather_prefill_matmul_grouped_indexed(x, codes, cb, scales, sizes, 1, group=8)
+    assert _build.KERNELS["gather_prefill"].launches == before + 1
+    pm = lg.proj_map_for(sizes, codes.shape[-1], dev)
+    _close(got, gp.plain(x, codes[1], cb[1], scales[1], pm))
+    again = gp.gather_prefill_matmul_grouped_indexed(x, codes, cb, scales, sizes, 1, group=8)
+    assert torch.equal(got, again), p
+
+
+@pytest.mark.parametrize("splits", [1, 3, 16, 32])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("rep,d", [(71, 64), (6, 128)])
+def test_flash_decode_split_count_sweep(dev, rep, d, quantized, splits):
+    """The split-KV kernels at a forced split count: K3 (offsets 0/511/512/
+    1999, window none and 256) and B6 (lengths 0/1/512/2048: length 0 is the
+    mean of V over the visited tiles, however the keys are split) against
+    their plain versions; the written cache as the plain one."""
+    gen = torch.Generator(device=dev).manual_seed(splits + rep)
+    B, H, S = 4, 1 if rep == 71 else 2, 2048
+    q = torch.randn((B, H, rep, d), generator=gen, device=dev).to(torch.bfloat16)
+    kv, sc = _decode_cache(gen, dev, quantized, 1, B, H, S, d)
+    kv, sc = [t[0] for t in kv], [None if t is None else t[0] for t in sc]
+    scale = d ** -0.5
+    lengths = torch.tensor([0, 1, 512, 2048], dtype=torch.int32, device=dev)
+    for window in (None, 256):
+        got = fd.launch_attend(q, *kv, *sc, lengths, scale, window, splits=splits)
+        _close(got, fd.plain_attend(q, *kv, *sc, lengths, scale, window))
+    offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)
+    if quantized:
+        new = [torch.randint(-127, 128, (B, H, d), generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8) for _ in range(2)]
+        nsc = [torch.rand((B, H), generator=gen, device=dev) / 50 for _ in range(2)]
+    else:
+        new = [torch.randn((B, H, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(2)]
+        nsc = [None, None]
+    for window in (None, 256):
+        ref = [None if t is None else t.clone() for t in kv + sc]
+        got = fd.launch(q, *new, *nsc, *kv, *sc, offsets, scale, window, splits=splits)
+        want = fd.plain(q, *new, *nsc, *ref, offsets, scale, window)
+        _close(got, want)
+        assert all(t is None or torch.equal(t, r) for t, r in zip(kv + sc, ref))
+
+
+def test_gather_wraps_kernel_matches_plain(dev):
+    """B16: the warp-shuffle gather at indices 128..255 against the gather at
+    idx % 128; the probe answers True on the card (shuffles wrap)."""
+    from aqlm_tpu_torch.ops import kernels as k
+
+    tab, idx = k.wrap_probe_inputs(dev)
+    before = _build.KERNELS["gather_wraps"].launches
+    got = k.gather_wraps_launch(tab, idx)
+    assert _build.KERNELS["gather_wraps"].launches == before + 1
+    assert torch.equal(got, k.gather_wraps_plain(tab, idx))
+    tab2 = torch.randn((8, 128), device=dev)
+    idx2 = torch.randint(0, 256, (8, 128), device=dev, dtype=torch.int32)
+    assert torch.equal(k.gather_wraps_launch(tab2, idx2), k.gather_wraps_plain(tab2, idx2))
+    k._GATHER_WRAPS.pop("cuda", None)
+    assert k.gather_wraps() is True
