@@ -215,9 +215,8 @@ def library():
 def _declare(lib) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     # pointers..., ints..., stream (see the extern "C" signatures in csrc/)
-    lib.lut_gemv_launch.argtypes = [P] * 8 + [I] * 10 + [P]
-    lib.lut_moe_gemv_launch.argtypes = [P] * 7 + [I] * 4 + [ctypes.c_longlong] + [I] * 6 + [P]
     L = ctypes.c_longlong
+    lib.lut_gemv_launch.argtypes = [P] * 8 + [I] * 10 + [L] + [I] * 8 + [P]
     lib.gather_prefill_launch.argtypes = [P] * 8 + [I] * 15 + [L, I, P]
     lib.gather16_gemv_launch.argtypes = [P] * 5 + [I] * 5 + [P]
     lib.gather16_gemm_launch.argtypes = [P] * 7 + [I] * 5 + [P]
@@ -228,12 +227,12 @@ def _declare(lib) -> None:
     lib.calib_dequant_launch.argtypes = [P] * 4 + [L] + [I] * 5 + [P]
     lib.cb_grad_launch.argtypes = [P] * 3 + [L] + [I] * 4 + [P]
     lib.gather_dequant_wt_launch.argtypes = [P] * 4 + [I] * 6 + [P]
-    lib.int8_matmul_t_launch.argtypes = [P] * 4 + [I] * 4 + [P]
+    lib.int8_matmul_t_launch.argtypes = [P] * 7 + [I] * 9 + [P]
     lib.flash_decode_launch.argtypes = [P] * 9 + [I] * 10 + [ctypes.c_float, P]
     lib.kv_write_launch.argtypes = [ctypes.POINTER(P), ctypes.POINTER(P), ctypes.POINTER(I), I, P,
                                     I, I, I, P]
     lib.gather_wraps_launch.argtypes = [P] * 3 + [I, P]
-    for fn in (lib.lut_gemv_launch, lib.lut_moe_gemv_launch, lib.gather_prefill_launch,
+    for fn in (lib.lut_gemv_launch, lib.gather_prefill_launch,
                lib.gather16_gemv_launch, lib.gather16_gemm_launch, lib.flash_decode_write_launch,
                lib.int8_matmul_launch, lib.int4_matmul_launch, lib.onehot_matmul_launch,
                lib.calib_dequant_launch, lib.cb_grad_launch, lib.gather_dequant_wt_launch,

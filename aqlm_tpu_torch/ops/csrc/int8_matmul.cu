@@ -66,10 +66,14 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace nvcuda;
+using namespace aqlm;
+
+constexpr int T_SMEM_LIMIT = 232448;  // dynamic shared memory a block may use on an H100
 
 // Four int8 packed in a word -> four exact floats: with u = s + 128 (the sign
 // bit flipped), the float with bits 0x4B0000uu is 2^23 + u.
@@ -509,205 +513,494 @@ int dispatch(const void* x, const void* w8, const void* w_scale, void* out, void
 // backward (B10): dx = bf16(g * w_scale) @ w8
 // ---------------------------------------------------------------------------
 //
-// The contraction runs over OUT, w8's row index, so a [64 x 128] tile of w8
-// (64 output rows, 128 input columns) is read along its rows, contiguous in
-// memory, and widened into shared memory as a row-major B operand, where the
-// forward reads the same bytes as a column-major one. What bounds it: 2*T*OUT*
-// IN_pad operations on the bf16 tensor cores (Llama-2-7B's gate at T = 1024:
-// 92 GFLOP, 0.093 ms at 989 TFLOP/s); w8 is read once per 128-token tile.
+// The contraction runs over OUT, w8's row index; dx has w8's column count
+// (ld = IN_pad). Two paths, laid out by the wrapper's planning function
+// (int8_matmul.plan_t):
 //
-// Design: a 256-thread block owns 128 tokens x 128 input columns and walks
-// OUT in 64-row slabs. The w8 slab arrives by cp.async, double buffered; the
-// gradient slab is loaded into registers one slab ahead (bf16 or f32),
-// multiplied by the scales in f32 and rounded to bf16 as the TPU wrapper
-// rounds it (aqlm_tpu/ops/int8_matmul.py:176), then stored to shared memory.
-// Eight warps run WMMA 16x16x16 bf16 products into f32 fragments (64 x 32
-// each); the epilogue casts to bf16. Ragged T, IN_pad (a multiple of 16) and
-// OUT (of 8) are masked. No split of the contraction: at T = 1024 the output
-// tiles alone fill the card (256 blocks at IN 4096, 704 at 11264).
+// - T <= 8, a column GEMV, bound by bytes: w8 is read once (q 4096 x 4096 at
+//   T = 1: 16.8 MB, 5.0 us at 3.35 TB/s). A block owns CW = 32 * VW columns
+//   of dx and a run of OUT rows (a split). bf16(g * scale) of that run is
+//   staged once in shared memory as f32, rounded as the TPU wrapper rounds
+//   it (aqlm_tpu/ops/int8_matmul.py:176). Each warp walks every eighth
+//   4-row run of OUT: a lane loads VW consecutive bytes of a w8 row (16 at
+//   T <= 4, 8 past it, so that the lane's VW x T sums stay in 64 registers),
+//   neighbouring lanes neighbouring bytes, four rows in flight; the int8 is
+//   widened exactly (the forward GEMV's byte-permute) and multiplied into the
+//   f32 sums. The eight warps' sums meet in shared memory in warp order; the
+//   splits (enough to fill the card twice) meet in the forward GEMV's
+//   fixed-order last-block reduction (an atomic ticket per column block), so
+//   the result does not depend on block timing.
+// - T > 8, a warp-specialised GEMM, bound by operations (2 * T * OUT * ld on
+//   the bf16 tensor cores; gate at T = 1024: 92 GFLOP, 0.093 ms at 989
+//   TFLOP/s), in K2's shape (gather_prefill.cu). First a small kernel writes
+//   bf16(g * scale) [T, OUT] once (the A operand is the same for every column
+//   block: widening it in each, 32 times at IN 4096, left the widening warps
+//   the slowest role). Then 384 threads own a BM x 128 tile of dx (BM 256
+//   past 256 rows, else 128) and walk OUT in 64-row slabs:
+//     - warp 8, the producer, keeps a ring of 2-4 stages of TMA copies in
+//       flight: the A tile [BM x 64 OUT] (128-byte swizzle) and the int8 w8
+//       slab [64 OUT x 128 IN], each on its own mbarrier; rows past T, OUT or
+//       ld arrive as zeros;
+//     - warps 9-11 widen the w8 slab into one of two bf16 W^T buffers,
+//       straight into wgmma's K-major core-matrix layout (exact: |w8| <= 127;
+//       each thread transposes an 8 x 4 byte block, its four 16-byte stores
+//       rotated so that a phase's eight fall on eight bank groups);
+//     - warps 0-7, two consumer warpgroups, run wgmma.mma_async m64n128k16
+//       (A through a 128B-swizzle descriptor, W^T an unswizzled one) with f32
+//       sums, keeping one slab's products in flight while the next slab's
+//       barriers are awaited. Per-stage full/empty barriers replace
+//       block-wide syncs.
+//   Where the output tiles would leave the card idle (T = 200 at IN 4096:
+//   64 tiles), OUT is split over blocks and the f32 partial tiles meet in the
+//   same fixed-order last-block reduction. The epilogue casts to bf16.
 
-constexpr int TBM = 128;          // tokens per block
-constexpr int TBN = 128;          // input columns per block
-constexpr int TBK = 64;           // output rows (the contraction) per slab
-constexpr int TGLD = TBK + 8;     // padded shared row (bf16) of the scaled-gradient slab
-constexpr int TWLD = TBN + 8;     // padded shared row (bf16) of the widened W slab
-constexpr int T_GROUPS = TBM * TBK / 8 / GT;  // 8-wide gradient groups per thread (4)
+constexpr int TV_THREADS = 256;  // GEMV: eight warps
+constexpr int TV_WARPS = TV_THREADS / 32;
+constexpr int TV_UNROLL = 4;     // w8 rows a warp has in flight
 
-struct GemmTSmem {  // byte offsets in the dynamic shared memory
-  size_t g, w8[2], w, epi, total;
-  __host__ __device__ GemmTSmem() {
-    size_t o = 0;
-    g = o;
-    o += (size_t)TBM * TGLD * 2;
-    for (int i = 0; i < 2; ++i) {
-      w8[i] = o;
-      o += (size_t)TBK * TBN;
-    }
-    w = o;
-    o += (size_t)TBK * TWLD * 2;
-    epi = o;
-    o += (size_t)(GT / 32) * 16 * 16 * 4;
-    total = o;
-  }
+template <int T>
+struct GemvT {
+  static constexpr int VW = T <= 4 ? 16 : 8;  // w8 bytes (dx columns) a lane loads from a row
+  static constexpr int CW = 32 * VW;          // dx columns of a block
+  static constexpr int TP = T == 1 ? 1 : T == 2 ? 2 : T <= 4 ? 4 : 8;  // staged g row width
 };
 
-template <typename GT_T>
-__global__ void __launch_bounds__(GT, 2)
-int8_gemm_t_kernel(const GT_T* __restrict__ g,          // [T, OUT]
-                   const int8_t* __restrict__ w8,       // [OUT, ld]
-                   const float* __restrict__ w_scale,   // [OUT]
-                   __nv_bfloat16* __restrict__ out,     // [T, ld]
-                   int T, int out_features, int ld) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const GemmTSmem L;
-  __nv_bfloat16* s_g = reinterpret_cast<__nv_bfloat16*>(smem + L.g);
-  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
+// The GEMV's dynamic shared memory: the staged bf16(g * scale) [rows][TP]
+// f32, then the warps' sums [8][T][CW] f32 (int8_matmul.plan_t computes the same).
+__host__ __device__ inline int gemv_t_smem(int T, int rows) {
+  const int vw = T <= 4 ? 16 : 8, tp = T == 1 ? 1 : T == 2 ? 2 : T <= 4 ? 4 : 8;
+  return rows * tp * 4 + TV_WARPS * T * 32 * vw * 4;
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int col0 = blockIdx.x * TBN;  // first input column (of dx)
-  const int row0 = blockIdx.y * TBM;  // first token
-  const int n_slabs = (out_features + TBK - 1) / TBK;
-  const int c8 = tid % 8;             // the thread's 8-wide column group of a gradient slab
+template <int T>
+__global__ void __launch_bounds__(TV_THREADS, 2)
+int8_gemv_t_kernel(const void* __restrict__ g,           // [T, OUT] bf16, or f32 when g_f32
+                   const int8_t* __restrict__ w8,        // [OUT, ld]
+                   const float* __restrict__ w_scale,    // [OUT]
+                   __nv_bfloat16* __restrict__ out,      // [T, ld]
+                   float* __restrict__ partials,         // [splits, T, ld] when split
+                   int* __restrict__ tickets,            // [column blocks] zeroed, when split
+                   int g_f32, int out_features, int ld, int rows_per_split) {
+  using S = GemvT<T>;
+  constexpr int VW = S::VW, CW = S::CW, TP = S::TP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_g = reinterpret_cast<float*>(smem);     // [rows_per_split][TP]
+  float* s_red = s_g + rows_per_split * TP;        // [TV_WARPS][T][CW]
+  __shared__ int s_last;
 
-  auto load_w = [&](int s, int stage) {
-    const int o0 = s * TBK;
-    int8_t* sw = reinterpret_cast<int8_t*>(smem + L.w8[stage]);
-    for (int i = tid; i < TBK * (TBN / 16); i += GT) {
-      const int r = i / (TBN / 16), c = i % (TBN / 16);
-      const bool valid = o0 + r < out_features && col0 + c * 16 < ld;
-      const int8_t* src = valid ? w8 + (size_t)(o0 + r) * ld + col0 + c * 16 : w8;
-      aqlm::cp_async16(sw + r * TBN + c * 16, src, valid);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int col0 = blockIdx.x * CW;
+  const int o_begin = blockIdx.y * rows_per_split;
+  const int rows = min(rows_per_split, out_features - o_begin);
+
+  // bf16(g * scale) of the split's rows, zeros past OUT and past T
+  for (int i = tid; i < rows_per_split * TP; i += TV_THREADS) {
+    const int t = i / rows_per_split, r = i % rows_per_split;
+    float v = 0.f;
+    if (t < T && r < rows) {
+      const size_t at = (size_t)t * out_features + o_begin + r;
+      const float gv = g_f32 ? static_cast<const float*>(g)[at]
+                             : __bfloat162float(static_cast<const __nv_bfloat16*>(g)[at]);
+      v = __bfloat162float(__float2bfloat16(gv * w_scale[o_begin + r]));
     }
-    aqlm::cp_async_commit();
-  };
-  // the thread's gradient groups of slab s, scaled in f32 and rounded to bf16
-  // pairs as they arrive (zeros past the edges)
-  uint32_t gv[T_GROUPS][4];
-  auto load_g = [&](int s) {
-    const int o = s * TBK + c8 * 8;
-    const bool cvalid = o < out_features;  // OUT % 8 == 0: a group is all in or all out
-    float sc[8];
-    if (cvalid) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(w_scale + o));
-      const float4 b = __ldg(reinterpret_cast<const float4*>(w_scale + o) + 1);
-      sc[0] = a.x; sc[1] = a.y; sc[2] = a.z; sc[3] = a.w;
-      sc[4] = b.x; sc[5] = b.y; sc[6] = b.z; sc[7] = b.w;
+    s_g[r * TP + t] = v;
+  }
+  __syncthreads();
+
+  const int c = col0 + lane * VW;
+  const bool cvalid = c < ld;  // ld % 16 == 0: a lane's VW columns are all in or all out
+  const int8_t* wp = w8 + (size_t)o_begin * ld + (cvalid ? c : 0);
+  float acc[T][VW];
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+#pragma unroll
+    for (int e = 0; e < VW; ++e) acc[t][e] = 0.f;
+
+  for (int r0 = warp * TV_UNROLL; r0 < rows; r0 += TV_WARPS * TV_UNROLL) {
+    uint32_t wv[TV_UNROLL][VW / 4];
+#pragma unroll
+    for (int u = 0; u < TV_UNROLL; ++u) {
+      const bool ok = cvalid && r0 + u < rows;
+      if constexpr (VW == 16) {
+        const uint4 v = ok ? __ldcs(reinterpret_cast<const uint4*>(wp + (size_t)(r0 + u) * ld))
+                           : make_uint4(0, 0, 0, 0);
+        wv[u][0] = v.x; wv[u][1] = v.y; wv[u][2] = v.z; wv[u][3] = v.w;
+      } else {
+        const uint2 v = ok ? __ldcs(reinterpret_cast<const uint2*>(wp + (size_t)(r0 + u) * ld))
+                           : make_uint2(0, 0);
+        wv[u][0] = v.x; wv[u][1] = v.y;
+      }
     }
 #pragma unroll
-    for (int q = 0; q < T_GROUPS; ++q) {
-      const int row = row0 + tid / 8 + q * (GT / 8);
-      float f[8];
-      if (cvalid && row < T) {
-        aqlm::load8(g + (size_t)row * out_features + o, f);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) f[j] *= sc[j];
+    for (int u = 0; u < TV_UNROLL; ++u) {
+      // rows past `rows` hold zeros in s_g (rows_per_split is a multiple of 32)
+      float gs[TP];
+      const float* gp = s_g + (r0 + u) * TP;
+      if constexpr (TP == 1) {
+        gs[0] = gp[0];
+      } else if constexpr (TP == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(gp);
+        gs[0] = v.x; gs[1] = v.y;
       } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) f[j] = 0.f;
+        for (int q = 0; q < TP / 4; ++q) {
+          const float4 v = reinterpret_cast<const float4*>(gp)[q];
+          gs[4 * q] = v.x; gs[4 * q + 1] = v.y; gs[4 * q + 2] = v.z; gs[4 * q + 3] = v.w;
+        }
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
-        gv[q][e] = *reinterpret_cast<const uint32_t*>(&h);
+      for (int q = 0; q < VW / 4; ++q) {
+        float f[4];
+        s8x4_to_float(wv[u][q], f);
+#pragma unroll
+        for (int t = 0; t < T; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[t][4 * q + e] = fmaf(gs[t], f[e], acc[t][4 * q + e]);
       }
     }
-  };
-  auto store_g = [&]() {
-#pragma unroll
-    for (int q = 0; q < T_GROUPS; ++q)
-      *reinterpret_cast<uint4*>(s_g + (tid / 8 + q * (GT / 8)) * TGLD + c8 * 8) =
-          make_uint4(gv[q][0], gv[q][1], gv[q][2], gv[q][3]);
-  };
-
-  const int wm = warp / 4, wn = warp % 4;  // warp's 64 x 32 sub-tile
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  if (n_slabs > 0) {
-    load_w(0, 0);
-    load_g(0);
   }
-  for (int s = 0; s < n_slabs; ++s) {
-    const int stage = s & 1;
-    store_g();  // s_g is free: the barrier after the previous slab's products
-    if (s + 1 < n_slabs) {
-      load_w(s + 1, stage ^ 1);
-      aqlm::cp_async_wait<1>();
-    } else {
-      aqlm::cp_async_wait<0>();
+
+  // the warps' sums, added in warp order
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+#pragma unroll
+    for (int q = 0; q < VW / 4; ++q)
+      reinterpret_cast<float4*>(s_red + (warp * T + t) * CW + lane * VW)[q] =
+          make_float4(acc[t][4 * q], acc[t][4 * q + 1], acc[t][4 * q + 2], acc[t][4 * q + 3]);
+  __syncthreads();
+  for (int i = tid; i < T * CW; i += TV_THREADS) {
+    const int t = i / CW, cc = i % CW, col = col0 + cc;
+    if (col >= ld) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < TV_WARPS; ++w) s += s_red[(w * T + t) * CW + cc];
+    if (gridDim.y == 1)
+      out[(size_t)t * ld + col] = __float2bfloat16(s);
+    else
+      partials[((size_t)blockIdx.y * T + t) * ld + col] = s;
+  }
+  if (gridDim.y == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(tickets + blockIdx.x, 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int i = tid; i < T * CW; i += TV_THREADS) {
+    const int t = i / CW, col = col0 + i % CW;
+    if (col >= ld) continue;
+    float s = 0.f;
+    for (int sp = 0; sp < (int)gridDim.y; ++sp)
+      s += __ldcg(partials + ((size_t)sp * T + t) * ld + col);
+    out[(size_t)t * ld + col] = __float2bfloat16(s);
+  }
+}
+
+template <int T>
+cudaError_t gemv_t_launch(const void* g, const void* w8, const void* w_scale, void* out,
+                          void* partials, void* tickets, int g_f32, int out_features, int ld,
+                          int splits, int rows_per_split, int smem, cudaStream_t stream) {
+  static int smem_set = 0;  // one per instantiation: the largest size opted into so far
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(int8_gemv_t_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
+  }
+  const dim3 grid((ld + GemvT<T>::CW - 1) / GemvT<T>::CW, splits);
+  int8_gemv_t_kernel<T><<<grid, TV_THREADS, smem, stream>>>(
+      g, (const int8_t*)w8, (const float*)w_scale, (__nv_bfloat16*)out, (float*)partials,
+      (int*)tickets, g_f32, out_features, ld, rows_per_split);
+  return cudaGetLastError();
+}
+
+// bf16(g * scale) [T, OUT] for the GEMM: computed once here, not once per
+// column block (the A operand is the same for all of them), rounded as the
+// TPU wrapper rounds it. Eight elements a thread (OUT % 8 == 0).
+__global__ void __launch_bounds__(256)
+int8_scale_g_kernel(const void* __restrict__ g, const float* __restrict__ w_scale,
+                    __nv_bfloat16* __restrict__ gs, int g_f32, int out_features, long long n8) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n8) return;
+  const int o = (int)(i * 8 % out_features);
+  float f[8];
+  if (g_f32) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(g) + 2 * i);
+    const float4 b = __ldg(reinterpret_cast<const float4*>(g) + 2 * i + 1);
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  } else {
+    aqlm::bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(g) + i), f);
+  }
+  const float4 a = __ldg(reinterpret_cast<const float4*>(w_scale + o));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(w_scale + o) + 1);
+  reinterpret_cast<uint4*>(gs)[i] =
+      make_uint4(pack_bf16x2(f[0] * a.x, f[1] * a.y), pack_bf16x2(f[2] * a.z, f[3] * a.w),
+                 pack_bf16x2(f[4] * b.x, f[5] * b.y), pack_bf16x2(f[6] * b.z, f[7] * b.w));
+}
+
+constexpr int TG_THREADS = 384;
+constexpr int TG_PRODUCER = 8;        // warp 8
+constexpr int TG_WIDEN = 96;          // warps 9-11
+constexpr int TG_CONSUMERS = 8;       // warps 0-7: two warpgroups
+constexpr int TG_BN = 128;            // dx columns per block (w8 columns)
+constexpr int TG_BK = 64;             // OUT rows (the contraction) per slab
+constexpr int TG_W8 = TG_BK * TG_BN;  // bytes of an int8 slab
+constexpr int TG_B = TG_BN * TG_BK * 2;  // bytes of a widened W^T tile
+constexpr int TG_MAX_STAGES = 4;
+
+// Byte offsets in the GEMM's dynamic shared memory from its first
+// 1024-aligned byte (the swizzled A tiles need it; hence the 1024 bytes of
+// slack in the total); int8_matmul.plan_t computes the same total, and a
+// launch whose total differs is refused.
+struct TLayout {
+  int bm, stages;
+  __host__ __device__ TLayout(int bm_, int st) : bm(bm_), stages(st) {}
+  __host__ __device__ int a(int s) const { return s * bm * TG_BK * 2; }
+  __host__ __device__ int w8(int s) const { return a(stages) + s * TG_W8; }
+  __host__ __device__ int bt(int b) const { return w8(stages) + b * TG_B; }
+  __host__ __device__ int bar() const { return bt(2); }
+  __host__ __device__ int n_bars() const { return 3 * stages + 4; }
+  __host__ __device__ int flag() const { return bar() + n_bars() * 8; }
+  __host__ __device__ int total() const { return flag() + 16 + 1024; }
+};
+
+// MT: 64-row wgmma tiles per consumer warpgroup (BM = 128 * MT).
+template <int MT>
+__global__ void __launch_bounds__(TG_THREADS, 1)
+int8_gemm_t_kernel(const __grid_constant__ CUtensorMap a_map,  // bf16(g * scale) [T, OUT]
+                   const __grid_constant__ CUtensorMap w_map,  // w8 [OUT, ld] int8
+                   __nv_bfloat16* __restrict__ out,            // [T, ld]
+                   float* __restrict__ partials,               // [splits, Tpad, ld] when split
+                   int* __restrict__ tickets,                  // [row tiles, col tiles] zeroed
+                   int T, int out_features, int ld, int splits, int slabs_per_split,
+                   int stages) {
+  constexpr int BM = 128 * MT;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const TLayout L(BM, stages);
+  uint64_t* afull = reinterpret_cast<uint64_t*>(smem + L.bar());
+  uint64_t* wfull = afull + stages;
+  uint64_t* empty = wfull + stages;
+  uint64_t* bfull = empty + stages;
+  uint64_t* bempty = bfull + 2;
+  int& s_last = *reinterpret_cast<int*>(smem + L.flag());
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int col0 = blockIdx.x * TG_BN, row0 = blockIdx.y * BM, sp = blockIdx.z;
+  const int n_slabs = (out_features + TG_BK - 1) / TG_BK;
+  const int s_begin = sp * slabs_per_split;
+  const int n_local = min(n_slabs, s_begin + slabs_per_split) - s_begin;
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(afull + i, 1);  // the producer's expect_tx; its TMA completes it
+      mbar_init(wfull + i, 1);
+      mbar_init(empty + i, TG_CONSUMERS + TG_WIDEN / 32);
     }
-    __syncthreads();  // gradient slab and w8 slab s visible to all
-    {  // widen W: each thread 32 int8 of a row -> 32 bf16
-      const int r = tid / 4, h = tid % 4;
-      const uint4* src = reinterpret_cast<const uint4*>(smem + L.w8[stage] + r * TBN + h * 32);
-      uint32_t* dst = reinterpret_cast<uint32_t*>(s_w + r * TWLD + h * 32);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(bfull + i, TG_WIDEN / 32);
+      mbar_init(bempty + i, TG_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == TG_PRODUCER) {
+    // slab j -> stage j % stages, refilled once its consumers and widening
+    // warps released it
+    if (lane == 0) {
+      for (int j = 0; j < n_local; ++j) {
+        const int st = j % stages, o0 = (s_begin + j) * TG_BK;
+        if (j >= stages) mbar_wait(empty + st, (j / stages - 1) & 1);
+        mbar_arrive_expect_tx(wfull + st, TG_W8);
+        tma_load_2d(smem + L.w8(st), &w_map, col0, o0, wfull + st);
+        mbar_arrive_expect_tx(afull + st, BM * TG_BK * 2);
+        tma_load_2d(smem + L.a(st), &a_map, o0, row0, afull + st);
+      }
+    }
+  } else if (warp > TG_PRODUCER) {
+    // W^T: the int8 slab [64 o][128 i] -> bf16 core matrices (i / 8, o / 8),
+    // each 16-byte row eight o of one i, into buffer j % 2. A unit is 8 rows x
+    // 4 columns (eight word reads).
+    const int dt = tid - (TG_PRODUCER + 1) * 32;
+    for (int j = 0; j < n_local; ++j) {
+      const int st = j % stages, wb = j & 1;
+      mbar_wait(wfull + st, (j / stages) & 1);
+      if (j >= 2) mbar_wait(bempty + wb, (j / 2 - 1) & 1);
+      const unsigned char* sw = smem + L.w8(st);
+      unsigned char* sb = smem + L.bt(wb);
+      for (int u = dt; u < (TG_BK / 8) * (TG_BN / 4); u += TG_WIDEN) {
+        const int ob = u / (TG_BN / 4), iq = u % (TG_BN / 4);
+        uint32_t wv[8];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float f[16];
-        s8x16_to_float(src[q], f);
+        for (int r = 0; r < 8; ++r)
+          wv[r] = *reinterpret_cast<const uint32_t*>(sw + (ob * 8 + r) * TG_BN + iq * 4) ^
+                  0x80808080u;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
-          dst[q * 8 + e] = *reinterpret_cast<const uint32_t*>(&p);
+        for (int cc = 0; cc < 4; ++cc) {
+          const int c = (cc + (iq >> 1)) & 3;  // rotated: a phase's 8 stores on 8 bank groups
+          const uint32_t sel = 0x7650u + c;
+          float f[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+            f[r] = __uint_as_float(__byte_perm(wv[r], 0x4B000000u, sel)) - 8388736.f;
+          const int i = iq * 4 + c;
+          *reinterpret_cast<uint4*>(sb + ((i >> 3) * (TG_BK / 8) + ob) * 128 + (i & 7) * 16) =
+              make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                         pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+        }
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(bfull + wb);
+        mbar_arrive(empty + st);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows [wg * 64 * MT, (wg + 1) * 64 * MT) of the tile
+    const int wg = warp >> 2;
+    const bool active = row0 + wg * 64 * MT < T;  // a warpgroup of padding rows only waits
+    float acc[MT][64];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[m][i] = 0.f;
+    for (int j = 0; j < n_local; ++j) {
+      const int st = j % stages, wb = j & 1;
+      mbar_wait(afull + st, (j / stages) & 1);
+      mbar_wait(bfull + wb, (j / 2) & 1);
+      __syncwarp();  // converged for the .aligned wgmma instructions
+      if (active) {
+        fence_proxy_async();
+        wgmma_fence();
+        const unsigned char* sa = smem + L.a(st);
+        const unsigned char* sb = smem + L.bt(wb);
+#pragma unroll
+        for (int kk = 0; kk < TG_BK / 16; ++kk) {
+          const uint64_t db = make_desc(sb + kk * 256);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            wgmma_m64n128k16(acc[m], make_desc_sw128(sa + (wg * MT + m) * 64 * TG_BK * 2 + kk * 32),
+                             db);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // slab j - 1's products are done
+      }
+      if (j > 0) {
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(empty + (j - 1) % stages);
+          mbar_arrive(bempty + ((j - 1) & 1));
         }
       }
     }
-    if (s + 1 < n_slabs) load_g(s + 1);  // in flight over the products
-    __syncthreads();
+    wgmma_wait<0>();
 #pragma unroll
-    for (int kk = 0; kk < TBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], s_g + (wm * 64 + i * 16) * TGLD + kk, TGLD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], s_w + kk * TWLD + wn * 32 + j * 16, TWLD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // s_g, s_w and the stage free for reuse
-  }
+    for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
 
-  // epilogue: each warp stages one 16x16 fragment at a time and casts
-  float* epi = reinterpret_cast<float*>(smem + L.epi) + warp * 256;
+    // accumulator (m, 4c + 2h + p) of thread (warp, lane): row 16 (warp % 4)
+    // + lane / 4 + 8 h of tile m, column 8 c + 2 (lane % 4) + p
+    const int rbase = row0 + wg * 64 * MT + (warp & 3) * 16 + (lane >> 2);
+    const int cbase = col0 + (lane & 3) * 2;
+    if (splits == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(epi, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = row0 + wm * 64 + i * 16 + e / 16;
-        const int col = col0 + wn * 32 + j * 16 + e % 16;
-        if (row < T && col < ld) out[(size_t)row * ld + col] = __float2bfloat16(epi[e]);
-      }
-      __syncwarp();
+        for (int c = 0; c < TG_BN / 8; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = rbase + m * 64 + 8 * h, col = cbase + 8 * c;
+            if (row < T && col < ld)
+              *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * ld + col) =
+                  __floats2bfloat162_rn(acc[m][4 * c + 2 * h], acc[m][4 * c + 2 * h + 1]);
+          }
+      return;
     }
+    // split contraction: park the f32 partial tile, the last block sums
+    const int t_pad = gridDim.y * BM;
+    float* part = partials + (size_t)sp * t_pad * ld;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int c = 0; c < TG_BN / 8; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = rbase + m * 64 + 8 * h, col = cbase + 8 * c;
+          if (row < T && col < ld)
+            *reinterpret_cast<float2*>(part + (size_t)row * ld + col) =
+                make_float2(acc[m][4 * c + 2 * h], acc[m][4 * c + 2 * h + 1]);
+        }
+    __threadfence();
+    asm volatile("bar.sync 1, %0;\n" ::"n"(TG_CONSUMERS * 32) : "memory");
+    if (tid == 0)
+      s_last = atomicAdd(tickets + blockIdx.y * gridDim.x + blockIdx.x, 1) == splits - 1;
+    asm volatile("bar.sync 1, %0;\n" ::"n"(TG_CONSUMERS * 32) : "memory");
+    if (!s_last) return;
+    __threadfence();
+    for (int i = tid; i < BM * (TG_BN / 4); i += TG_CONSUMERS * 32) {
+      const int row = row0 + i / (TG_BN / 4), col = col0 + (i % (TG_BN / 4)) * 4;
+      if (row >= T || col >= ld) continue;  // ld % 16 == 0: four columns all in or all out
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int z = 0; z < splits; ++z) {
+        const float4 pz = __ldcg(reinterpret_cast<const float4*>(
+            partials + ((size_t)z * t_pad + row) * ld + col));
+        v.x += pz.x;
+        v.y += pz.y;
+        v.z += pz.z;
+        v.w += pz.w;
+      }
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * ld + col);
+      o[0] = __floats2bfloat162_rn(v.x, v.y);
+      o[1] = __floats2bfloat162_rn(v.z, v.w);
+    }
+  }
 }
 
-template <typename GT_T>
-cudaError_t gemm_t_launch(const void* g, const void* w8, const void* w_scale, void* out, int T,
-                          int out_features, int ld, cudaStream_t stream) {
-  const GemmTSmem L;
-  static size_t smem_set = 0;  // one per instantiation
-  if (L.total != smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(int8_gemm_t_kernel<GT_T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.total);
+template <int MT>
+cudaError_t gemm_t_launch(const void* g, const void* w8, const void* w_scale, void* out,
+                          void* partials, void* tickets, void* gs, int g_f32, int T,
+                          int out_features, int ld, int splits, int slabs_per_split, int stages,
+                          int smem, cudaStream_t stream) {
+  static bool attr_set = false;  // one per instantiation
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(int8_gemm_t_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM_LIMIT);
     if (e != cudaSuccess) return e;
-    smem_set = L.total;
+    attr_set = true;
   }
-  const dim3 grid((ld + TBN - 1) / TBN, (T + TBM - 1) / TBM);
-  int8_gemm_t_kernel<GT_T><<<grid, GT, L.total, stream>>>(
-      (const GT_T*)g, (const int8_t*)w8, (const float*)w_scale, (__nv_bfloat16*)out, T,
-      out_features, ld);
+  constexpr int BM = 128 * MT;
+  const EncodeTiled encode = encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const long long n8 = (long long)T * out_features / 8;
+  int8_scale_g_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0, stream>>>(
+      g, (const float*)w_scale, (__nv_bfloat16*)gs, g_f32, out_features, n8);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const cuuint32_t unit[2] = {1, 1};
+  // bf16(g * scale) [T][OUT]: boxes of 64 columns x BM rows, 128B-swizzled
+  CUtensorMap a_map;
+  const cuuint64_t a_dims[2] = {(cuuint64_t)out_features, (cuuint64_t)T};
+  const cuuint64_t a_strides[1] = {(cuuint64_t)out_features * 2};
+  const cuuint32_t a_box[2] = {TG_BK, (cuuint32_t)BM};
+  if (encode(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, gs, a_dims, a_strides, a_box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  // w8 [OUT][ld]: boxes of 128 columns x 64 rows, unswizzled
+  CUtensorMap w_map;
+  const cuuint64_t w_dims[2] = {(cuuint64_t)ld, (cuuint64_t)out_features};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)ld};
+  const cuuint32_t w_box[2] = {TG_BN, TG_BK};
+  if (encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w8), w_dims, w_strides,
+             w_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const dim3 grid((ld + TG_BN - 1) / TG_BN, (T + BM - 1) / BM, splits);
+  int8_gemm_t_kernel<MT><<<grid, TG_THREADS, smem, stream>>>(
+      a_map, w_map, (__nv_bfloat16*)out, (float*)partials, (int*)tickets, T, out_features, ld,
+      splits, slabs_per_split, stages);
   return cudaGetLastError();
 }
 
@@ -735,12 +1028,46 @@ extern "C" int int8_matmul_launch(const void* x, const void* w8, const void* w_s
                          out_features, in_features, ld, st);
 }
 
-// The activation backward: g [T, OUT] bf16 (g_f32 = 0) or f32, w8 [OUT, ld]
-// int8, w_scale [OUT] f32 -> out [T, ld] bf16. OUT a multiple of 8, ld of 16.
+// The activation backward, as int8_matmul.plan_t lays it out: g [T, OUT]
+// bf16 (g_f32 = 0) or f32, w8 [OUT, ld] int8, w_scale [OUT] f32 -> out
+// [T, ld] bf16; OUT a multiple of 8, ld of 16. bm = 0 runs the column GEMV
+// (T <= 8; `per_split` OUT rows a split, a multiple of 32), bm = 128 or 256
+// the GEMM (`per_split` 64-row slabs a split, `stages` ring stages; `gs`, a
+// [T, OUT] bf16 scratch, receives bf16(g * scale) first). `smem`
+// is checked against the kernel's own layout. With splits > 1, partials (GEMV
+// [splits, T, ld], GEMM [splits, ceil(T / bm) * bm, ld] f32) and zeroed tickets
+// (GEMV [ceil(ld / column block)], GEMM [ceil(T / bm), ceil(ld / 128)] int32)
+// are required.
 extern "C" int int8_matmul_t_launch(const void* g, const void* w8, const void* w_scale, void* out,
-                                    int g_f32, int T, int out_features, int ld, void* stream) {
-  if (T < 1 || out_features % 8 || ld % 16) return cudaErrorInvalidValue;
+                                    void* partials, void* tickets, void* gs, int g_f32, int T,
+                                    int out_features, int ld, int bm, int splits, int per_split,
+                                    int stages, int smem, void* stream) {
+  if (T < 1 || out_features < 8 || out_features % 8 || ld < 16 || ld % 16 || splits < 1 ||
+      per_split < 1 || smem > T_SMEM_LIMIT)
+    return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (g_f32) return gemm_t_launch<float>(g, w8, w_scale, out, T, out_features, ld, st);
-  return gemm_t_launch<__nv_bfloat16>(g, w8, w_scale, out, T, out_features, ld, st);
+  if (bm == 0) {
+    if (T > 8 || per_split % (TV_WARPS * TV_UNROLL) || smem != gemv_t_smem(T, per_split) ||
+        (long long)(splits - 1) * per_split >= out_features)
+      return cudaErrorInvalidValue;
+#define AQLM_INT8_T_CASE(NT)                                                                  \
+  case NT:                                                                                    \
+    return gemv_t_launch<NT>(g, w8, w_scale, out, partials, tickets, g_f32, out_features, ld, \
+                             splits, per_split, smem, st);
+    switch (T) {
+      AQLM_INT8_T_CASE(1) AQLM_INT8_T_CASE(2) AQLM_INT8_T_CASE(3) AQLM_INT8_T_CASE(4)
+      AQLM_INT8_T_CASE(5) AQLM_INT8_T_CASE(6) AQLM_INT8_T_CASE(7) AQLM_INT8_T_CASE(8)
+      default: return cudaErrorInvalidValue;
+    }
+#undef AQLM_INT8_T_CASE
+  }
+  if ((bm != 128 && bm != 256) || stages < 2 || stages > TG_MAX_STAGES || !gs ||
+      smem != TLayout(bm, stages).total() ||
+      (long long)(splits - 1) * per_split >= (out_features + TG_BK - 1) / TG_BK)
+    return cudaErrorInvalidValue;
+  if (bm == 256)
+    return gemm_t_launch<2>(g, w8, w_scale, out, partials, tickets, gs, g_f32, T, out_features,
+                            ld, splits, per_split, stages, smem, st);
+  return gemm_t_launch<1>(g, w8, w_scale, out, partials, tickets, gs, g_f32, T, out_features, ld,
+                          splits, per_split, stages, smem, st);
 }

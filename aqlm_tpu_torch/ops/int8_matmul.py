@@ -7,8 +7,10 @@ PyTorch counterpart of ``aqlm_tpu.ops.int8_matmul`` (``int8_matmul``,
 kernel of ``csrc/int8_matmul.cu``; on a CPU tensor it runs the plain version
 of the same function. The layer-indexed variants are the same kernel with a
 layer pointer offset; the MoE forms run every expert in one launch, the
-expert being one more grid axis of the same kernel. The backward has a
-kernel of its own (the contraction runs over w8's rows).
+expert being one more grid axis of the same kernel. The backward (the
+contraction runs over w8's rows) has kernels of its own, laid out by the
+pure ``plan_t``: a column GEMV at <= 8 rows, and past them a bf16(g * scale)
+pass followed by a warp-specialised TMA + wgmma GEMM.
 
 Layout (shared with ``aqlm_tpu``, so weights and checkpoints carry across):
 ``w8`` is ``[OUT, IN_pad]`` int8, rows contiguous along the contraction dim,
@@ -18,6 +20,8 @@ of each row, so activations are never padded.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -33,6 +37,8 @@ __all__ = [
     "int8_moe_matmul",
     "int8_moe_matmul_indexed",
     "int8_matmul_transposed",
+    "PlanT",
+    "plan_t",
 ]
 
 IN_PAD_MULTIPLE = 1024  # weight rows padded so large contraction tiles divide evenly
@@ -243,10 +249,101 @@ def plain_t(gb, w8, w_scale):
     return torch.matmul(scaled_grad(gb, w_scale).float(), w8.float()).to(torch.bfloat16)
 
 
+# B10's shapes (csrc/int8_matmul.cu): the GEMV's eight warps and its block
+# widths; the GEMM's 128-column tile, 64-row slabs, ring depths and layout
+T_SMEM_LIMIT = 232448
+_TV_WARPS, _TV_UNROLL, _TV_MAX_ROWS = 8, 4, 512
+_TG_BN, _TG_BK, _TG_STAGES = 128, 64, (4, 3, 2)
+# the planner's time model of one GEMM block-slab (us, at BM 256 / 128) and of
+# the split path's partial sums (written and read once, at the card's memory rate)
+_TG_SLAB_US = {256: 0.55, 128: 0.35}
+_BYTES_PER_US = 3.35e6
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanT:
+    """One launch of B10: the path (``gemv`` at <= 8 rows, else ``gemm``),
+    its tile (the GEMV's dx columns a block, the GEMM's rows a block), the
+    GEMM's ring stages (0 for the GEMV), OUT split over ``splits`` blocks of
+    ``per_split`` (GEMV: OUT rows, a multiple of 32; GEMM: 64-row slabs), the
+    grid and the dynamic shared memory, which the kernel checks against its
+    own layout."""
+
+    path: str
+    tile: int
+    stages: int
+    splits: int
+    per_split: int
+    grid: tuple
+    smem: int
+
+    @property
+    def bm(self) -> int:
+        """The launch's ``bm`` argument: 0 for the GEMV."""
+        return self.tile if self.path == "gemm" else 0
+
+
+def gemv_t_smem(T: int, rows: int) -> int:
+    """The GEMV's dynamic shared memory: bf16(g * scale) of a split's rows as
+    f32 (T rounded up to 1, 2, 4 or 8), and the eight warps' sums."""
+    vw = 16 if T <= 4 else 8
+    tp = 1 if T == 1 else 2 if T == 2 else 4 if T <= 4 else 8
+    return rows * tp * 4 + _TV_WARPS * T * 32 * vw * 4
+
+
+def gemm_t_smem(bm: int, stages: int) -> int:
+    """The GEMM's dynamic shared memory (the kernel's ``TLayout``): each
+    stage's bf16(g * scale) tile and int8 slab, two widened W^T buffers, the
+    barriers, the split path's flag, and 1024 bytes to align the swizzled
+    A tiles."""
+    ring = stages * (bm * _TG_BK * 2 + _TG_BK * _TG_BN)
+    return ring + 2 * _TG_BN * _TG_BK * 2 + (3 * stages + 4) * 8 + 16 + 1024
+
+
+def plan_t(T: int, out_features: int, ld: int, sm_count: int = 132) -> PlanT:
+    """Path, tile, stages, split of OUT and grid of one B10 launch, a pure
+    function of the shapes. At <= 8 rows the column GEMV: 512 dx columns a
+    block (256 past 4 rows), OUT split over enough blocks to fill the card
+    twice. Past 8 rows the GEMM (after the bf16(g * scale) pass): 256 rows a
+    block past 256 rows, else 128; the deepest ring that fits; OUT split
+    only where the time model (waves of one block per SM x slabs a block,
+    plus the partial sums' bytes) says it pays."""
+    if T < 1 or out_features < 8 or out_features % 8 or ld < 16 or ld % 16:
+        raise ValueError(f"int8_matmul_transposed kernel: no plan for T={T} OUT={out_features} "
+                         f"ld={ld} (OUT a multiple of 8, ld of 16)")
+    if T <= INT8_GEMV_MAX_ROWS:
+        cw = 32 * (16 if T <= 4 else 8)
+        col_blocks = -(-ld // cw)
+        splits = max(1, -(-2 * sm_count // col_blocks), -(-out_features // _TV_MAX_ROWS))
+        run = _TV_WARPS * _TV_UNROLL  # rows a block's warps take at once
+        rows = min(_TV_MAX_ROWS, -(-out_features // splits // run) * run)
+        splits = -(-out_features // rows)  # no empty split
+        return PlanT("gemv", cw, 0, splits, rows, (col_blocks, splits, 1), gemv_t_smem(T, rows))
+    bm = 256 if T > 256 else 128
+    stages = next(st for st in _TG_STAGES if gemm_t_smem(bm, st) <= T_SMEM_LIMIT)
+    col_tiles, row_tiles = -(-ld // _TG_BN), -(-T // bm)
+    n_slabs = -(-out_features // _TG_BK)
+    tiles = col_tiles * row_tiles
+
+    def cost(s):
+        waves = -(-tiles * s // sm_count)
+        part = 0 if s == 1 else 8 * s * row_tiles * bm * ld / _BYTES_PER_US
+        return waves * -(-n_slabs // s) * _TG_SLAB_US[bm] + part
+
+    splits = 1
+    if tiles < sm_count:
+        splits = min(range(1, max(1, min(16, n_slabs // 4)) + 1), key=cost)
+    per_split = -(-n_slabs // splits)
+    splits = -(-n_slabs // per_split)  # no empty split
+    return PlanT("gemm", bm, stages, splits, per_split, (col_tiles, row_tiles, splits),
+                 gemm_t_smem(bm, stages))
+
+
 def launch_t(gb, w8, w_scale):
     """The backward kernel: gb [rows, OUT] bf16 or f32; w8 [OUT, IN_pad] int8;
-    w_scale [OUT] f32. The scale and the bf16 rounding are applied as the
-    gradient tile is loaded. Returns [rows, IN_pad] bf16."""
+    w_scale [OUT] f32, laid out by ``plan_t``. The scale and the bf16 rounding
+    are applied as the gradient is staged (the GEMV) or by the GEMM's first
+    kernel. Returns [rows, IN_pad] bf16."""
     rows, out_features = gb.shape
     dev = gb.device
     if gb.dtype not in (torch.bfloat16, torch.float32):
@@ -270,10 +367,24 @@ def launch_t(gb, w8, w_scale):
     out = torch.empty((rows, in_pad), dtype=torch.bfloat16, device=dev)
     if rows == 0:
         return out
+    p = plan_t(rows, out_features, in_pad, _build.sm_count(dev.index))
+    # the GEMM's A operand, bf16(g * scale), written once by its first kernel
+    gs = torch.empty_like(gb, dtype=torch.bfloat16) if p.path == "gemm" else None
+    partials = tickets = None
+    if p.splits > 1:
+        # the splits' f32 partial sums meet here; the last block of each
+        # output tile to finish adds them in a fixed order
+        t_pad = rows if p.path == "gemv" else p.grid[1] * p.tile
+        partials = torch.empty((p.splits, t_pad, in_pad), dtype=torch.float32, device=dev)
+        n_tickets = p.grid[0] if p.path == "gemv" else p.grid[0] * p.grid[1]
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
     lib, _ = _build.library()
-    rc = lib.int8_matmul_t_launch(gb.data_ptr(), w8.data_ptr(), w_scale.data_ptr(),
-                                  out.data_ptr(), int(gb.dtype == torch.float32), rows,
-                                  out_features, in_pad, _build.stream_ptr(dev))
+    rc = lib.int8_matmul_t_launch(
+        gb.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), None if gs is None else gs.data_ptr(),
+        int(gb.dtype == torch.float32), rows, out_features, in_pad,
+        p.bm, p.splits, p.per_split, p.stages, p.smem, _build.stream_ptr(dev))
     _build.check(rc, "int8_matmul_transposed")
     _build.KERNELS["int8_matmul_transposed"].launches += 1
     return out

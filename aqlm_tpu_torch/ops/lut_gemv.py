@@ -18,12 +18,19 @@ axis).
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
 
 from aqlm_tpu_torch.ops import _build
 
 __all__ = [
     "LUT_GEMV_MAX_BATCH",
+    "SMEM_LIMIT",
+    "Plan",
+    "plan",
+    "smem_bytes",
     "lut_tile_n",
     "tile_codes",
     "untile_codes",
@@ -38,6 +45,129 @@ __all__ = [
 
 LUT_GEMV_MAX_BATCH = 8
 _KERNEL_GROUP = 8  # in_group_size the CUDA kernels are written for
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
+# K1's shape (csrc/lut_gemv.cu): a chunk is two (group block, codebook)
+# pairs whose tables fill 256 rows of 32 floats; code rows padded
+_PAIRS, _ROW_FLOATS, _CODE_PAD, _MAX_STAGES = 2, 32, 16, 6
+_TABLE_BYTES = 256 * _ROW_FLOATS * 4
+_TWO_BLOCKS = 115712  # shared memory a block may take so that two share an SM
+_MIN_CHUNKS = 4  # chunks a split walks at least
+_THREADS = 256  # a block's threads (two blocks an SM)
+_BLOCK_CHUNKS = 4  # a block's fixed part (first build, sums, split reduction) in chunks
+
+
+def batch_pad(rows: int) -> int:
+    """The rows K1 computes for ``rows`` rows of x: 1, 2, 4 or 8."""
+    return 1 if rows <= 1 else 2 if rows <= 2 else 4 if rows <= 4 else 8
+
+
+def smem_bytes(cols: int, bp: int, stages: int, K: int) -> int:
+    """K1's dynamic shared memory (the kernel's ``smem_bytes``): two chunks'
+    tables, the code ring (a chunk's 2 * 16 / bp code rows of cols + 16
+    bytes a stage), the block's K codebooks (256 rows of 16 bytes each) and
+    the split path's flag."""
+    return (2 * _TABLE_BYTES + stages * (_PAIRS * 16 // bp) * (cols + _CODE_PAD) + K * 256 * 16
+            + 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One K1 launch: output columns a block (``cols``), the projections'
+    width (``proj_width``, ``blocks_per_proj`` blocks each, the last cut at
+    its end), rows computed (``bp``), a lane's code reads
+    (``colvec`` codes at once, ``vectors`` of them), groups of a group block
+    and tables of a chunk, code-ring stages, blocks along the input groups
+    (``splits`` of ``gb_per_split`` group blocks each), the grid (column
+    blocks, splits, experts) and the dynamic shared memory, which the kernel
+    checks against its own layout."""
+
+    cols: int
+    proj_width: int
+    blocks_per_proj: int
+    bp: int
+    colvec: int
+    vectors: int
+    group_block: int
+    tables: int
+    stages: int
+    splits: int
+    gb_per_split: int
+    grid: tuple
+    smem: int
+
+    @property
+    def lookup_floats(self) -> int:
+        """f32 values of one lookup (an entry is ``bp`` values, read in halves at bp 8)."""
+        return min(self.bp, 4)
+
+    @property
+    def phase_lanes(self) -> int:
+        """Lanes of one shared-memory phase of a lookup (128 bytes)."""
+        return 32 // self.lookup_floats
+
+    def lookup_lane(self, lane: int) -> tuple:
+        """(table, float of a table row) that ``lane`` reads in every lookup,
+        and its code vectors' first columns over the block's warps; the
+        kernel's lane map."""
+        bh, P, warps = self.lookup_floats, self.phase_lanes, _THREADS // 32
+        ts, h = (lane % P) % self.tables, (lane % P) // self.tables
+        cs = lane // P
+        first = [(w * (32 // P) + cs + j * (warps * 32 // P)) * self.colvec
+                 for w in range(warps) for j in range(self.vectors)]
+        return ts, ts * self.bp + h * bh, first
+
+    def block_columns(self, bx: int) -> range:
+        """The output columns block ``bx`` writes."""
+        p0 = bx // self.blocks_per_proj * self.proj_width
+        c0 = p0 + bx % self.blocks_per_proj * self.cols
+        return range(c0, min(c0 + self.cols, p0 + self.proj_width))
+
+
+def plan(B: int, K: int, out_features: int, n_groups: int, tn: int, P: int = 1, experts: int = 1,
+         sm_count: int = 132, proj_cols: int | None = None) -> Plan:
+    """Columns, stages, splits, grid and shared memory of one K1 launch, a
+    pure function of the shapes. ``P`` projections share the codes, of
+    ``proj_cols`` columns each where they are equal (else their common
+    divisor, a tile ``tn`` when not given, is the width blocks keep within).
+    Each table serves a block's columns, so wider blocks amortise its build:
+    512 columns where the width allows, else 256; a projection's last block
+    is cut at its end. The input groups are split over blocks where that
+    shortens waves x (a block's chunks + a fixed part of four), each split
+    walking at least four chunks."""
+    if not 1 <= B <= LUT_GEMV_MAX_BATCH or not 1 <= K <= 8 or out_features % 128 or tn % 128 \
+            or n_groups < 1 or experts < 1 or P < 1:
+        raise ValueError(f"lut_gemv kernel: no plan for B={B} K={K} OUT={out_features} "
+                         f"IG={n_groups} tn={tn} P={P} E={experts}")
+    if P == 1:
+        width = out_features
+    elif proj_cols and proj_cols * P == out_features and proj_cols % 128 == 0:
+        width = proj_cols
+    else:
+        width = math.gcd(proj_cols or tn, out_features)
+    cols = 512 if width >= 512 else 256
+    bp = batch_pad(B)
+    lanes = 32 // min(bp, 4)
+    cv = cols * lanes // _THREADS
+    colvec = min(cv, 16)
+    gbs = 16 // bp
+    n_gb = -(-n_groups // gbs)
+    col_blocks = experts * out_features // width * -(-width // cols)
+    slots = 2 * sm_count
+    most = max(1, n_gb * K // (_PAIRS * _MIN_CHUNKS))
+
+    def cost(s):  # waves x (a block's chunks + its fixed part); ties go to fewer splits
+        gb = -(-n_gb // s)  # group blocks a split
+        chunks = -(-gb * K // _PAIRS)
+        return -(-col_blocks * s // slots) * (chunks + _BLOCK_CHUNKS), s
+
+    splits = min(range(1, most + 1), key=cost)
+    gb_per_split = -(-n_gb // splits)
+    splits = -(-n_gb // gb_per_split)  # no empty split
+    fits = [st for st in range(_MAX_STAGES, 1, -1) if smem_bytes(cols, bp, st, K) <= _TWO_BLOCKS]
+    stages = fits[0] if fits else 2
+    return Plan(cols, width, -(-width // cols), bp, colvec, cv // colvec, gbs,
+                _PAIRS * gbs, stages, splits, gb_per_split, (col_blocks // experts, splits, experts),
+                smem_bytes(cols, bp, stages, K))
 
 
 def lut_tile_n(out_features: int) -> int:
@@ -100,9 +230,11 @@ def plain(xb, codes_tl, codebooks, scales, proj_map, out_dtype):
     return y.to(out_dtype)
 
 
-def launch(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group):
+def launch(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group, *, proj_cols=None):
     """K1 on one layer's arrays: xb [B, IN]; codes_tl [NT, K*IG, tn] uint8;
-    codebooks [P, K, S, 8] bf16; scales [OUT] f32; proj_map [NT] int32 or None."""
+    codebooks [P, K, S, 8] bf16; scales [OUT] f32; proj_map [NT] int32 or
+    None; ``proj_cols`` the projections' common width (their gcd), which lets
+    a block span tiles (one tile when not given)."""
     nt, kig, tn = codes_tl.shape
     P, K, S, g = codebooks.shape
     B, in_features = xb.shape
@@ -130,36 +262,43 @@ def launch(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group):
     if codes_tl.data_ptr() % 16 or xb.data_ptr() % 16:
         raise ValueError("lut_gemv kernel needs 16-byte aligned codes and activations")
     out = torch.empty((B, nt * tn), dtype=out_dtype, device=dev)
-    # split the input groups of each 128-column group over enough blocks to
-    # fill the card twice; the blocks' partial sums meet in `partials`
-    col_groups, n_groups = nt * tn // 128, kig // K
-    splits = max(1, min(-(-2 * _build.sm_count(dev.index) // col_groups), n_groups // 16))
-    splits = -(-n_groups // -(-n_groups // splits))  # no empty split
-    partials = tickets = None
-    if splits > 1:
-        partials = torch.empty((splits, B, nt * tn), dtype=torch.float32, device=dev)
-        tickets = torch.zeros(col_groups, dtype=torch.int32, device=dev)
-    lib, _ = _build.library()
-    rc = lib.lut_gemv_launch(
-        xb.data_ptr(), codes_tl.data_ptr(), codebooks.data_ptr(), scales.data_ptr(),
-        None if proj_map is None else proj_map.data_ptr(), out.data_ptr(),
-        None if partials is None else partials.data_ptr(),
-        None if tickets is None else tickets.data_ptr(),
-        int(xb.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        B, splits, nt, kig, tn, K, S, in_features, _build.stream_ptr(dev),
-    )
-    _build.check(rc, "lut_gemv")
-    _build.KERNELS["lut_gemv"].launches += 1
+    p = plan(B, K, nt * tn, kig // K, tn, P, 1, _build.sm_count(dev.index), proj_cols)
+    _launch(p, xb, codes_tl, codebooks, scales, proj_map, out, 0, 1, K, S, "lut_gemv")
     return out
 
 
-def _gemv(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group):
+def _launch(p, x, codes, codebooks, scales, proj_map, out, moe, experts, K, S, counter):
+    """One launch of K1 as ``p`` lays it out (dense or all-expert)."""
+    nt, kig, tn = codes.shape[-3:]
+    B, in_features = x.shape[-2:]
+    dev = x.device
+    partials = tickets = None
+    if p.splits > 1:  # per expert; the last block of each column block adds them in order
+        lead = (experts,) if moe else ()
+        partials = torch.empty(lead + (p.splits, B, nt * tn), dtype=torch.float32, device=dev)
+        tickets = torch.zeros(lead + (p.grid[0],), dtype=torch.int32, device=dev)
+    lib, _ = _build.library()
+    rc = lib.lut_gemv_launch(
+        x.data_ptr(), codes.data_ptr(), codebooks.data_ptr(), scales.data_ptr(),
+        None if proj_map is None else proj_map.data_ptr(), out.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
+        int(x.dtype == torch.float32), int(out.dtype == torch.float32), B, p.cols, p.splits,
+        p.gb_per_split, p.stages, p.smem, moe, experts,
+        B * in_features if x.dim() == 3 else 0, nt, kig, tn, K, S, in_features, p.proj_width,
+        p.blocks_per_proj, _build.stream_ptr(dev),
+    )
+    _build.check(rc, counter)
+    _build.KERNELS[counter].launches += 1
+
+
+def _gemv(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group, proj_cols=None):
     """Dispatch on the device of the activations: CPU -> plain, CUDA -> K1."""
     if xb.device.type == "cpu":
         return plain(xb, codes_tl, codebooks, scales, proj_map, out_dtype)
     if xb.device.type != "cuda":
         raise ValueError(f"unsupported device {xb.device}")
-    return launch(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group)
+    return launch(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group, proj_cols=proj_cols)
 
 
 def lut_gemv_kx8_tiled(x, codes_tl, codebooks, scales, bias=None, *, group: int):
@@ -206,7 +345,8 @@ def lut_gemv_kx8_grouped_indexed(x, codes_tl_all, codebooks_all, scales_all, out
     if proj_map is None:
         proj_map = proj_map_for(out_sizes, tn, x.device)
     li = int(layer_idx)
-    y = _gemv(xb, codes_tl_all[li], codebooks_all[li], scales_all[li], proj_map, x.dtype, group)
+    y = _gemv(xb, codes_tl_all[li], codebooks_all[li], scales_all[li], proj_map, x.dtype, group,
+              math.gcd(*out_sizes))
     return y.reshape(*lead, -1)
 
 
@@ -265,25 +405,8 @@ def moe_launch(x, codes_tl_e, codebooks_e, scales_e, group):
     if codes_tl_e.data_ptr() % 16 or x.data_ptr() % 16:
         raise ValueError("lut_moe_gemv kernel needs 16-byte aligned codes and activations")
     out = torch.empty((E, B, nt * tn), dtype=torch.float32, device=dev)
-    # K1's split rule over E times as many column groups: Mixtral's gate/up
-    # (8 x 112 column groups) need no split, its down (8 x 32) two
-    col_groups, n_groups = nt * tn // 128, kig // K
-    splits = max(1, min(-(-2 * _build.sm_count(dev.index) // (E * col_groups)), n_groups // 16))
-    splits = -(-n_groups // -(-n_groups // splits))  # no empty split
-    partials = tickets = None
-    if splits > 1:  # per expert
-        partials = torch.empty((E, splits, B, nt * tn), dtype=torch.float32, device=dev)
-        tickets = torch.zeros((E, col_groups), dtype=torch.int32, device=dev)
-    lib, _ = _build.library()
-    rc = lib.lut_moe_gemv_launch(
-        x.data_ptr(), codes_tl_e.data_ptr(), codebooks_e.data_ptr(), scales_e.data_ptr(),
-        out.data_ptr(), None if partials is None else partials.data_ptr(),
-        None if tickets is None else tickets.data_ptr(), int(x.dtype == torch.bfloat16), B,
-        splits, E, B * in_features if x.dim() == 3 else 0, nt, kig, tn, K, S, in_features,
-        _build.stream_ptr(dev),
-    )
-    _build.check(rc, "lut_moe_gemv")
-    _build.KERNELS["lut_moe_gemv"].launches += 1
+    p = plan(B, K, nt * tn, kig // K, tn, 1, E, _build.sm_count(dev.index))
+    _launch(p, x, codes_tl_e, codebooks_e, scales_e, None, out, 1, E, K, S, "lut_moe_gemv")
     return out
 
 

@@ -12,7 +12,10 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    all-expert W8A16 and W4A16 MoE matmuls, B15, the dequant-matmul over
    untiled codes, and the calibration's B13 dequant and B14 codebook-gradient
    segment sum) against its plain PyTorch version on the card, at the shapes
-   of the serving and calibration paths (K1 at every decode batch bucket of
+   of the serving and calibration paths, K1's and B10's records with the
+   launch their planning functions chose (K1: columns a block, code reads,
+   tables, ring stages, splits, blocks; B10: GEMV or GEMM, tile, stages,
+   splits, blocks) (K1 at every decode batch bucket of
    phase 4's ServeConfig, K2 at every prefill bucket, both also at
    Falcon-7B's fc1, the int8 kernel at both for Llama-2-7B's four
    projections and the lm_head, the int4 kernel at both for the four
@@ -106,6 +109,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -233,6 +237,18 @@ def main_path_rows(serve) -> tuple[list, list]:
     return sorted(decode), sorted(prefill)
 
 
+def _sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def k1_plan_record(p) -> dict:
+    """K1's launch as ``lut_gemv.plan`` chose it: columns a block, the lane's
+    code reads, tables of a chunk, code-ring stages, splits, grid."""
+    return {"cols": p.cols, "rows_computed": p.bp, "colvec": p.colvec, "tables": p.tables,
+            "stages": p.stages, "splits": p.splits, "gb_per_split": p.gb_per_split,
+            "blocks": p.grid[0] * p.grid[1] * p.grid[2], "smem": p.smem}
+
+
 def check_k1_k2(gen, dev, failures):
     from aqlm_tpu_torch.ops import gather_prefill as gp
     from aqlm_tpu_torch.ops import lut_gemv as lg
@@ -250,7 +266,7 @@ def check_k1_k2(gen, dev, failures):
                 if kernel == "lut_gemv":
                     run = lambda i=0: lg.launch(x[i % N_LAYERS_TIMED], codes[i % N_LAYERS_TIMED],
                                                  cb[i % N_LAYERS_TIMED], scales[i % N_LAYERS_TIMED],
-                                                 pm, torch.bfloat16, 8)
+                                                 pm, torch.bfloat16, 8, proj_cols=math.gcd(*sizes))
                     plain = lambda i=0: lg.plain(x[0], codes[0], cb[0], scales[0], pm, torch.bfloat16)
                 else:
                     run = lambda i=0: gp.launch(x[i % N_LAYERS_TIMED], codes[i % N_LAYERS_TIMED],
@@ -266,6 +282,9 @@ def check_k1_k2(gen, dev, failures):
                        "out_features": out_f, "in_features": in_f, "tn": tn, **cmp,
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": None, "host_ms": host_ms(run)}
+                if kernel == "lut_gemv":
+                    rec["plan"] = k1_plan_record(lg.plan(rows, 2, out_f, in_f // 8, tn, P, 1,
+                                                         _sm_count(), math.gcd(*sizes)))
                 emit(rec)
                 if not cmp["ok"]:
                     failures.append(rec)
@@ -632,6 +651,9 @@ def check_moe_codes(gen, dev, failures):
                    "x": "per expert" if per_expert else "shared", **cmp, **route, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library": "none",
                    "library_ms": None, "host_ms": host_ms(run, 20)}
+            if kernel == "lut_moe_gemv":
+                rec["plan"] = k1_plan_record(lg.plan(rows, 2, out_f, in_f // 8, tn, 1, E,
+                                                     _sm_count()))
             emit(rec)
             if not cmp["ok"]:
                 failures.append(rec)
@@ -858,11 +880,15 @@ def check_b10(gen, dev, failures):
                 library_ms = time_ms(library, 10)
             except Exception as exc:  # the yardstick only: recorded, never on the port's path
                 library_error = str(exc).strip().splitlines()[0][:200]
+            pt = im.plan_t(rows, out_f, ld, _sm_count())
             rec = {"phase": "check", "kernel": "int8_matmul_transposed", "proj": name,
                    "rows": rows, "out_features": out_f, "in_features": ld, "true_in": in_f,
                    **cmp, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library": "torch._weight_int8pack_mm", "library_ms": library_ms,
-                   "library_error": library_error, "host_ms": host_ms(run)}
+                   "library_error": library_error, "host_ms": host_ms(run),
+                   "plan": {"path": pt.path, "tile": pt.tile, "stages": pt.stages,
+                            "splits": pt.splits, "per_split": pt.per_split,
+                            "blocks": pt.grid[0] * pt.grid[1] * pt.grid[2], "smem": pt.smem}}
             emit(rec)
             if not cmp["ok"]:
                 failures.append(rec)
@@ -2039,6 +2065,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        **({"plan": r["plan"]} if "plan" in r else {}),
                         "shape": {k: r[k] for k in r if k in (
                             "proj", "experts", "rows", "kv", "window", "B", "max_len", "groups",
                             "form", "cache", "lengths", "splits", "keys_per_split", "lanes",

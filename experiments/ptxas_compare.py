@@ -4,8 +4,11 @@
     python3 experiments/ptxas_compare.py NEW_ptxas.txt OLD_ptxas.txt
 
 With two reports (chip_smoke.py's ``chiprun_out/ptxas.txt`` of two
-checkouts), every source's instances are matched by name and template
-arguments, and each difference is printed with the count that match.
+checkouts, or experiments/torch_k1_b10_ab.py's ``ptxas_new.txt`` and
+``ptxas_parent.txt``), every source's instances are matched by name and
+template arguments, and each difference is printed with the count that
+match; for int8_matmul.cu the forward instances (``int8_gemv_kernel``,
+``int8_gemm_kernel``) are also counted apart from the backward's.
 
 Reads a report written by experiments/torch_codes_probe.py (sections
 ``== <source>.o.log`` of this checkout and ``== parent <source>.cu rc 0`` of
@@ -62,11 +65,19 @@ def compare(name, new, old):
     print(f"{name}: {same} of {len(new)} instances unchanged (the other has {len(old)})")
 
 
+FORWARD_INT8 = ("int8_gemv_kernel<", "int8_gemm_kernel<")
+
+
 def main_two(path_new, path_old):
     a, b = sections_of(path_new), sections_of(path_old)
     for src in sorted(set(a) | set(b)):
-        compare(src, {key(k): v for k, v in a.get(src, {}).items()},
-                {key(k): v for k, v in b.get(src, {}).items()})
+        new = {key(k): v for k, v in a.get(src, {}).items()}
+        old = {key(k): v for k, v in b.get(src, {}).items()}
+        compare(src, new, old)
+        if src.startswith("int8_matmul"):
+            fwd = [k for k in old if k.startswith(FORWARD_INT8)]
+            same = sum(new.get(k) == old[k] for k in fwd)
+            print(f"{src}: forward instances: {same} of {len(fwd)} unchanged")
 
 
 def main(path):

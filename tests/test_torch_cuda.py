@@ -15,6 +15,7 @@ f32 output (the weight rounded to bf16, as K2 rounds it), within one step."""
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -1325,3 +1326,93 @@ def test_gather_wraps_kernel_matches_plain(dev):
     assert torch.equal(k.gather_wraps_launch(tab2, idx2), k.gather_wraps_plain(tab2, idx2))
     k._GATHER_WRAPS.pop("cuda", None)
     assert k.gather_wraps() is True
+
+
+# --------------------------------------------------------------------------- K1's tables and B10's two paths
+
+
+@pytest.mark.parametrize("K", [1, 2, 8])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_lut_gemv_tables_match_plain(dev, rows, K):
+    """K1 (per-block shared-memory tables) at every row count and 1, 2 and 8
+    codebooks: fused 128 + 128 (a proj_map; a block per 128-column tile),
+    one 256-column projection over 4096 inputs (split input groups), bf16
+    and f32 x and output; within one bf16 step of its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(rows * 10 + K)
+    for sizes, in_f in (((128, 128), 1024), ((256,), 4096)):
+        codes, cb, scales = _codes_k(gen, dev, sizes, in_f, K)
+        pm = lg.proj_map_for(sizes, codes.shape[-1], dev) if len(sizes) > 1 else None
+        x = torch.randn((rows, in_f), generator=gen, device=dev)
+        for xt in (x.to(torch.bfloat16), x):
+            for out_dtype in (torch.bfloat16, torch.float32):
+                before = _build.KERNELS["lut_gemv"].launches
+                got = lg.launch(xt, codes[1], cb[1], scales[1], pm, out_dtype, 8,
+                                proj_cols=math.gcd(*sizes))
+                assert _build.KERNELS["lut_gemv"].launches == before + 1
+                assert got.dtype == out_dtype and got.shape == (rows, sum(sizes))
+                _close(got, lg.plain(xt, codes[1], cb[1], scales[1], pm, out_dtype))
+
+
+@pytest.mark.parametrize("K", [1, 2, 8])
+@pytest.mark.parametrize("rows", [1, 2, 4, 5, 8])
+def test_lut_moe_gemv_tables_match_plain(dev, rows, K):
+    """K1's all-expert instance at 1, 2 and 8 codebooks, shared and
+    per-expert x, bf16 and f32: f32 out within one bf16 step of the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(rows * 10 + K)
+    E, out_f, in_f = 3, 256, 2048
+    codes = torch.randint(0, 256, (E, out_f // 128, in_f // 8 * K, 128), generator=gen,
+                          device=dev, dtype=torch.int32).to(torch.uint8)
+    cb = (torch.randn((E, K, 256, 8), generator=gen, device=dev) / (2 * K)).to(torch.bfloat16)
+    scales = torch.rand((E, out_f), generator=gen, device=dev) + 0.5
+    for per_expert in (False, True):
+        x = torch.randn((E, rows, in_f) if per_expert else (rows, in_f), generator=gen, device=dev)
+        for xt in (x.to(torch.bfloat16), x):
+            before = _build.KERNELS["lut_moe_gemv"].launches
+            got = lg.moe_launch(xt, codes, cb, scales, 8)
+            assert _build.KERNELS["lut_moe_gemv"].launches == before + 1
+            _close(got, lg.moe_plain(xt, codes, cb, scales))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 4, 8])
+def test_lut_gemv_ragged_blocks_match_plain(dev, rows):
+    """K1's 512-column blocks cut at a projection's end: fused 1152 + 1152
+    (three blocks a projection, the last 128 wide), and the all-expert
+    instance at E=8, OUT 2176 (five blocks an expert, the last 128 wide),
+    bf16 x; within one bf16 step of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    sizes = (1152, 1152)
+    codes, cb, scales = _codes_k(gen, dev, sizes, 512, 2)
+    pm = lg.proj_map_for(sizes, codes.shape[-1], dev)
+    assert lg.plan(rows, 2, 2304, 64, 128, 2, 1, 132, 1152).blocks_per_proj == 3
+    x = torch.randn((rows, 512), generator=gen, device=dev).to(torch.bfloat16)
+    got = lg.lut_gemv_kx8_grouped_indexed(x, codes, cb, scales, sizes, 1, group=8)
+    _close(got, lg.plain(x, codes[1], cb[1], scales[1], pm, torch.bfloat16))
+    E, out_f = 8, 2176
+    assert lg.plan(rows, 2, out_f, 64, 128, 1, E).blocks_per_proj == 5
+    mcodes = torch.randint(0, 256, (E, out_f // 128, 128, 128), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.uint8)
+    mcb = (torch.randn((E, 2, 256, 8), generator=gen, device=dev) / 4).to(torch.bfloat16)
+    mscales = torch.rand((E, out_f), generator=gen, device=dev) + 0.5
+    mx = torch.randn((rows, 512), generator=gen, device=dev).to(torch.bfloat16)
+    _close(lg.moe_launch(mx, mcodes, mcb, mscales, 8), lg.moe_plain(mx, mcodes, mcb, mscales))
+
+
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 2, 8, 9, 64, 200, 1024])
+@pytest.mark.parametrize("out_f,ld", [(200, 1008), (4104, 2064)])
+def test_int8_matmul_transposed_paths_at_ragged_edges(dev, out_f, ld, rows, g_dtype):
+    """B10's GEMV (<= 8 rows) and GEMM at OUT a multiple of 8 but not of 64
+    and IN_pad a multiple of 16 but not of 128, split and unsplit; within one
+    bf16 step of its plain version, the same bytes on a second launch."""
+    gen = torch.Generator(device=dev).manual_seed(out_f + rows)
+    w8 = torch.randint(-127, 128, (out_f, ld), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(out_f, generator=gen, device=dev) / (127 * out_f ** 0.5)
+    g = torch.randn((rows, out_f), generator=gen, device=dev).to(g_dtype)
+    before = _build.KERNELS["int8_matmul_transposed"].launches
+    got = im.launch_t(g, w8, scale)
+    assert _build.KERNELS["int8_matmul_transposed"].launches == before + 1
+    assert got.shape == (rows, ld) and got.dtype == torch.bfloat16
+    _close(got, im.plain_t(g, w8, scale))
+    assert torch.equal(im.launch_t(g, w8, scale), got)
