@@ -221,8 +221,8 @@ def _declare(lib) -> None:
     lib.gather16_gemv_launch.argtypes = [P] * 5 + [I] * 5 + [P]
     lib.gather16_gemm_launch.argtypes = [P] * 7 + [I] * 5 + [P]
     lib.flash_decode_write_launch.argtypes = [P] * 13 + [I] * 8 + [ctypes.c_float, P]
-    lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 8 + [P]
-    lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 8 + [P]
+    lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 11 + [P]
+    lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 11 + [P]
     lib.onehot_matmul_launch.argtypes = [P] * 7 + [I] * 8 + [P]
     lib.calib_dequant_launch.argtypes = [P] * 4 + [L] + [I] * 5 + [P]
     lib.cb_grad_launch.argtypes = [P] * 3 + [L] + [I] * 4 + [P]

@@ -47,40 +47,61 @@
 //   sums and the last block of a row group to finish (an atomic ticket) adds
 //   them in a fixed order, so the result does not change from run to run.
 // - Prefill, T > 8: bound by operations (2*T*OUT*IN on the bf16 tensor
-//   cores; Llama-2-7B at T = 1024: ~414 GFLOP per layer, ~0.42 ms at 989
-//   TFLOP/s). A 256-thread block owns a 64-token x 128-row output tile and
-//   walks the contraction one 128-byte packing block (two groups) at a time:
-//   the x slab, the packed W slab and the two groups' scales arrive by
-//   cp.async, double buffered. Each group is one run of eight mma.sync
-//   m16n8k16 bf16 products into a per-group f32 fragment, which is then
-//   added into the accumulator times the group scale of its output column
-//   (mma.sync's fragment layout says which column each element holds). The
-//   nibbles are widened in registers straight into the B fragments as
-//   bf16 (q - 8), which is exact; the weights are never rounded with their
-//   scale. On both paths the contraction order within each 16-column step is
-//   permuted (column 4t + e of the step is mma index 2t + (e & 1) +
-//   8 (e >> 1)), the same for x and W, so a thread's four weights of a row
-//   are one 32-bit word of four packed bytes and its four activations one
-//   64-bit load.
-//   Where the output tiles alone would not fill the card twice, the
-//   contraction is split over blocks, reduced as on the decode path. A
-//   wgmma/TMA pipeline with warp specialisation is later work.
+//   cores; Llama-2-7B's fused qkv at T = 1024: 103 GFLOP, 0.104 ms at 989
+//   TFLOP/s), laid out by the wrapper's planning function (int4_matmul.plan)
+//   in int8_matmul.cu's shape. A 384-thread block owns a 128 x 128 (or 64 x
+//   128) tile of y and walks the contraction in 64-column slabs, four to a
+//   packing block:
+//     - the producer warp keeps two rings in flight: the x tile [BM x 64]
+//       by TMA (128-byte swizzle; a 3-D map, so per-expert x is a
+//       coordinate; rows past T and columns past in_features arrive as
+//       zeros), and once a packing block the packed slab [128 OUT x 128
+//       bytes] by TMA (128-byte swizzle, so that rows of 128 bytes do not
+//       meet on a bank) with its two groups' scales by the lanes' cp.async;
+//     - three dequantiser warps unpack one nibble of each byte of the slab
+//       (the low nibbles are group 2i's 128 columns in order, the high ones
+//       group 2i + 1's) exactly into bf16 (q - 8): the bf16 with bits 0x43qq
+//       is 128 + q, minus 136 (nib4_to_bf16x2); straight into wgmma's
+//       K-major core-matrix layout, one of four W^T buffers, each phase's
+//       reads and writes on eight bank groups;
+//     - two consumer warpgroups (64 rows each) run wgmma.mma_async
+//       m64n128k16 over a group's two slabs into a group accumulator, then
+//       fold it in with the group's scales in f32 (acc += s[g, o] * group
+//       sum); nothing is rounded with its scale. At T <= 64, where a second
+//       64-row warpgroup would hold only padding, the tile is 64 rows and
+//       the two warpgroups take alternate groups, adding their sums at the
+//       end (KSPLIT).
+//   The fold waits for its group's products, so a warpgroup's tensor work
+//   drains once a group: with the dequantisers it is what bounds the kernel
+//   (experiments/torch_int8_int4_ablate.py). Making the two warpgroups take
+//   turns, so that one folds while the other's products run, was slower; a
+//   second group accumulator, so that a warpgroup folds while its next
+//   group's products run, needs more registers than ptxas gives a 384-thread
+//   block even under setmaxnreg (it spilled). Each weight is unpacked
+//   ceil(T / 128) times (ceil(T / 64) at T <= 64). Where the output tiles
+//   would leave the card idle, the contraction is split over blocks (in
+//   whole packing blocks): each writes f32 partial sums and the last block of
+//   an output tile to finish (an atomic ticket) adds them in a fixed order.
 //
 // All experts (MoE): w4 [E, OUT, ldb], gscale [E, 2 * ldb / 128, OUT], out
 // [E, T, OUT]; x is [T, in_features] shared by every expert (gate and up)
 // or [E, T, in_features], one slab per expert (down), never padded. One
 // launch covers every expert: the expert is the decode grid's z axis and is
 // folded with the splits into the prefill grid's z axis; each block offsets
-// its pointers by its expert, and split partial sums and tickets are per
-// expert, so the last-block reduction never mixes experts. Mixtral-8x7B
+// its pointers (decode) or its tensor-map coordinates (prefill) by its
+// expert, and split partial sums and tickets are per expert, so the
+// last-block reduction never mixes experts. Mixtral-8x7B
 // decode at T = 4 reads 235 MB of gate nibbles and 14.7 MB of scales
 // (~0.075 ms at 3.35 TB/s): the same tensor-core GEMV with E times the
 // blocks. The expert axis is a template flag (MOE): a single matrix runs
 // the kernels compiled without it, so their registers and code stay those
 // of the one-matrix kernels.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace aqlm;
 
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                                uint32_t b1) {
@@ -246,245 +267,386 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,  // [T, in_features], or [
 }
 
 // ---------------------------------------------------------------------------
-// prefill: T > 8
+// prefill: T > 8 (int4_matmul.plan lays it out)
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64;    // tokens per block
-constexpr int BN = 128;   // output rows per block
-constexpr int BK = 256;   // contraction columns per step: one packing block, two groups
-constexpr int GT = 256;   // threads per block: 8 warps, 2 (tokens) x 4 (rows), 32 x 32 each
-constexpr int XLD = BK + 16;        // padded shared row (bf16) of the x slab: 544 bytes
-constexpr int WLD = BK / 2 + 16;    // padded shared row (bytes) of the packed W slab
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use on an H100
+constexpr int Q_BN = 128;           // output channels per block
+constexpr int Q_BK = 64;            // x columns per slab; four slabs a packing block
+constexpr int Q_PB = 128;           // bytes of a packing block's row: 256 columns, 2 groups
+constexpr int Q_NB = 4;             // W^T buffers: two groups
+constexpr int Q_DQ = 96;            // dequantiser threads: warps 9-11
+constexpr int Q_CONSUMERS = 8;      // warps 0-7; warp 8 is the producer
+constexpr int Q_THREADS = 384;
+constexpr int Q_MAX_STAGES = 8;
 
-struct GemmSmem {  // byte offsets in the dynamic shared memory
-  size_t x[2], w[2], s[2], flag, total;
-  __host__ __device__ GemmSmem() {
-    size_t o = 0;
-    for (int i = 0; i < 2; ++i) {
-      x[i] = o;
-      o += (size_t)BM * XLD * 2;
-      w[i] = o;
-      o += (size_t)BN * WLD;
-      s[i] = o;
-      o += (size_t)2 * BN * 4;
-    }
-    flag = o;
-    total = o + 16;
-  }
+// Byte offsets in the dynamic shared memory from its first 1024-aligned
+// byte (the swizzled TMA tiles need it; hence the 1024 bytes of slack):
+// the x ring, two packed slabs and their scales, four W^T buffers, the
+// barriers, the split path's flag. int4_matmul.plan computes the same
+// total, and a launch whose total differs is refused. With KSPLIT the x ring
+// (at least 32 KB) also passes warpgroup 1's sums to warpgroup 0 at the end.
+struct QLayout {
+  int bm, stages;
+  __host__ __device__ QLayout(int bm_, int st) : bm(bm_), stages(st) {}
+  __host__ __device__ int x(int s) const { return s * bm * Q_BK * 2; }
+  __host__ __device__ int w4(int b) const { return x(stages) + b * Q_BN * Q_PB; }
+  __host__ __device__ int sc(int b) const { return w4(2) + b * 2 * Q_BN * 4; }
+  __host__ __device__ int bt(int i) const { return sc(2) + i * Q_BN * Q_BK * 2; }
+  __host__ __device__ int bar() const { return bt(Q_NB); }
+  __host__ __device__ int n_bars() const { return 2 * stages + 4 + 2 * Q_NB; }
+  __host__ __device__ int flag() const { return bar() + n_bars() * 8; }
+  __host__ __device__ int total() const { return flag() + 16 + 1024; }
 };
 
-template <bool MOE>
-__global__ void __launch_bounds__(GT, 2)
-int4_gemm_kernel(const __nv_bfloat16* __restrict__ x,  // [T, in_features], or [E, T, ...]
-                 const uint8_t* __restrict__ w4,        // [E, OUT, ldb] of one layer
-                 const float* __restrict__ gscale,      // [E, 2 * ldb / 128, OUT]
-                 __nv_bfloat16* __restrict__ out,       // [E, T, OUT]
-                 float* __restrict__ partials,          // [E, splits, Tpad, OUT] when split
-                 int* __restrict__ tickets,             // [E, row tiles * col tiles] zeroed
-                 int T, int out_features, int in_features, int ldb, int cols_per_split,
-                 int splits, int x_per_expert) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const GemmSmem L;
-  int& s_last = *reinterpret_cast<int*>(smem + L.flag);
-
-  // z = expert * splits + split with MOE, the split alone without
-  const int n_splits = MOE ? splits : (int)gridDim.z;
-  const int split = MOE ? (int)blockIdx.z % splits : (int)blockIdx.z;
-  if (MOE) {  // the expert is a pointer offset
-    const size_t ex = blockIdx.z / splits;
-    x += x_per_expert ? ex * T * in_features : 0;
-    w4 += ex * out_features * ldb;
-    gscale += ex * (2 * ldb / 128) * out_features;
-    out += ex * T * out_features;
-    if (splits > 1) {
-      partials += ex * splits * gridDim.y * BM * out_features;
-      tickets += ex * gridDim.y * gridDim.x;
-    }
-  }
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int col0 = blockIdx.x * BN;  // first output row of W (output column of y)
-  const int row0 = blockIdx.y * BM;  // first token
-  const int k_begin = split * cols_per_split;
-  const int k_end = min(in_features, k_begin + cols_per_split);
-  const int n_steps = (k_end - k_begin + BK - 1) / BK;
-
-  auto load_step = [&](int s, int stage) {
-    const int k0 = k_begin + s * BK;
-    __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem + L.x[stage]);
-    for (int i = tid; i < BM * (BK / 8); i += GT) {
-      const int r = i / (BK / 8), c = i % (BK / 8);
-      const bool valid = row0 + r < T && k0 + c * 8 < k_end;
-      const __nv_bfloat16* src = valid ? x + (size_t)(row0 + r) * in_features + k0 + c * 8 : x;
-      aqlm::cp_async16(sx + r * XLD + c * 8, src, valid);
-    }
-    uint8_t* sw = smem + L.w[stage];
-    for (int i = tid; i < BN * (BK / 32); i += GT) {  // 128 bytes a row: 8 x 16
-      const int r = i / (BK / 32), c = i % (BK / 32);
-      const bool valid = col0 + r < out_features;
-      const uint8_t* src = valid ? w4 + (size_t)(col0 + r) * ldb + k0 / 2 + c * 16 : w4;
-      aqlm::cp_async16(sw + r * WLD + c * 16, src, valid);
-    }
-    float* ss = reinterpret_cast<float*>(smem + L.s[stage]);
-    {  // the two groups' scales of the block's rows: one per thread
-      const int g = tid / BN, r = tid % BN;
-      const bool valid = col0 + r < out_features;
-      const float* src = valid ? gscale + (size_t)(k0 / 128 + g) * out_features + col0 + r : gscale;
-      aqlm::cp_async4(ss + g * BN + r, src, valid);
-    }
-    aqlm::cp_async_commit();
-  };
-
-  const int wm = warp / 4, wn = warp % 4;  // warp's 32 x 32 sub-tile
-  const int gid = lane / 4, tig = lane % 4;
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  if (n_steps > 0) load_step(0, 0);
-  int stage = 0;
-  for (int s = 0; s < n_steps; ++s, stage ^= 1) {
-    if (s + 1 < n_steps) {
-      load_step(s + 1, stage ^ 1);
-      aqlm::cp_async_wait<1>();
-    } else {
-      aqlm::cp_async_wait<0>();
-    }
-    __syncthreads();  // step s visible to all
-    const __nv_bfloat16* sx = reinterpret_cast<const __nv_bfloat16*>(smem + L.x[stage]);
-    const uint8_t* sw = smem + L.w[stage];
-    const float* ss = reinterpret_cast<const float*>(smem + L.s[stage]);
-    const int k0 = k_begin + s * BK;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {  // group 2i (low nibbles), then 2i + 1 (high)
-      if (k0 + half * 128 >= k_end) break;  // a group wholly past the end meets zeros
-      float gacc[2][4][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) gacc[i][j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {  // 16 columns a step
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const __nv_bfloat16* p = sx + (wm * 32 + i * 16 + gid) * XLD + half * 128 + kk * 16 + 4 * tig;
-          const uint2 top = *reinterpret_cast<const uint2*>(p);
-          const uint2 bot = *reinterpret_cast<const uint2*>(p + 8 * XLD);
-          a[i][0] = top.x;  // (row gid, mma k 2t, 2t+1) = columns 4t, 4t+1
-          a[i][1] = bot.x;  // (row gid + 8, the same)
-          a[i][2] = top.y;  // (row gid, mma k 2t+8, 2t+9) = columns 4t+2, 4t+3
-          a[i][3] = bot.y;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t v = *reinterpret_cast<const uint32_t*>(
-              sw + (wn * 32 + j * 8 + gid) * WLD + kk * 16 + 4 * tig);
-          uint32_t b0, b1;
-          nib4_to_bf16x2(half == 0 ? (v & 0x0F0F0F0Fu) : ((v >> 4) & 0x0F0F0F0Fu), b0, b1);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) mma_bf16_16816(gacc[i][j], a[i], b0, b1);
-        }
-      }
-      // fold the group in with its scale: element e holds column 2t + (e & 1)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 sc = *reinterpret_cast<const float2*>(ss + half * BN + wn * 32 + j * 8 + 2 * tig);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          acc[i][j][0] = fmaf(gacc[i][j][0], sc.x, acc[i][j][0]);
-          acc[i][j][1] = fmaf(gacc[i][j][1], sc.y, acc[i][j][1]);
-          acc[i][j][2] = fmaf(gacc[i][j][2], sc.x, acc[i][j][2]);
-          acc[i][j][3] = fmaf(gacc[i][j][3], sc.y, acc[i][j][3]);
-        }
-      }
-    }
-    __syncthreads();  // stage free for reuse
-  }
-
-  // element (i, j, e): token row0 + wm*32 + i*16 + gid + 8*(e >> 1),
-  // output column col0 + wn*32 + j*8 + 2*tig + (e & 1)
-  if (n_splits > 1) {
-    // split contraction: park the f32 partial tile, the last block sums
-    const int t_pad = gridDim.y * BM;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = row0 + wm * 32 + i * 16 + gid + 8 * (e >> 1);
-          const int o = col0 + wn * 32 + j * 8 + 2 * tig + (e & 1);
-          if (o < out_features)
-            partials[((size_t)split * t_pad + row) * out_features + o] = acc[i][j][e];
-        }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0)
-      s_last = atomicAdd(tickets + blockIdx.y * gridDim.x + blockIdx.x, 1) == n_splits - 1;
-    __syncthreads();
-    if (!s_last) return;
-    __threadfence();
-    for (int e = tid; e < BM * BN; e += GT) {
-      const int r = e / BN, o = col0 + e % BN;
-      if (row0 + r >= T || o >= out_features) continue;
-      float v = 0.f;
-      for (int z = 0; z < n_splits; ++z)
-        v += __ldcg(partials + ((size_t)z * t_pad + row0 + r) * out_features + o);
-      out[(size_t)(row0 + r) * out_features + o] = __float2bfloat16(v);
-    }
-    return;
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + wm * 32 + i * 16 + gid + 8 * (e >> 1);
-        const int o = col0 + wn * 32 + j * 8 + 2 * tig + (e & 1);
-        if (row < T && o < out_features)
-          out[(size_t)row * out_features + o] = __float2bfloat16(acc[i][j][e]);
-      }
+// Dequantiser unit u of a slab: 16 bytes (column chunk kp of the slab's
+// half of the packing block) of row n. The eight lanes of a 16-byte phase
+// (u = 8 p + q) take rows 8 (u / 32) + q and one chunk: their stores
+// (core-matrix row n % 8) and their reads (the TMA's 128-byte swizzle puts
+// chunk c of row n at c ^ (n % 8)) each meet eight bank groups.
+__device__ __forceinline__ void dq_unit(int u, int& n, int& kp) {
+  n = (u >> 5) * 8 + (u & 7);
+  kp = (u >> 3) & 3;
 }
 
-template <bool MOE>
+// Quarter jj of a packing block's slab (bytes 64 (jj % 2) .. + 63 of each
+// row, low nibbles for jj < 2) unpacked into W^T by the Q_DQ dequantiser
+// threads (dt: this thread's index among them). A thread's units are
+// u = dt + Q_DQ i; all its loads are issued first, so that their latencies
+// overlap.
+__device__ __forceinline__ void unpack_slab(const unsigned char* __restrict__ sw,
+                                            unsigned char* __restrict__ sb, int dt, int jj) {
+  constexpr int UNITS = (Q_BN * 4 + Q_DQ - 1) / Q_DQ;
+  const int shift = (jj >> 1) * 4;
+  uint4 v[UNITS];
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    const int u = dt + i * Q_DQ;
+    int n, kp;
+    dq_unit(u, n, kp);
+    if (u < Q_BN * 4)
+      v[i] = *reinterpret_cast<const uint4*>(sw + n * Q_PB + (((jj & 1) * 4 + kp) ^ (n & 7)) * 16);
+  }
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    const int u = dt + i * Q_DQ;
+    if (u >= Q_BN * 4) continue;
+    int n, kp;
+    dq_unit(u, n, kp);
+    uint32_t h[8];
+    nib4_to_bf16x2((v[i].x >> shift) & 0x0F0F0F0Fu, h[0], h[1]);
+    nib4_to_bf16x2((v[i].y >> shift) & 0x0F0F0F0Fu, h[2], h[3]);
+    nib4_to_bf16x2((v[i].z >> shift) & 0x0F0F0F0Fu, h[4], h[5]);
+    nib4_to_bf16x2((v[i].w >> shift) & 0x0F0F0F0Fu, h[6], h[7]);
+    unsigned char* d = sb + ((n >> 3) * (Q_BK / 8) + 2 * kp) * 128 + (n & 7) * 16;
+    *reinterpret_cast<uint4*>(d) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(d + 128) = make_uint4(h[4], h[5], h[6], h[7]);
+  }
+}
+
+// KSPLIT: a 64-row tile whose two consumer warpgroups take alternate groups
+// of the contraction and add their sums at the end (T <= 64, where a second
+// warpgroup of rows would hold only padding); else a 128-row tile, 64 rows
+// a warpgroup.
+template <bool MOE, bool KSPLIT>
+__global__ void __launch_bounds__(Q_THREADS, 1)
+int4_gemm_kernel(const __grid_constant__ CUtensorMap x_map,  // x [E or 1, T, in_features] bf16
+                 const __grid_constant__ CUtensorMap w_map,  // w4 [E, OUT, ldb] uint8
+                 const float* __restrict__ gscale,           // [E, n_groups, OUT]
+                 __nv_bfloat16* __restrict__ out,            // [E, T, OUT]
+                 float* __restrict__ partials,               // [E, splits, Tpad, OUT] when split
+                 int* __restrict__ tickets,                  // [E, row tiles, col tiles] zeroed
+                 int T, int out_features, int in_features, int n_groups, int splits,
+                 int blocks_per_split, int stages, int x_per_expert) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  constexpr int BM = KSPLIT ? 64 : 128;
+  constexpr int SLAB_USERS = KSPLIT ? 4 : Q_CONSUMERS;  // consumer warps reading a slab
+  const QLayout L(BM, stages);
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(smem + L.bar());
+  uint64_t* xempty = xfull + stages;
+  uint64_t* wfull = xempty + stages;
+  uint64_t* wempty = wfull + 2;
+  uint64_t* bfull = wempty + 2;
+  uint64_t* bempty = bfull + Q_NB;
+  int& s_last = *reinterpret_cast<int*>(smem + L.flag());
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // z = expert * splits + split with MOE, the split alone without
+  const int e = MOE ? (int)blockIdx.z / splits : 0;
+  const int sp = MOE ? (int)blockIdx.z % splits : (int)blockIdx.z;
+  const int col0 = blockIdx.x * Q_BN, row0 = blockIdx.y * BM;
+  const int n_blocks = (in_features + 2 * Q_PB - 1) / (2 * Q_PB);
+  const int b_begin = sp * blocks_per_split;
+  const int n_local = 4 * (min(n_blocks, b_begin + blocks_per_split) - b_begin);  // slabs
+  if (MOE) {  // x and w4 take the expert as a tensor-map coordinate
+    gscale += (size_t)e * n_groups * out_features;
+    out += (size_t)e * T * out_features;
+  }
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(xfull + i, 1);  // the producer's expect_tx; its TMA completes it
+      mbar_init(xempty + i, SLAB_USERS);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(wfull + i, 33);  // the producer's 32 lanes' scale copies and its TMA
+      mbar_init(wempty + i, Q_DQ / 32 + Q_CONSUMERS);
+    }
+    for (int i = 0; i < Q_NB; ++i) {
+      mbar_init(bfull + i, Q_DQ / 32);
+      mbar_init(bempty + i, SLAB_USERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == Q_CONSUMERS) {
+    // the producer: packing block b -> packed stage b % 2 (refilled once
+    // its dequantisers and consumers released it), slab j -> x stage
+    // j % stages (refilled once its consumers released it)
+    for (int j = 0; j < n_local; ++j) {
+      if ((j & 3) == 0) {
+        const int b = j >> 2, ws = b & 1, p = b_begin + b;
+        if (b >= 2) mbar_wait(wempty + ws, (b / 2 - 1) & 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(wfull + ws, Q_BN * Q_PB);
+          tma_load_3d(smem + L.w4(ws), &w_map, p * Q_PB, col0, e, wfull + ws);
+        }
+        float* sc = reinterpret_cast<float*>(smem + L.sc(ws));
+        for (int q = lane; q < 2 * Q_BN; q += 32) {  // groups 2p and 2p + 1, zeros past OUT
+          const int r = q % Q_BN;
+          const bool valid = col0 + r < out_features;
+          const float* src =
+              valid ? gscale + (size_t)(2 * p + q / Q_BN) * out_features + col0 + r : gscale;
+          aqlm::cp_async4(sc + q, src, valid);
+        }
+        mbar_arrive_cp_async(wfull + ws);
+      }
+      const int st = j % stages;
+      if (j >= stages) mbar_wait(xempty + st, (j / stages - 1) & 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(xfull + st, BM * Q_BK * 2);
+        tma_load_3d(smem + L.x(st), &x_map, (4 * b_begin + j) * Q_BK, row0, x_per_expert ? e : 0,
+                    xfull + st);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its issuer
+  } else if (warp > Q_CONSUMERS) {
+    // dequantisers: slab j (quarter jj of packing block j / 4: bytes
+    // 64 (jj % 2) .. + 63 of each row, low nibbles for jj < 2) -> bf16 (q - 8)
+    // core matrices (n / 8, i / 8) of W^T buffer j % 4
+    const int dt = tid - (Q_CONSUMERS + 1) * 32;
+    for (int j = 0; j < n_local; ++j) {
+      const int b = j >> 2, ws = b & 1, jj = j & 3, wb = j % Q_NB;
+      if (jj == 0) mbar_wait(wfull + ws, (b / 2) & 1);
+      if (j >= Q_NB) mbar_wait(bempty + wb, (j / Q_NB - 1) & 1);
+      unpack_slab(smem + L.w4(ws), smem + L.bt(wb), dt, jj);  // unpack
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(bfull + wb);
+        if (jj == 3) mbar_arrive(wempty + ws);
+      }
+    }
+  } else {
+    // consumers. Group g is slabs 2g and 2g + 1; a group's products go into
+    // gacc, then are folded into acc with the group's scales once they are
+    // done. Row split (!KSPLIT): warpgroup wg owns rows [64 wg, 64 wg + 64)
+    // and runs every group. KSPLIT: both own the tile's 64 rows; warpgroup wg
+    // runs the groups g = wg mod 2.
+    const int wg = warp >> 2;
+    const bool active = KSPLIT || row0 + wg * 64 < T;  // padding rows only wait
+    float acc[64], gacc[64];  // gacc: a group's sum (its first product overwrites it)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = gacc[i] = 0.f;
+    const int n_grp = n_local / 2;
+    for (int g = KSPLIT ? wg : 0; g < n_grp; g += KSPLIT ? 2 : 1) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = 2 * g + q, st = j % stages, wb = j % Q_NB;
+        mbar_wait(xfull + st, (j / stages) & 1);
+        mbar_wait(bfull + wb, (j / Q_NB) & 1);
+        __syncwarp();  // converged for the .aligned wgmma instructions
+        if (active) {  // the slab's products
+          fence_proxy_async();
+          wgmma_fence();
+          const unsigned char* sa = smem + L.x(st) + (KSPLIT ? 0 : wg * 64 * Q_BK * 2);
+          const unsigned char* sb = smem + L.bt(wb);
+#pragma unroll
+          for (int kk = 0; kk < Q_BK / 16; ++kk)
+            wgmma_m64n128k16(gacc, make_desc_sw128(sa + kk * 32), make_desc(sb + kk * 256),
+                             q | kk);
+          wgmma_commit();
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {  // release each slab once its products are done
+        if (q == 0) wgmma_wait<1>();  // (an idle warpgroup has none in flight)
+        else wgmma_wait<0>();
+        const int j = 2 * g + q;
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(xempty + j % stages);
+          mbar_arrive(bempty + j % Q_NB);
+        }
+      }
+      // fold: acc += s[g, o] * group sum, the scales from the packed stage
+      const int b = g >> 1, ws = b & 1;
+      mbar_wait(wfull + ws, (b / 2) & 1);
+      fence_regs(gacc);
+      if (active) {
+        const float* s = reinterpret_cast<const float*>(smem + L.sc(ws)) + (g & 1) * Q_BN +
+                         (lane & 3) * 2;
+#pragma unroll
+        for (int c = 0; c < Q_BN / 8; ++c) {
+          const float2 sv = *reinterpret_cast<const float2*>(s + 8 * c);
+          acc[4 * c] = fmaf(gacc[4 * c], sv.x, acc[4 * c]);
+          acc[4 * c + 1] = fmaf(gacc[4 * c + 1], sv.y, acc[4 * c + 1]);
+          acc[4 * c + 2] = fmaf(gacc[4 * c + 2], sv.x, acc[4 * c + 2]);
+          acc[4 * c + 3] = fmaf(gacc[4 * c + 3], sv.y, acc[4 * c + 3]);
+        }
+      }
+      if (KSPLIT || (g & 1)) {  // this warpgroup is done with the packing block's scales
+        __syncwarp();
+        if (lane == 0) mbar_arrive(wempty + ws);
+      }
+    }
+    if (KSPLIT) {
+      // warpgroup 1's sums join warpgroup 0's through the x ring, which no
+      // copy or product touches any more once both have left the loop
+      float* red = reinterpret_cast<float*>(smem + L.x(0));
+      const int t128 = tid & 127;
+      bar_sync(1, Q_CONSUMERS * 32);
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) red[i * 128 + t128] = acc[i];
+      }
+      bar_sync(1, Q_CONSUMERS * 32);
+      if (wg == 1 && splits == 1) return;
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += red[i * 128 + t128];
+      }
+    }
+
+    // accumulator 4c + 2h + p of thread (warp, lane): row 16 (warp % 4) +
+    // lane / 4 + 8 h of the warpgroup's 64, column 8 c + 2 (lane % 4) + p
+    const int rbase = row0 + (KSPLIT ? 0 : wg * 64) + (warp & 3) * 16 + (lane >> 2);
+    const int cbase = col0 + (lane & 3) * 2;
+    const bool pair = (out_features & 1) == 0;
+    const bool writer = !KSPLIT || wg == 0;  // KSPLIT: warpgroup 0 holds the sums
+    if (splits == 1) {
+#pragma unroll
+      for (int c = 0; c < Q_BN / 8; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = rbase + 8 * h, col = cbase + 8 * c;
+          if (row >= T || col >= out_features) continue;
+          __nv_bfloat16* o = out + (size_t)row * out_features + col;
+          if (pair) {
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+          } else {
+            o[0] = __float2bfloat16(acc[4 * c + 2 * h]);
+            if (col + 1 < out_features) o[1] = __float2bfloat16(acc[4 * c + 2 * h + 1]);
+          }
+        }
+      return;
+    }
+    // split contraction: park the f32 partial tile, the last block sums
+    const int t_pad = gridDim.y * BM;
+    float* part = partials + ((size_t)e * splits + sp) * t_pad * out_features;
+#pragma unroll
+    for (int c = 0; c < Q_BN / 8; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rbase + 8 * h, col = cbase + 8 * c;
+        if (!writer || row >= T || col >= out_features) continue;
+        float* p = part + (size_t)row * out_features + col;
+        if (pair) {
+          *reinterpret_cast<float2*>(p) = make_float2(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+        } else {
+          p[0] = acc[4 * c + 2 * h];
+          if (col + 1 < out_features) p[1] = acc[4 * c + 2 * h + 1];
+        }
+      }
+    __threadfence();
+    bar_sync(1, Q_CONSUMERS * 32);
+    if (tid == 0)
+      s_last = atomicAdd(tickets + ((size_t)e * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x,
+                         1) == splits - 1;
+    bar_sync(1, Q_CONSUMERS * 32);
+    if (!s_last) return;
+    __threadfence();
+    reduce_splits<BM, Q_BN, Q_CONSUMERS * 32>(
+        partials + (size_t)e * splits * t_pad * out_features, (size_t)t_pad * out_features, splits,
+        nullptr, out, row0, col0, T, out_features, tid);
+  }
+}
+
+template <bool MOE, bool KSPLIT>
 cudaError_t gemm_launch(const void* x, const void* w4, const void* gscale, void* out,
                         void* partials, void* tickets, int experts, int x_per_expert, int T,
-                        int splits, int cols_per_split, int out_features, int in_features,
-                        int ldb, cudaStream_t stream) {
-  const GemmSmem L;
-  static size_t smem_set = 0;  // one per instantiation
-  if (L.total != smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(int4_gemm_kernel<MOE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.total);
+                        int splits, int blocks_per_split, int stages, int smem, int out_features,
+                        int in_features, int ldb, cudaStream_t stream) {
+  static bool attr_set = false;  // one per instantiation
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(int4_gemm_kernel<MOE, KSPLIT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
     if (e != cudaSuccess) return e;
-    smem_set = L.total;
+    attr_set = true;
   }
-  const dim3 grid((out_features + BN - 1) / BN, (T + BM - 1) / BM, splits * experts);
-  int4_gemm_kernel<MOE><<<grid, GT, L.total, stream>>>(
-      (const __nv_bfloat16*)x, (const uint8_t*)w4, (const float*)gscale, (__nv_bfloat16*)out,
-      (float*)partials, (int*)tickets, T, out_features, in_features, ldb, cols_per_split, splits,
-      x_per_expert);
+  constexpr int BM = KSPLIT ? 64 : 128;
+  const EncodeTiled encode = encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  // x [E or 1][T][in_features]: boxes of 64 columns x BM rows, 128B-swizzled
+  CUtensorMap x_map;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)in_features, (cuuint64_t)T,
+                                (cuuint64_t)(x_per_expert ? experts : 1)};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)in_features * 2, (cuuint64_t)T * in_features * 2};
+  const cuuint32_t x_box[3] = {Q_BK, (cuuint32_t)BM, 1};
+  if (encode(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), x_dims, x_strides,
+             x_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  // w4 [E][OUT][ldb]: boxes of one packing block (128 bytes) x 128 rows, 128B-swizzled
+  CUtensorMap w_map;
+  const cuuint64_t w_dims[3] = {(cuuint64_t)ldb, (cuuint64_t)out_features, (cuuint64_t)experts};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)ldb, (cuuint64_t)out_features * ldb};
+  const cuuint32_t w_box[3] = {Q_PB, Q_BN, 1};
+  if (encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(w4), w_dims, w_strides,
+             w_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const dim3 grid((out_features + Q_BN - 1) / Q_BN, (T + BM - 1) / BM, experts * splits);
+  int4_gemm_kernel<MOE, KSPLIT><<<grid, Q_THREADS, smem, stream>>>(
+      x_map, w_map, (const float*)gscale, (__nv_bfloat16*)out, (float*)partials, (int*)tickets, T,
+      out_features, in_features, 2 * ldb / 128, splits, blocks_per_split, stages, x_per_expert);
   return cudaGetLastError();
 }
 
 template <bool MOE>
 int dispatch(const void* x, const void* w4, const void* gscale, void* out, void* partials,
              void* tickets, int experts, int x_per_expert, int T, int splits, int cols_per_split,
-             int out_features, int in_features, int ldb, cudaStream_t st) {
-  if (T > 8)
-    return gemm_launch<MOE>(x, w4, gscale, out, partials, tickets, experts, x_per_expert, T,
-                            splits, cols_per_split, out_features, in_features, ldb, st);
-  if (T < 1) return cudaErrorInvalidValue;
+             int out_features, int in_features, int ldb, int bm, int stages, int smem,
+             cudaStream_t st) {
+  if (T > 8) {
+    if ((bm != 64 && bm != 128) || stages < 2 || stages > Q_MAX_STAGES || smem > SMEM_LIMIT ||
+        smem != QLayout(bm, stages).total() || (bm == 64 && stages * 64 * Q_BK * 2 < 32768) ||
+        cols_per_split < 2 * Q_PB ||
+        cols_per_split % (2 * Q_PB) || (long long)(splits - 1) * cols_per_split >= in_features)
+      return cudaErrorInvalidValue;
+    if (bm == 64)
+      return gemm_launch<MOE, true>(x, w4, gscale, out, partials, tickets, experts, x_per_expert,
+                                    T, splits, cols_per_split / (2 * Q_PB), stages, smem,
+                                    out_features, in_features, ldb, st);
+    return gemm_launch<MOE, false>(x, w4, gscale, out, partials, tickets, experts, x_per_expert,
+                                   T, splits, cols_per_split / (2 * Q_PB), stages, smem,
+                                   out_features, in_features, ldb, st);
+  }
+  if (bm != 0) return cudaErrorInvalidValue;
   const dim3 grid((out_features + GV_ROWS - 1) / GV_ROWS, splits, experts);
   int4_gemv_kernel<MOE><<<grid, GV_THREADS, 0, st>>>(
       (const __nv_bfloat16*)x, (const uint8_t*)w4, (const float*)gscale, (__nv_bfloat16*)out,
@@ -495,25 +657,32 @@ int dispatch(const void* x, const void* w4, const void* gscale, void* out, void*
 
 }  // namespace
 
-// T <= 8 runs the decode path, more rows the prefill path. w4 [E, OUT, ldb],
+// The forward, as int4_matmul.plan lays it out. w4 [E, OUT, ldb],
 // gscale [E, 2 * ldb / 128, OUT], out [E, T, OUT]; x [T, in_features] shared
 // by the experts (x_per_expert = 0) or [E, T, in_features]; E = 1 for one
 // matrix. ldb is the packed row length (IN_pad / 2, a multiple of 128);
-// in_features <= 2 * ldb and a multiple of 16. splits > 1 splits the
-// contraction into runs of cols_per_split columns (a multiple of 256);
-// partials and tickets are then required: decode [E, splits, T, OUT] f32 and
-// [E, ceil(OUT/16)] int32, prefill [E, splits, ceil(T/64)*64, OUT] f32 and
-// [E, ceil(T/64) * ceil(OUT/128)] int32, tickets zeroed.
+// in_features <= 2 * ldb and a multiple of 16. T <= 8 runs the decode path
+// (bm = 0, static shared memory), more rows the prefill GEMM (bm = 128, or
+// 64 with the contraction's groups split over the two consumer warpgroups;
+// `stages` x-ring stages, `smem` dynamic bytes, checked against the
+// kernel's own layout). splits > 1 splits the contraction into runs of
+// cols_per_split columns (a multiple of 256); partials and tickets are then
+// required: decode [E, splits, T, OUT] f32 and [E, ceil(OUT/16)] int32,
+// prefill [E, splits, ceil(T/bm)*bm, OUT] f32 and [E, ceil(T/bm),
+// ceil(OUT/128)] int32, tickets zeroed.
 extern "C" int int4_matmul_launch(const void* x, const void* w4, const void* gscale, void* out,
                                   void* partials, void* tickets, int experts, int x_per_expert,
                                   int T, int splits, int cols_per_split, int out_features,
-                                  int in_features, int ldb, void* stream) {
-  if (experts < 1 || splits < 1) return cudaErrorInvalidValue;
+                                  int in_features, int ldb, int bm, int stages, int smem,
+                                  void* stream) {
+  if (experts < 1 || splits < 1 || T < 1 || out_features < 1 || in_features < 16 ||
+      in_features % 16 || ldb < Q_PB || ldb % Q_PB || in_features > 2 * ldb)
+    return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (experts > 1)
     return dispatch<true>(x, w4, gscale, out, partials, tickets, experts, x_per_expert, T, splits,
-                          cols_per_split, out_features, in_features, ldb, st);
+                          cols_per_split, out_features, in_features, ldb, bm, stages, smem, st);
   // one matrix (or one expert) needs no offsets: the kernels compiled without them
   return dispatch<false>(x, w4, gscale, out, partials, tickets, 1, 0, T, splits, cols_per_split,
-                         out_features, in_features, ldb, st);
+                         out_features, in_features, ldb, bm, stages, smem, st);
 }

@@ -33,28 +33,48 @@
 //   last block of a row group to finish (an atomic ticket) adds them in a
 //   fixed order, so the result does not change from run to run.
 // - Prefill, T > 8: bound by operations (2*T*OUT*IN on the bf16 tensor cores;
-//   Llama-2-7B at T = 1024: ~414 GFLOP per layer, ~0.42 ms at 989 TFLOP/s).
-//   A 256-thread block owns a 128-token x 128-row output tile and walks the
-//   contraction in 64-wide slabs: the x and int8 W slabs arrive by cp.async,
-//   double buffered; the W slab is widened to bf16 in shared memory (exact:
-//   |w8| <= 127) and eight warps run WMMA 16x16x16 bf16 products into f32
-//   fragments (64 x 32 each); registers are capped so that two blocks share
-//   an SM and one's widening overlaps the other's products (a version with
-//   one barrier per slab instead of three was no faster). The scale and the
-//   cast run in the epilogue.
-//   Where the output tiles alone would not fill the card twice, the
-//   contraction is split over blocks, reduced as on the decode path. A
-//   wgmma/TMA pipeline with warp specialisation is later work.
+//   Llama-2-7B's fused qkv at T = 1024: 103 GFLOP, 0.104 ms at 989
+//   TFLOP/s), laid out by the wrapper's planning function
+//   (int8_matmul.plan), in B10's shape (int8_gemm_t_kernel below): a
+//   warp-specialised block owns a BM x 128 tile of y (BM 256 past 256 rows,
+//   128 past 64, else 64) and walks the contraction in 64-column slabs:
+//     - the producer warp keeps a ring of TMA copies in flight: the x tile
+//       [BM x 64] (128-byte swizzle; a 3-D map, so per-expert x is a
+//       coordinate) and the int8 w8 slab [128 OUT x 64 IN], each on its own
+//       full/empty mbarriers; rows past T and OUT and columns past
+//       in_features (the maps' width, never ld) arrive as zeros;
+//     - three widening warps turn the w8 slab into one of two bf16 W^T
+//       buffers, exactly (|w8| <= 127; two byte-permutes and a bf16 subtract
+//       per pair, s8x4_to_bf16x2), straight into wgmma's K-major core-matrix
+//       layout: w8's rows are already K-major for y = x w8^T, so a lane
+//       widens 16 contiguous bytes into two 16-byte core-matrix rows, its
+//       column chunk rotated so that a phase's reads and writes each meet
+//       eight bank groups;
+//     - one or two consumer warpgroups run wgmma.mma_async m64n128k16 (x
+//       through a 128B-swizzle descriptor, W^T an unswizzled one) with f32
+//       sums, keeping one slab's products in flight while the next slab's
+//       barriers are awaited. At BM 64 (one warpgroup, 256 threads) two
+//       blocks share an SM.
+//   The scale and the bf16 cast run in the epilogue. Each weight is widened
+//   ceil(T / BM) times (4 at T = 1024). The widening and the products
+//   together set the pace: at the fused qkv, T = 1024, the kernel takes
+//   ~2.5x its operation bound, ~0.76x that without the widening and ~0.59x
+//   without the products (experiments/torch_int8_int4_ablate.py), so both
+//   contend for shared memory and neither alone bounds it. Where the output
+//   tiles would leave
+//   the card idle (short prompts, narrow projections), the contraction is
+//   split over blocks: each writes f32 partial sums and the last block of an
+//   output tile to finish (an atomic ticket) adds them in a fixed order.
 //
 // All experts (MoE): w8 [E, OUT, ld], w_scale [E, OUT], out [E, T, OUT]; x is
 // [T, in_features] shared by every expert (gate and up) or [E, T,
 // in_features], one slab per expert (down). One launch covers every expert:
 // the expert is the decode grid's z axis and is folded with the splits into
-// the prefill grid's z axis; each block offsets its pointers by its expert,
-// and split partial sums and tickets are per expert, so the last-block
-// reduction never mixes experts. Mixtral-8x7B decode at T = 4 reads 470 MB
-// of gate weights (0.14 ms at 3.35 TB/s): the same byte-bound GEMV, with
-// E times the blocks. The expert axis is a template flag (MOE): a single
+// the prefill grid's z axis; each block offsets its pointers (decode) or its
+// tensor-map coordinates (prefill) by its expert, and split partial sums and
+// tickets are per expert, so the last-block reduction never mixes experts.
+// Mixtral-8x7B decode at T = 4 reads 470 MB of gate weights (0.14 ms at 3.35
+// TB/s): the same byte-bound GEMV, with E times the blocks. The expert axis is a template flag (MOE): a single
 // matrix runs the kernels compiled without it, so its registers and code stay
 // those of the one-matrix kernel (compiled in, the offsets took the T = 1
 // GEMV from 64 registers to 94 and its split-K launches 11-13% slower).
@@ -63,14 +83,11 @@
 // at :153; the backward of every int8 projection, aqlm_tpu/ops/runtime.py:305)
 // is a kernel of its own below, so the forward instances keep their
 // registers: dx[t, i] = bf16( sum_o bf16(g[t, o] * w_scale[o]) * w8[o, i] ).
-#include <mma.h>
-
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using namespace aqlm;
 
 constexpr int T_SMEM_LIMIT = 232448;  // dynamic shared memory a block may use on an H100
@@ -273,240 +290,6 @@ cudaError_t gemv_launch(const void* x, const void* w8, const void* w_scale, void
       (float*)partials, (int*)tickets, out_features, in_features, ld, cols_per_split,
       x_per_expert);
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// prefill: T > 8
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 128;  // tokens per block
-constexpr int BN = 128;  // output rows per block
-constexpr int BK = 64;   // contraction columns per slab
-constexpr int GT = 256;  // threads per block
-constexpr int XLD = BK + 8;  // padded shared row (bf16 elements) of the x slab
-constexpr int WLD = BK + 8;  // padded shared row (bf16 elements) of the widened W slab
-
-struct GemmSmem {  // byte offsets in the dynamic shared memory
-  size_t x[2], w8[2], w, epi, flag, total;
-  __host__ __device__ GemmSmem() {
-    size_t o = 0;
-    for (int i = 0; i < 2; ++i) {
-      x[i] = o;
-      o += (size_t)BM * XLD * 2;
-    }
-    for (int i = 0; i < 2; ++i) {
-      w8[i] = o;
-      o += (size_t)BN * BK;
-    }
-    w = o;
-    o += (size_t)BN * WLD * 2;
-    epi = o;
-    o += (size_t)(GT / 32) * 16 * 16 * 4;
-    flag = o;
-    total = o + 16;
-  }
-};
-
-template <bool MOE>
-__global__ void __launch_bounds__(GT, 2)
-int8_gemm_kernel(const __nv_bfloat16* __restrict__ x,  // [T, in_features], or [E, T, ...]
-                 const int8_t* __restrict__ w8,         // [E, OUT, ld] of one layer
-                 const float* __restrict__ w_scale,     // [E, OUT]
-                 __nv_bfloat16* __restrict__ out,       // [E, T, OUT]
-                 float* __restrict__ partials,          // [E, splits, Tpad, OUT] when split
-                 int* __restrict__ tickets,             // [E, row tiles * col tiles] zeroed
-                 int T, int out_features, int in_features, int ld, int cols_per_split,
-                 int splits, int x_per_expert) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const GemmSmem L;
-  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
-  int& s_last = *reinterpret_cast<int*>(smem + L.flag);
-
-  // z = expert * splits + split with MOE, the split alone without
-  const int n_splits = MOE ? splits : (int)gridDim.z;
-  const int split = MOE ? (int)blockIdx.z % splits : (int)blockIdx.z;
-  if (MOE) {  // the expert is a pointer offset
-    const size_t ex = blockIdx.z / splits;
-    x += x_per_expert ? ex * T * in_features : 0;
-    w8 += ex * out_features * ld;
-    w_scale += ex * out_features;
-    out += ex * T * out_features;
-    if (splits > 1) {
-      partials += ex * splits * gridDim.y * BM * out_features;
-      tickets += ex * gridDim.y * gridDim.x;
-    }
-  }
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int col0 = blockIdx.x * BN;  // first output row of W (output column of y)
-  const int row0 = blockIdx.y * BM;  // first token
-  const int k_begin = split * cols_per_split;
-  const int k_end = min(in_features, k_begin + cols_per_split);
-  const int n_slabs = (k_end - k_begin + BK - 1) / BK;
-
-  auto load_slab = [&](int s, int stage) {
-    const int k0 = k_begin + s * BK;
-    __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem + L.x[stage]);
-    for (int i = tid; i < BM * (BK / 8); i += GT) {
-      const int r = i / (BK / 8), c = i % (BK / 8);
-      const bool valid = row0 + r < T && k0 + c * 8 < k_end;
-      const __nv_bfloat16* src = valid ? x + (size_t)(row0 + r) * in_features + k0 + c * 8 : x;
-      aqlm::cp_async16(sx + r * XLD + c * 8, src, valid);
-    }
-    int8_t* sw = reinterpret_cast<int8_t*>(smem + L.w8[stage]);
-    for (int i = tid; i < BN * (BK / 16); i += GT) {
-      const int r = i / (BK / 16), c = i % (BK / 16);
-      const bool valid = col0 + r < out_features && k0 + c * 16 < k_end;
-      const int8_t* src = valid ? w8 + (size_t)(col0 + r) * ld + k0 + c * 16 : w8;
-      aqlm::cp_async16(sw + r * BK + c * 16, src, valid);
-    }
-    aqlm::cp_async_commit();
-  };
-
-  const int wm = warp / 4, wn = warp % 4;  // warp's 64 x 32 sub-tile
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  if (n_slabs > 0) load_slab(0, 0);
-  int stage = 0;
-  for (int s = 0; s < n_slabs; ++s, stage ^= 1) {
-    if (s + 1 < n_slabs) {
-      load_slab(s + 1, stage ^ 1);
-      aqlm::cp_async_wait<1>();
-    } else {
-      aqlm::cp_async_wait<0>();
-    }
-    __syncthreads();  // slab s visible to all
-    {  // widen W: each thread 32 int8 (half a row) -> 32 bf16
-      const int r = tid / 2, h = tid % 2;
-      const uint4* src = reinterpret_cast<const uint4*>(smem + L.w8[stage] + r * BK + h * 32);
-      uint32_t* dst = reinterpret_cast<uint32_t*>(s_w + r * WLD + h * 32);
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float f[16];
-        s8x16_to_float(src[q], f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
-          dst[q * 8 + e] = *reinterpret_cast<const uint32_t*>(&p);
-        }
-      }
-    }
-    __syncthreads();
-    const __nv_bfloat16* sx = reinterpret_cast<const __nv_bfloat16*>(smem + L.x[stage]);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], sx + (wm * 64 + i * 16) * XLD + kk, XLD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], s_w + (wn * 32 + j * 16) * WLD + kk, WLD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // stage and widened slab free for reuse
-  }
-
-  float* epi = reinterpret_cast<float*>(smem + L.epi) + warp * 256;
-  if (n_splits > 1) {
-    // split contraction: park the f32 partial tile, the last block sums
-    const int t_pad = gridDim.y * BM;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::store_matrix_sync(epi, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int o = col0 + wn * 32 + j * 16 + e % 16;
-          const int row = row0 + wm * 64 + i * 16 + e / 16;
-          if (o < out_features)
-            partials[((size_t)split * t_pad + row) * out_features + o] = epi[e];
-        }
-        __syncwarp();
-      }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0)
-      s_last = atomicAdd(tickets + blockIdx.y * gridDim.x + blockIdx.x, 1) == n_splits - 1;
-    __syncthreads();
-    if (!s_last) return;
-    __threadfence();
-    for (int e = tid; e < BM * BN; e += GT) {
-      const int r = e / BN, o = col0 + e % BN;
-      if (row0 + r >= T || o >= out_features) continue;
-      float v = 0.f;
-      for (int z = 0; z < n_splits; ++z)
-        v += __ldcg(partials + ((size_t)z * t_pad + row0 + r) * out_features + o);
-      out[(size_t)(row0 + r) * out_features + o] = __float2bfloat16(v * w_scale[o]);
-    }
-    return;
-  }
-
-  // epilogue: each warp stages one 16x16 fragment at a time, scales, casts
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(epi, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = row0 + wm * 64 + i * 16 + e / 16;
-        const int o = col0 + wn * 32 + j * 16 + e % 16;
-        if (row < T && o < out_features)
-          out[(size_t)row * out_features + o] = __float2bfloat16(epi[e] * w_scale[o]);
-      }
-      __syncwarp();
-    }
-}
-
-template <bool MOE>
-cudaError_t gemm_launch(const void* x, const void* w8, const void* w_scale, void* out,
-                        void* partials, void* tickets, int experts, int x_per_expert, int T,
-                        int splits, int cols_per_split, int out_features, int in_features,
-                        int ld, cudaStream_t stream) {
-  const GemmSmem L;
-  static size_t smem_set = 0;  // one per instantiation
-  if (L.total != smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(int8_gemm_kernel<MOE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.total);
-    if (e != cudaSuccess) return e;
-    smem_set = L.total;
-  }
-  const dim3 grid((out_features + BN - 1) / BN, (T + BM - 1) / BM, splits * experts);
-  int8_gemm_kernel<MOE><<<grid, GT, L.total, stream>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w8, (const float*)w_scale, (__nv_bfloat16*)out,
-      (float*)partials, (int*)tickets, T, out_features, in_features, ld, cols_per_split, splits,
-      x_per_expert);
-  return cudaGetLastError();
-}
-
-template <bool MOE>
-int dispatch(const void* x, const void* w8, const void* w_scale, void* out, void* partials,
-             void* tickets, int experts, int x_per_expert, int T, int splits, int cols_per_split,
-             int out_features, int in_features, int ld, cudaStream_t st) {
-  if (T > 8)
-    return gemm_launch<MOE>(x, w8, w_scale, out, partials, tickets, experts, x_per_expert, T,
-                            splits, cols_per_split, out_features, in_features, ld, st);
-#define AQLM_INT8_CASE(NB)                                                                    \
-  case NB:                                                                                    \
-    return gemv_launch<NB, MOE>(x, w8, w_scale, out, partials, tickets, experts, x_per_expert, \
-                                splits, cols_per_split, out_features, in_features, ld, st);
-  switch (T) {
-    AQLM_INT8_CASE(1) AQLM_INT8_CASE(2) AQLM_INT8_CASE(3) AQLM_INT8_CASE(4)
-    AQLM_INT8_CASE(5) AQLM_INT8_CASE(6) AQLM_INT8_CASE(7) AQLM_INT8_CASE(8)
-    default: return cudaErrorInvalidValue;
-  }
-#undef AQLM_INT8_CASE
 }
 
 // ---------------------------------------------------------------------------
@@ -1004,28 +787,355 @@ cudaError_t gemm_t_launch(const void* g, const void* w8, const void* w_scale, vo
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// prefill: T > 8, the forward GEMM (int8_matmul.plan lays it out)
+// ---------------------------------------------------------------------------
+
+constexpr int FG_BN = 128;    // output channels (w8 rows) per block
+constexpr int FG_BK = 64;     // contraction columns per slab
+constexpr int FG_WIDEN = 96;  // widening threads: the three warps after the producer
+constexpr int FG_MAX_STAGES = 8;
+
+// Widening unit u of a slab: 16 bytes (column chunk kp) of w8 row n. The
+// eight lanes of a 16-byte phase (u = 8 p + q) take rows 8 (p / 4) + q, so
+// their stores (core-matrix row n % 8) meet eight bank groups, and rotate
+// their chunk by q / 2 + p, so that their reads (64-byte rows: bank group
+// 4 (n % 2) + kp) do too; the four phases of a row group cover its chunks.
+__device__ __forceinline__ void widen_unit(int u, int& n, int& kp) {
+  const int p = u >> 3, q = u & 7;
+  n = (p >> 2) * 8 + q;
+  kp = ((q >> 1) + p) & 3;
+}
+
+// Two bf16 of a row written as one pair where OUT is even (col is), else
+// one by one, the second only inside OUT.
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, bool pair, bool second, float a,
+                                          float b) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+  } else {
+    o[0] = __float2bfloat16(a);
+    if (second) o[1] = __float2bfloat16(b);
+  }
+}
+
+// One w8 slab widened into W^T by the FG_WIDEN widening threads (dt: this
+// thread's index among them). A thread's units are u = dt + FG_WIDEN i; all
+// its loads are issued first, so that their latencies overlap.
+__device__ __forceinline__ void widen_slab(const unsigned char* __restrict__ sw,
+                                           unsigned char* __restrict__ sb, int dt) {
+  constexpr int UNITS = (FG_BN * 4 + FG_WIDEN - 1) / FG_WIDEN;
+  uint4 v[UNITS];
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    const int u = dt + i * FG_WIDEN;
+    int n, kp;
+    widen_unit(u, n, kp);
+    if (u < FG_BN * 4) v[i] = *reinterpret_cast<const uint4*>(sw + n * FG_BK + kp * 16);
+  }
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    const int u = dt + i * FG_WIDEN;
+    if (u >= FG_BN * 4) continue;
+    int n, kp;
+    widen_unit(u, n, kp);
+    uint32_t h[8];
+    s8x4_to_bf16x2(v[i].x, h[0], h[1]);
+    s8x4_to_bf16x2(v[i].y, h[2], h[3]);
+    s8x4_to_bf16x2(v[i].z, h[4], h[5]);
+    s8x4_to_bf16x2(v[i].w, h[6], h[7]);
+    unsigned char* d = sb + ((n >> 3) * (FG_BK / 8) + 2 * kp) * 128 + (n & 7) * 16;
+    *reinterpret_cast<uint4*>(d) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(d + 128) = make_uint4(h[4], h[5], h[6], h[7]);
+  }
+}
+
+// MT: 64-row wgmma tiles per consumer warpgroup; NWG: consumer warpgroups
+// (BM = 64 * MT * NWG). The shared memory is B10's TLayout: per stage the x
+// tile and the w8 slab, two W^T buffers, the barriers (x full, w8 full,
+// stage empty per stage; W^T full and empty per buffer).
+template <int MT, int NWG, bool MOE>
+__global__ void __launch_bounds__(NWG * 128 + 128, NWG == 1 ? 2 : 1)
+int8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,  // x [E or 1, T, in_features] bf16
+                 const __grid_constant__ CUtensorMap w_map,  // w8 [E, OUT, in_features of ld] int8
+                 const float* __restrict__ w_scale,          // [E, OUT]
+                 __nv_bfloat16* __restrict__ out,            // [E, T, OUT]
+                 float* __restrict__ partials,               // [E, splits, Tpad, OUT] when split
+                 int* __restrict__ tickets,                  // [E, row tiles, col tiles] zeroed
+                 int T, int out_features, int in_features, int splits, int slabs_per_split,
+                 int stages, int x_per_expert) {
+  constexpr int BM = 64 * MT * NWG;
+  constexpr int CONSUMERS = 4 * NWG;  // consumer warps; the producer is the next one
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const TLayout L(BM, stages);
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(smem + L.bar());
+  uint64_t* wfull = xfull + stages;
+  uint64_t* empty = wfull + stages;
+  uint64_t* bfull = empty + stages;
+  uint64_t* bempty = bfull + 2;
+  int& s_last = *reinterpret_cast<int*>(smem + L.flag());
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // z = expert * splits + split with MOE, the split alone without
+  const int e = MOE ? (int)blockIdx.z / splits : 0;
+  const int sp = MOE ? (int)blockIdx.z % splits : (int)blockIdx.z;
+  const int col0 = blockIdx.x * FG_BN, row0 = blockIdx.y * BM;
+  const int n_slabs = (in_features + FG_BK - 1) / FG_BK;
+  const int s_begin = sp * slabs_per_split;
+  const int n_local = min(n_slabs, s_begin + slabs_per_split) - s_begin;
+  if (MOE) {  // x and w8 take the expert as a tensor-map coordinate
+    w_scale += (size_t)e * out_features;
+    out += (size_t)e * T * out_features;
+  }
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(xfull + i, 1);  // the producer's expect_tx; its TMA completes it
+      mbar_init(wfull + i, 1);
+      mbar_init(empty + i, CONSUMERS + FG_WIDEN / 32);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(bfull + i, FG_WIDEN / 32);
+      mbar_init(bempty + i, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS) {
+    // the producer: slab j -> stage j % stages, refilled once its consumers
+    // and widening warps released it
+    if (lane == 0) {
+      for (int j = 0; j < n_local; ++j) {
+        const int st = j % stages, k0 = (s_begin + j) * FG_BK;
+        if (j >= stages) mbar_wait(empty + st, (j / stages - 1) & 1);
+        mbar_arrive_expect_tx(wfull + st, FG_BN * FG_BK);
+        tma_load_3d(smem + L.w8(st), &w_map, k0, col0, e, wfull + st);
+        mbar_arrive_expect_tx(xfull + st, BM * FG_BK * 2);
+        tma_load_3d(smem + L.a(st), &x_map, k0, row0, x_per_expert ? e : 0, xfull + st);
+      }
+    }
+  } else if (warp > CONSUMERS) {
+    // widening warps: the int8 slab [128 n][64 i] -> bf16 core matrices
+    // (n / 8, i / 8) of W^T buffer j % 2, each 16-byte row eight i of one n
+    const int dt = tid - (CONSUMERS + 1) * 32;
+    for (int j = 0; j < n_local; ++j) {
+      const int st = j % stages, wb = j & 1;
+      mbar_wait(wfull + st, (j / stages) & 1);
+      if (j >= 2) mbar_wait(bempty + wb, (j / 2 - 1) & 1);
+      widen_slab(smem + L.w8(st), smem + L.bt(wb), dt);  // widen
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(bfull + wb);
+        mbar_arrive(empty + st);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows [wg * 64 * MT, (wg + 1) * 64 * MT) of the tile
+    const int wg = warp >> 2;
+    const bool active = row0 + wg * 64 * MT < T;  // a warpgroup of padding rows only waits
+    float acc[MT][64];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[m][i] = 0.f;
+    for (int j = 0; j < n_local; ++j) {
+      const int st = j % stages, wb = j & 1;
+      mbar_wait(xfull + st, (j / stages) & 1);
+      mbar_wait(bfull + wb, (j / 2) & 1);
+      __syncwarp();  // converged for the .aligned wgmma instructions
+      if (active) {  // the slab's products
+        fence_proxy_async();
+        wgmma_fence();
+        const unsigned char* sa = smem + L.a(st);
+        const unsigned char* sb = smem + L.bt(wb);
+#pragma unroll
+        for (int kk = 0; kk < FG_BK / 16; ++kk) {
+          const uint64_t db = make_desc(sb + kk * 256);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            wgmma_m64n128k16(acc[m], make_desc_sw128(sa + (wg * MT + m) * 64 * FG_BK * 2 + kk * 32),
+                             db);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // slab j - 1's products are done
+      }
+      if (j > 0) {
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(empty + (j - 1) % stages);
+          mbar_arrive(bempty + ((j - 1) & 1));
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+
+    // accumulator (m, 4c + 2h + p) of thread (warp, lane): row 16 (warp % 4)
+    // + lane / 4 + 8 h of tile m, column 8 c + 2 (lane % 4) + p
+    const int rbase = row0 + wg * 64 * MT + (warp & 3) * 16 + (lane >> 2);
+    const int cbase = col0 + (lane & 3) * 2;
+    const bool pair = (out_features & 1) == 0;
+    if (splits == 1) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < FG_BN / 8; ++c) {
+          const int col = cbase + 8 * c;
+          if (col >= out_features) continue;
+          const float s0 = __ldg(w_scale + col);
+          const float s1 = col + 1 < out_features ? __ldg(w_scale + col + 1) : 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = rbase + m * 64 + 8 * h;
+            if (row < T)
+              store_out(out + (size_t)row * out_features + col, pair, col + 1 < out_features,
+                        acc[m][4 * c + 2 * h] * s0, acc[m][4 * c + 2 * h + 1] * s1);
+          }
+        }
+      return;
+    }
+    // split contraction: park the f32 partial tile, the last block sums
+    const int t_pad = gridDim.y * BM;
+    float* part = partials + ((size_t)e * splits + sp) * t_pad * out_features;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int c = 0; c < FG_BN / 8; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = rbase + m * 64 + 8 * h, col = cbase + 8 * c;
+          if (row >= T || col >= out_features) continue;
+          float* p = part + (size_t)row * out_features + col;
+          if (pair) {
+            *reinterpret_cast<float2*>(p) = make_float2(acc[m][4 * c + 2 * h], acc[m][4 * c + 2 * h + 1]);
+          } else {
+            p[0] = acc[m][4 * c + 2 * h];
+            if (col + 1 < out_features) p[1] = acc[m][4 * c + 2 * h + 1];
+          }
+        }
+    __threadfence();
+    bar_sync(1, CONSUMERS * 32);
+    if (tid == 0)
+      s_last = atomicAdd(tickets + ((size_t)e * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x,
+                         1) == splits - 1;
+    bar_sync(1, CONSUMERS * 32);
+    if (!s_last) return;
+    __threadfence();
+    reduce_splits<BM, FG_BN, CONSUMERS * 32>(
+        partials + (size_t)e * splits * t_pad * out_features, (size_t)t_pad * out_features, splits,
+        w_scale, out, row0, col0, T, out_features, tid);
+  }
+}
+
+template <int MT, int NWG, bool MOE>
+cudaError_t gemm_launch(const void* x, const void* w8, const void* w_scale, void* out,
+                        void* partials, void* tickets, int experts, int x_per_expert, int T,
+                        int splits, int slabs_per_split, int stages, int smem, int out_features,
+                        int in_features, int ld, cudaStream_t stream) {
+  static bool attr_set = false;  // one per instantiation
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(int8_gemm_kernel<MT, NWG, MOE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM_LIMIT);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  constexpr int BM = 64 * MT * NWG;
+  const EncodeTiled encode = encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  // x [E or 1][T][in_features]: boxes of 64 columns x BM rows, 128B-swizzled
+  CUtensorMap x_map;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)in_features, (cuuint64_t)T,
+                                (cuuint64_t)(x_per_expert ? experts : 1)};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)in_features * 2, (cuuint64_t)T * in_features * 2};
+  const cuuint32_t x_box[3] = {FG_BK, (cuuint32_t)BM, 1};
+  if (encode(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), x_dims, x_strides,
+             x_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  // w8 [E][OUT][ld], read as [E][OUT][in_features]: boxes of 64 columns x 128 rows
+  CUtensorMap w_map;
+  const cuuint64_t w_dims[3] = {(cuuint64_t)in_features, (cuuint64_t)out_features,
+                                (cuuint64_t)experts};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)ld, (cuuint64_t)out_features * ld};
+  const cuuint32_t w_box[3] = {FG_BK, FG_BN, 1};
+  if (encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(w8), w_dims, w_strides,
+             w_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const dim3 grid((out_features + FG_BN - 1) / FG_BN, (T + BM - 1) / BM, experts * splits);
+  int8_gemm_kernel<MT, NWG, MOE><<<grid, NWG * 128 + 128, smem, stream>>>(
+      x_map, w_map, (const float*)w_scale, (__nv_bfloat16*)out, (float*)partials, (int*)tickets, T,
+      out_features, in_features, splits, slabs_per_split, stages, x_per_expert);
+  return cudaGetLastError();
+}
+
+template <bool MOE>
+int dispatch(const void* x, const void* w8, const void* w_scale, void* out, void* partials,
+             void* tickets, int experts, int x_per_expert, int T, int splits, int cols_per_split,
+             int out_features, int in_features, int ld, int bm, int stages, int smem,
+             cudaStream_t st) {
+  if (T > 8) {
+    if (stages < 2 || stages > FG_MAX_STAGES || smem > T_SMEM_LIMIT || cols_per_split < FG_BK ||
+        cols_per_split % FG_BK || (long long)(splits - 1) * cols_per_split >= in_features ||
+        (bm != 64 && bm != 128 && bm != 256) || smem != TLayout(bm, stages).total())
+      return cudaErrorInvalidValue;
+#define AQLM_INT8_GEMM(MT, NWG)                                                               \
+  return gemm_launch<MT, NWG, MOE>(x, w8, w_scale, out, partials, tickets, experts,           \
+                                   x_per_expert, T, splits, cols_per_split / FG_BK, stages,    \
+                                   smem, out_features, in_features, ld, st)
+    if (bm == 256) AQLM_INT8_GEMM(2, 2);
+    if (bm == 128) AQLM_INT8_GEMM(1, 2);
+    AQLM_INT8_GEMM(1, 1);
+#undef AQLM_INT8_GEMM
+  }
+  if (bm != 0) return cudaErrorInvalidValue;
+#define AQLM_INT8_CASE(NB)                                                                    \
+  case NB:                                                                                    \
+    return gemv_launch<NB, MOE>(x, w8, w_scale, out, partials, tickets, experts, x_per_expert, \
+                                splits, cols_per_split, out_features, in_features, ld, st);
+  switch (T) {
+    AQLM_INT8_CASE(1) AQLM_INT8_CASE(2) AQLM_INT8_CASE(3) AQLM_INT8_CASE(4)
+    AQLM_INT8_CASE(5) AQLM_INT8_CASE(6) AQLM_INT8_CASE(7) AQLM_INT8_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef AQLM_INT8_CASE
+}
+
 }  // namespace
 
-// T <= 8 runs the decode path, more rows the prefill path. w8 [E, OUT, ld],
-// w_scale [E, OUT], out [E, T, OUT]; x [T, in_features] shared by the
-// experts (x_per_expert = 0) or [E, T, in_features]; E = 1 for one matrix.
-// splits > 1 splits the contraction into runs of cols_per_split columns (a
-// multiple of 1024 on the decode path, of 64 on the prefill path); partials
-// and tickets are then required: decode [E, splits, T, OUT] f32 and
-// [E, ceil(OUT/16)] int32, prefill [E, splits, ceil(T/128)*128, OUT] f32 and
-// [E, ceil(T/128) * ceil(OUT/128)] int32, tickets zeroed.
+// The forward, as int8_matmul.plan lays it out. w8 [E, OUT, ld], w_scale
+// [E, OUT], out [E, T, OUT]; x [T, in_features] shared by the experts
+// (x_per_expert = 0) or [E, T, in_features]; E = 1 for one matrix;
+// in_features and ld multiples of 16. T <= 8 runs the decode path (bm = 0,
+// static shared memory), more rows the prefill GEMM (bm 64, 128 or 256 rows
+// a block, `stages` ring stages, `smem` dynamic bytes, checked against the
+// kernel's own layout). splits > 1 splits the contraction into runs of
+// cols_per_split columns (a multiple of 1024 on the decode path, of 64 on
+// the prefill path); partials and tickets are then required: decode
+// [E, splits, T, OUT] f32 and [E, ceil(OUT/16)] int32, prefill
+// [E, splits, ceil(T/bm)*bm, OUT] f32 and [E, ceil(T/bm), ceil(OUT/128)]
+// int32, tickets zeroed.
 extern "C" int int8_matmul_launch(const void* x, const void* w8, const void* w_scale, void* out,
                                   void* partials, void* tickets, int experts, int x_per_expert,
                                   int T, int splits, int cols_per_split, int out_features,
-                                  int in_features, int ld, void* stream) {
-  if (experts < 1 || splits < 1) return cudaErrorInvalidValue;
+                                  int in_features, int ld, int bm, int stages, int smem,
+                                  void* stream) {
+  if (experts < 1 || splits < 1 || T < 1 || out_features < 1 || in_features < 16 ||
+      in_features % 16 || ld % 16 || in_features > ld)
+    return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (experts > 1)
     return dispatch<true>(x, w8, w_scale, out, partials, tickets, experts, x_per_expert, T,
-                          splits, cols_per_split, out_features, in_features, ld, st);
+                          splits, cols_per_split, out_features, in_features, ld, bm, stages, smem,
+                          st);
   // one matrix (or one expert) needs no offsets: the kernels compiled without them
   return dispatch<false>(x, w8, w_scale, out, partials, tickets, 1, 0, T, splits, cols_per_split,
-                         out_features, in_features, ld, st);
+                         out_features, in_features, ld, bm, stages, smem, st);
 }
 
 // The activation backward, as int8_matmul.plan_t lays it out: g [T, OUT]

@@ -6,7 +6,9 @@ PyTorch counterpart of ``aqlm_tpu.ops.int4_matmul`` (``int4_matmul``,
 kernel of ``csrc/int4_matmul.cu``; on a CPU tensor it runs the plain version
 of the same function. The layer-indexed variants are the same kernel with a
 layer pointer offset; the MoE forms run every expert in one launch, the
-expert being one more grid axis of the same kernel.
+expert being one more grid axis of the same kernel. The pure ``plan`` lays
+each launch out: a tensor-core GEMV at <= 8 rows, and past them a
+warp-specialised TMA + wgmma GEMM.
 
 Layout (shared with ``aqlm_tpu``, so weights and checkpoints carry across):
 
@@ -28,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from aqlm_tpu_torch.ops import _build
-from aqlm_tpu_torch.ops.int8_matmul import INT8_GEMV_MAX_ROWS, _splits, pad_in_features
+from aqlm_tpu_torch.ops.int8_matmul import (_BYTES_PER_US, INT8_GEMV_MAX_ROWS, T_SMEM_LIMIT, Plan,
+                                            _splits, pad_in_features)
 
 __all__ = [
     "GROUP",
@@ -42,13 +45,22 @@ __all__ = [
     "int4_matmul_indexed",
     "int4_moe_matmul",
     "int4_moe_matmul_indexed",
+    "Plan",
+    "plan",
+    "gemm_smem",
 ]
 
 GROUP = 128  # original columns per scale group
 INT4_GEMV_MAX_ROWS = INT8_GEMV_MAX_ROWS  # up to this many rows take the kernel's decode path
-# tile shapes of the kernel (csrc/int4_matmul.cu), for the split-K choice
-_GEMV_ROWS = 16  # output rows per decode block
-_GEMM_BM, _GEMM_BN, _GEMM_BK = 64, 128, 2 * GROUP
+# the kernel's shapes (csrc/int4_matmul.cu): the GEMV's rows a block and its
+# contraction unit (a packing block); the GEMM's 128 output channels a
+# block, 64-column x slabs (four to a packing block), its ring depth, its
+# four W^T buffers, and the planner's time model of one block-packing-block
+# (us)
+_GEMV_ROWS = 16
+_PACK = 2 * GROUP  # columns of a 128-byte packing block
+_GEMM_BN, _GEMM_BK, _GEMM_NB, _GEMM_STAGES = 128, 64, 4, 4
+_GEMM_PACK_US = 1.4
 _PLAIN_CHUNK_ELEMS = 1 << 26  # f32 elements of the plain version's per-group products at once
 
 
@@ -151,10 +163,63 @@ def moe_plain(xb, w4, gscale):
                         for e in range(w4.shape[0])])
 
 
+def gemm_smem(bm: int, stages: int) -> int:
+    """The GEMM's dynamic shared memory (the kernel's ``QLayout``): the x
+    ring (bm rows a stage), two packed slabs and their two groups' scales,
+    four W^T buffers, the barriers, the split path's flag, and 1024 bytes to
+    align the swizzled tiles."""
+    ring = stages * bm * _GEMM_BK * 2
+    packed = 2 * (_GEMM_BN * _PACK // 2 + 2 * _GEMM_BN * 4)
+    bars = (2 * stages + 4 + 2 * _GEMM_NB) * 8
+    return ring + packed + _GEMM_NB * _GEMM_BN * _GEMM_BK * 2 + bars + 16 + 1024
+
+
+def plan(T: int, out_features: int, in_features: int, ldb: int, experts: int = 1,
+         sm_count: int = 132) -> Plan:
+    """Path, tile, stages, split and grid of one launch, a pure function of
+    the shapes. At <= 8 rows the GEMV (16 output rows a block, the
+    contraction split in packing blocks to fill the card twice). Past 8 rows
+    the GEMM: 128 rows a block (64 a consumer warpgroup) past 64 rows, else
+    64 rows with the groups of the contraction taken in turn by the two
+    consumer warpgroups; the contraction split over blocks in whole packing
+    blocks only where the output tiles leave SMs idle and the time model
+    (waves x packing blocks a block, plus the partial sums' bytes) says it
+    pays."""
+    if (T < 1 or experts < 1 or out_features < 1 or in_features < 16 or in_features % 16
+            or ldb < GROUP or ldb % GROUP or in_features > 2 * ldb):
+        raise ValueError(f"int4_matmul kernel: no plan for T={T} OUT={out_features} "
+                         f"IN={in_features} ldb={ldb} E={experts} (IN a multiple of 16, whole "
+                         "256-column packing blocks)")
+    n_units = -(-in_features // _PACK)  # packing blocks
+    if T <= INT4_GEMV_MAX_ROWS:
+        blocks = -(-out_features // _GEMV_ROWS)
+        splits = _splits(experts * blocks, n_units, sm_count, max(1, n_units // 8))
+        per_split = -(-n_units // splits) * _PACK
+        return Plan("gemv", 0, 0, splits, per_split, (blocks, splits, experts), 0)
+    bm = 64 if T <= 64 else 128
+    col_tiles, row_tiles = -(-out_features // _GEMM_BN), -(-T // bm)
+    tiles = experts * col_tiles * row_tiles
+
+    def cost(s):
+        waves = -(-tiles * s // sm_count)
+        part = 0 if s == 1 else 8 * s * experts * row_tiles * bm * out_features / _BYTES_PER_US
+        return waves * -(-n_units // s) * _GEMM_PACK_US + part
+
+    splits = 1
+    if tiles < sm_count:
+        splits = min(range(1, max(1, min(16, n_units // 2)) + 1), key=cost)
+    per_split = -(-n_units // splits)
+    splits = -(-n_units // per_split)  # no empty split
+    smem = gemm_smem(bm, _GEMM_STAGES)
+    assert smem <= T_SMEM_LIMIT
+    return Plan("gemm", bm, _GEMM_STAGES, splits, per_split * _PACK,
+                (col_tiles, row_tiles, experts * splits), smem)
+
+
 def _run(xb, w4, gscale, name, x_per_expert):
     """Check the operands of one launch (w4 [E, OUT, IN_pad/2], gscale [E,
-    IN_pad/128, OUT], xb [rows, IN] or [E, rows, IN]), size the split-K and
-    launch. Returns [E, rows, OUT] bf16."""
+    IN_pad/128, OUT], xb [rows, IN] or [E, rows, IN]) and launch it as
+    ``plan`` lays it out. Returns [E, rows, OUT] bf16."""
     rows, in_features = xb.shape[-2:]
     experts, out_features, ldb = w4.shape
     dev = xb.device
@@ -179,34 +244,21 @@ def _run(xb, w4, gscale, name, x_per_expert):
     out = torch.empty((experts, rows, out_features), dtype=torch.bfloat16, device=dev)
     if rows == 0:
         return out
-    sms = _build.sm_count(dev.index)
-    if rows <= INT4_GEMV_MAX_ROWS:
-        blocks = -(-out_features // _GEMV_ROWS)
-        n_units = -(-in_features // _GEMM_BK)  # packing blocks; each of the 8 warps takes some
-        splits = _splits(experts * blocks, n_units, sms, max(1, n_units // 8))
-        per_split = -(-n_units // splits) * _GEMM_BK
-        part_rows = rows
-    else:
-        row_tiles = -(-rows // _GEMM_BM)
-        blocks = row_tiles * -(-out_features // _GEMM_BN)
-        n_steps = -(-in_features // _GEMM_BK)
-        splits = _splits(experts * blocks, n_steps, sms, max(1, n_steps // 4))
-        per_split = -(-n_steps // splits) * _GEMM_BK
-        part_rows = row_tiles * _GEMM_BM
+    p = plan(rows, out_features, in_features, ldb, experts, _build.sm_count(dev.index))
     partials = tickets = None
-    if splits > 1:
+    if p.splits > 1:
         # each expert's splits' f32 partial sums meet here; the last block of
         # each output tile to finish adds them in a fixed order
-        partials = torch.empty((experts, splits, part_rows, out_features), dtype=torch.float32,
-                               device=dev)
-        tickets = torch.zeros(experts * blocks, dtype=torch.int32, device=dev)
+        partials = torch.empty(p.partials_shape(rows, out_features, experts),
+                               dtype=torch.float32, device=dev)
+        tickets = torch.zeros(p.n_tickets(experts), dtype=torch.int32, device=dev)
     lib, _ = _build.library()
     rc = lib.int4_matmul_launch(
         xb.data_ptr(), w4.data_ptr(), gscale.data_ptr(), out.data_ptr(),
         None if partials is None else partials.data_ptr(),
         None if tickets is None else tickets.data_ptr(),
-        experts, int(x_per_expert), rows, splits, per_split, out_features, in_features, ldb,
-        _build.stream_ptr(dev),
+        experts, int(x_per_expert), rows, p.splits, p.per_split, out_features, in_features, ldb,
+        p.bm, p.stages, p.smem, _build.stream_ptr(dev),
     )
     _build.check(rc, name)
     _build.KERNELS[name].launches += 1
@@ -216,7 +268,7 @@ def _run(xb, w4, gscale, name, x_per_expert):
 def launch(xb, w4, gscale):
     """The kernel on one layer's arrays: xb [rows, IN] bf16; w4 [OUT,
     IN_pad/2] uint8; gscale [IN_pad/128, OUT] f32. Rows <= 8 take the decode
-    (GEMV) path, more rows the prefill (tensor-core GEMM) path. Returns
+    (GEMV) path, more rows the prefill (TMA + wgmma GEMM) path. Returns
     [rows, OUT] bf16."""
     if w4.dim() != 2 or gscale.dim() != 2:
         raise ValueError(f"int4_matmul kernel takes w4 [OUT, IN_pad/2] and gscale [IN_pad/128, "

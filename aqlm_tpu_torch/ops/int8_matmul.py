@@ -7,10 +7,12 @@ PyTorch counterpart of ``aqlm_tpu.ops.int8_matmul`` (``int8_matmul``,
 kernel of ``csrc/int8_matmul.cu``; on a CPU tensor it runs the plain version
 of the same function. The layer-indexed variants are the same kernel with a
 layer pointer offset; the MoE forms run every expert in one launch, the
-expert being one more grid axis of the same kernel. The backward (the
-contraction runs over w8's rows) has kernels of its own, laid out by the
-pure ``plan_t``: a column GEMV at <= 8 rows, and past them a bf16(g * scale)
-pass followed by a warp-specialised TMA + wgmma GEMM.
+expert being one more grid axis of the same kernel. The pure ``plan`` lays
+each launch out: a GEMV at <= 8 rows, and past them a warp-specialised
+TMA + wgmma GEMM. The backward (the contraction runs over w8's rows) has
+kernels of its own, laid out by the pure ``plan_t``: a column GEMV at <= 8
+rows, and past them a bf16(g * scale) pass followed by a GEMM of the same
+shape.
 
 Layout (shared with ``aqlm_tpu``, so weights and checkpoints carry across):
 ``w8`` is ``[OUT, IN_pad]`` int8, rows contiguous along the contraction dim,
@@ -37,15 +39,23 @@ __all__ = [
     "int8_moe_matmul",
     "int8_moe_matmul_indexed",
     "int8_matmul_transposed",
+    "Plan",
+    "plan",
     "PlanT",
     "plan_t",
 ]
 
 IN_PAD_MULTIPLE = 1024  # weight rows padded so large contraction tiles divide evenly
 INT8_GEMV_MAX_ROWS = 8  # up to this many rows take the kernel's decode path
-# tile shapes of the kernel (csrc/int8_matmul.cu), for the split-K choice
+# the forward's shapes (csrc/int8_matmul.cu): the GEMV's rows a block and
+# columns a chunk; the GEMM's 128-channel tile, 64-column slabs and ring depth
+# at each block height, and the planner's time model of one block-slab (us;
+# at 64 rows two blocks share an SM)
 _GEMV_ROWS, _GEMV_CHUNK = 16, 1024
-_GEMM_BM, _GEMM_BN, _GEMM_BK = 128, 128, 64
+_GEMM_BN, _GEMM_BK = 128, 64
+_GEMM_STAGES = {64: 4, 128: 6, 256: 4}
+_GEMM_SLAB_US = {64: 0.35, 128: 0.35, 256: 0.55}
+TWO_BLOCKS_SMEM = 115712  # dynamic shared memory at which two blocks still share an SM
 
 
 def pad_in_features(in_features: int) -> int:
@@ -95,10 +105,79 @@ def moe_plain(xb, w8, w_scale):
     return y.to(xb.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch of the forward (int8, and int4's ``plan``): the path
+    (``gemv`` at <= 8 rows, else ``gemm``), the GEMM's rows a block (``bm``;
+    0 for the GEMV) and ring stages, the contraction split over ``splits``
+    runs of ``per_split`` columns (whole units of the kernel's contraction:
+    int8 GEMV 1024, GEMM 64; int4 256), the grid and the dynamic shared
+    memory, which the kernel checks against its own layout."""
+
+    path: str
+    bm: int
+    stages: int
+    splits: int
+    per_split: int
+    grid: tuple
+    smem: int
+
+    def partials_shape(self, T: int, out_features: int, experts: int = 1):
+        """The f32 split partial sums' shape, None when unsplit."""
+        if self.splits == 1:
+            return None
+        rows = T if self.path == "gemv" else self.grid[1] * self.bm
+        return (experts, self.splits, rows, out_features)
+
+    def n_tickets(self, experts: int = 1) -> int:
+        """The split path's tickets: one per output tile (GEMV: row block)."""
+        return experts * self.grid[0] * (1 if self.path == "gemv" else self.grid[1])
+
+
+def plan(T: int, out_features: int, in_features: int, ld: int, experts: int = 1,
+         sm_count: int = 132) -> Plan:
+    """Path, tile, stages, split and grid of one forward launch, a pure
+    function of the shapes. At <= 8 rows the GEMV (16 output rows a block,
+    the contraction split in 1024-column chunks to fill the card twice).
+    Past 8 rows the GEMM: 256 rows a block past 256 rows, 128 past 64, else
+    64 (two blocks an SM); the contraction split only where the output tiles
+    leave SMs idle and the time model (waves x slabs a block, plus the
+    partial sums' bytes) says it pays."""
+    if (T < 1 or experts < 1 or out_features < 1 or in_features < 16 or in_features % 16
+            or ld % 16 or in_features > ld):
+        raise ValueError(f"int8_matmul kernel: no plan for T={T} OUT={out_features} "
+                         f"IN={in_features} ld={ld} E={experts} (IN <= ld, both multiples of 16)")
+    if T <= INT8_GEMV_MAX_ROWS:
+        blocks = -(-out_features // _GEMV_ROWS)
+        n_chunks = -(-in_features // _GEMV_CHUNK)
+        splits = _splits(experts * blocks, n_chunks, sm_count, n_chunks)
+        per_split = -(-n_chunks // splits) * _GEMV_CHUNK
+        return Plan("gemv", 0, 0, splits, per_split, (blocks, splits, experts), 0)
+    bm = 64 if T <= 64 else 128 if T <= 256 else 256
+    stages = _GEMM_STAGES[bm]
+    col_tiles, row_tiles = -(-out_features // _GEMM_BN), -(-T // bm)
+    n_slabs = -(-in_features // _GEMM_BK)
+    tiles = experts * col_tiles * row_tiles
+    slots = sm_count * (2 if bm == 64 else 1)
+
+    def cost(s):
+        waves = -(-tiles * s // slots)
+        part = 0 if s == 1 else 8 * s * experts * row_tiles * bm * out_features / _BYTES_PER_US
+        return waves * -(-n_slabs // s) * _GEMM_SLAB_US[bm] + part
+
+    splits = 1
+    if tiles < slots:
+        splits = min(range(1, max(1, min(16, n_slabs // 4)) + 1), key=cost)
+    per_split = -(-n_slabs // splits)
+    splits = -(-n_slabs // per_split)  # no empty split
+    return Plan("gemm", bm, stages, splits, per_split * _GEMM_BK,
+                (col_tiles, row_tiles, experts * splits), gemm_t_smem(bm, stages))
+
+
 def _run(xb, w8, w_scale, name, x_per_expert):
     """Check the operands of one launch (w8 [E, OUT, IN_pad], w_scale [E,
-    OUT], xb [rows, IN] or [E, rows, IN]), size the split-K and launch.
-    Returns [E, rows, OUT] bf16."""
+    OUT], xb [rows, IN] or [E, rows, IN]) and launch it as ``plan`` lays it
+    out. Returns [E, rows, OUT] bf16."""
     rows, in_features = xb.shape[-2:]
     experts, out_features, ld = w8.shape
     dev = xb.device
@@ -122,34 +201,21 @@ def _run(xb, w8, w_scale, name, x_per_expert):
     out = torch.empty((experts, rows, out_features), dtype=torch.bfloat16, device=dev)
     if rows == 0:
         return out
-    sms = _build.sm_count(dev.index)
-    if rows <= INT8_GEMV_MAX_ROWS:
-        blocks = -(-out_features // _GEMV_ROWS)
-        n_chunks = -(-in_features // _GEMV_CHUNK)
-        splits = _splits(experts * blocks, n_chunks, sms, n_chunks)
-        per_split = -(-n_chunks // splits) * _GEMV_CHUNK
-        part_rows = rows
-    else:
-        row_tiles = -(-rows // _GEMM_BM)
-        blocks = row_tiles * -(-out_features // _GEMM_BN)
-        n_slabs = -(-in_features // _GEMM_BK)
-        splits = _splits(experts * blocks, n_slabs, sms, max(1, n_slabs // 4))
-        per_split = -(-n_slabs // splits) * _GEMM_BK
-        part_rows = row_tiles * _GEMM_BM
+    p = plan(rows, out_features, in_features, ld, experts, _build.sm_count(dev.index))
     partials = tickets = None
-    if splits > 1:
+    if p.splits > 1:
         # each expert's splits' f32 partial sums meet here; the last block of
         # each output tile to finish adds them in a fixed order
-        partials = torch.empty((experts, splits, part_rows, out_features), dtype=torch.float32,
-                               device=dev)
-        tickets = torch.zeros(experts * blocks, dtype=torch.int32, device=dev)
+        partials = torch.empty(p.partials_shape(rows, out_features, experts),
+                               dtype=torch.float32, device=dev)
+        tickets = torch.zeros(p.n_tickets(experts), dtype=torch.int32, device=dev)
     lib, _ = _build.library()
     rc = lib.int8_matmul_launch(
         xb.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
         None if partials is None else partials.data_ptr(),
         None if tickets is None else tickets.data_ptr(),
-        experts, int(x_per_expert), rows, splits, per_split, out_features, in_features, ld,
-        _build.stream_ptr(dev),
+        experts, int(x_per_expert), rows, p.splits, p.per_split, out_features, in_features, ld,
+        p.bm, p.stages, p.smem, _build.stream_ptr(dev),
     )
     _build.check(rc, name)
     _build.KERNELS[name].launches += 1
@@ -159,7 +225,7 @@ def _run(xb, w8, w_scale, name, x_per_expert):
 def launch(xb, w8, w_scale):
     """The kernel on one layer's arrays: xb [rows, IN] bf16; w8 [OUT, IN_pad]
     int8; w_scale [OUT] f32. Rows <= 8 take the decode (GEMV) path, more
-    rows the prefill (tensor-core GEMM) path. Returns [rows, OUT] bf16."""
+    rows the prefill (TMA + wgmma GEMM) path. Returns [rows, OUT] bf16."""
     if w8.dim() != 2 or w_scale.dim() != 1:
         raise ValueError(f"int8_matmul kernel takes w8 [OUT, IN_pad] and w_scale [OUT], got "
                          f"{tuple(w8.shape)} and {tuple(w_scale.shape)}")
@@ -292,10 +358,10 @@ def gemv_t_smem(T: int, rows: int) -> int:
 
 
 def gemm_t_smem(bm: int, stages: int) -> int:
-    """The GEMM's dynamic shared memory (the kernel's ``TLayout``): each
-    stage's bf16(g * scale) tile and int8 slab, two widened W^T buffers, the
-    barriers, the split path's flag, and 1024 bytes to align the swizzled
-    A tiles."""
+    """The GEMMs' dynamic shared memory (the kernel's ``TLayout``, which the
+    forward GEMM shares): each stage's bf16 A tile (bf16(g * scale), or x)
+    and int8 slab, two widened W^T buffers, the barriers, the split path's
+    flag, and 1024 bytes to align the swizzled A tiles."""
     ring = stages * (bm * _TG_BK * 2 + _TG_BK * _TG_BN)
     return ring + 2 * _TG_BN * _TG_BK * 2 + (3 * stages + 4) * 8 + 16 + 1024
 

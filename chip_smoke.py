@@ -14,8 +14,11 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    segment sum) against its plain PyTorch version on the card, at the shapes
    of the serving and calibration paths, K1's and B10's records with the
    launch their planning functions chose (K1: columns a block, code reads,
-   tables, ring stages, splits, blocks; B10: GEMV or GEMM, tile, stages,
-   splits, blocks) (K1 at every decode batch bucket of
+   tables, ring stages, splits, blocks; B10, and the int8 and int4
+   kernels and their all-expert forms: GEMV or GEMM, rows a block, stages,
+   splits, grid; at T=1024 the last four also time ``torch.matmul`` on the
+   weight widened to bf16 beforehand, an aside the port never calls) (K1 at
+   every decode batch bucket of
    phase 4's ServeConfig, K2 at every prefill bucket, both also at
    Falcon-7B's fc1, the int8 kernel at both for Llama-2-7B's four
    projections and the lm_head, the int4 kernel at both for the four
@@ -295,6 +298,21 @@ def check_k1_k2(gen, dev, failures):
     return reps
 
 
+def plan_record(p) -> dict:
+    """The int8 or int4 kernel's launch as its ``plan`` chose it."""
+    return dataclasses.asdict(p)
+
+
+def bf16_matmul_aside(x, w_bf16, iters: int = 5) -> dict:
+    """An aside at T=1024: ``torch.matmul`` of x and the weight widened to
+    bf16 beforehand (what cuBLAS reaches for the same product; it needs the
+    bf16 weight in memory, and the port never calls it). w_bf16 [OUT, IN]
+    or [E, OUT, IN]; x [T, IN] or [E, T, IN]."""
+    run = lambda i=0: torch.matmul(x, w_bf16.transpose(-1, -2))
+    return {"bf16_matmul": "torch.matmul on the pre-widened bf16 weight (an aside)",
+            "bf16_matmul_ms": time_ms(run, iters)}
+
+
 # (name, out_features, in_features): the int8 path's launches of a block, and its head
 INT8_PROJS = [("qkv", 12288, 4096), ("o", 4096, 4096), ("gate_up", 22016, 4096),
               ("down", 4096, 11008), ("lm_head", 32000, 4096)]
@@ -334,7 +352,10 @@ def check_int8(gen, dev, failures):
                    "out_features": out_f, "in_features": in_f, "row_stride": ld, **cmp,
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library": "torch._weight_int8pack_mm", "library_ms": library_ms,
-                   "library_error": library_error, "host_ms": host_ms(run)}
+                   "library_error": library_error, "host_ms": host_ms(run),
+                   "plan": plan_record(im.plan(rows, out_f, in_f, ld, 1, _sm_count()))}
+            if rows == 1024:
+                rec.update(bf16_matmul_aside(x[0], w8[0, :, :in_f].to(torch.bfloat16)))
             emit(rec)
             if not cmp["ok"]:
                 failures.append(rec)
@@ -403,7 +424,11 @@ def check_int4(gen, dev, failures):
                    "out_features": out_f, "in_features": in_f, "row_bytes": w4.shape[-1], **cmp,
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library": "torch._weight_int4pack_mm", "library_ms": library_ms,
-                   "library_error": rec_error, "host_ms": host_ms(run)}
+                   "library_error": rec_error, "host_ms": host_ms(run),
+                   "plan": plan_record(i4.plan(rows, out_f, in_f, w4.shape[-1], 1, _sm_count()))}
+            if rows == 1024:
+                rec.update(bf16_matmul_aside(
+                    x[0], i4.dequantize_int4(w4[0], gs[0])[:, :in_f].to(torch.bfloat16)))
             emit(rec)
             if not cmp["ok"]:
                 failures.append(rec)
@@ -465,7 +490,10 @@ def check_int8_moe(gen, dev, failures):
                    "x": "per expert" if per_expert else "shared", **cmp,
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library": "none", "library_ms": library_ms, **lib,
-                   "library_error": library_error, "host_ms": host_ms(run)}
+                   "library_error": library_error, "host_ms": host_ms(run),
+                   "plan": plan_record(im.plan(rows, out_f, in_f, w8.shape[-1], E, _sm_count()))}
+            if rows == 1024:
+                rec.update(bf16_matmul_aside(x[0], w8[0, ..., :in_f].to(torch.bfloat16), 2))
             emit(rec)
             if not cmp["ok"]:
                 failures.append(rec)
@@ -536,7 +564,13 @@ def check_int4_moe(gen, dev, failures):
                    "x": "per expert" if per_expert else "shared", **cmp,
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library": "none", "library_ms": library_ms, **lib,
-                   "library_error": rec_error, "host_ms": host_ms(run)}
+                   "library_error": rec_error, "host_ms": host_ms(run),
+                   "plan": plan_record(i4.plan(rows, out_f, in_f, w4.shape[-1], E, _sm_count()))}
+            if rows == 1024:
+                w_bf16 = torch.stack([i4.dequantize_int4(w4[0, e], gs[0, e])[:, :in_f]
+                                      for e in range(E)]).to(torch.bfloat16)
+                rec.update(bf16_matmul_aside(x[0], w_bf16, 2))
+                del w_bf16
             emit(rec)
             if not cmp["ok"]:
                 failures.append(rec)

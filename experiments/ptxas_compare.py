@@ -7,8 +7,9 @@ With two reports (chip_smoke.py's ``chiprun_out/ptxas.txt`` of two
 checkouts, or experiments/torch_k1_b10_ab.py's ``ptxas_new.txt`` and
 ``ptxas_parent.txt``), every source's instances are matched by name and
 template arguments, and each difference is printed with the count that
-match; for int8_matmul.cu the forward instances (``int8_gemv_kernel``,
-``int8_gemm_kernel``) are also counted apart from the backward's.
+match; the groups of instances a change must leave alone are also counted
+apart: int8_matmul.cu's decode GEMV (``int8_gemv_kernel``) and B10's three
+kernels, int4_matmul.cu's decode GEMV (``int4_gemv_kernel``).
 
 Reads a report written by experiments/torch_codes_probe.py (sections
 ``== <source>.o.log`` of this checkout and ``== parent <source>.cu rc 0`` of
@@ -65,7 +66,11 @@ def compare(name, new, old):
     print(f"{name}: {same} of {len(new)} instances unchanged (the other has {len(old)})")
 
 
-FORWARD_INT8 = ("int8_gemv_kernel<", "int8_gemm_kernel<")
+# (source, group): name prefixes of the instances counted apart
+GROUPS = {("int8_matmul", "decode GEMV"): ("int8_gemv_kernel<",),
+          ("int8_matmul", "B10"): ("int8_gemv_t_kernel<", "int8_scale_g_kernel",
+                                   "int8_gemm_t_kernel<"),
+          ("int4_matmul", "decode GEMV"): ("int4_gemv_kernel<",)}
 
 
 def main_two(path_new, path_old):
@@ -74,10 +79,11 @@ def main_two(path_new, path_old):
         new = {key(k): v for k, v in a.get(src, {}).items()}
         old = {key(k): v for k, v in b.get(src, {}).items()}
         compare(src, new, old)
-        if src.startswith("int8_matmul"):
-            fwd = [k for k in old if k.startswith(FORWARD_INT8)]
-            same = sum(new.get(k) == old[k] for k in fwd)
-            print(f"{src}: forward instances: {same} of {len(fwd)} unchanged")
+        for (stem, group), prefixes in GROUPS.items():
+            if src.startswith(stem):
+                inst = [k for k in old if k.startswith(prefixes)]
+                same = sum(new.get(k) == old[k] for k in inst)
+                print(f"{src}: {group} instances: {same} of {len(inst)} unchanged")
 
 
 def main(path):

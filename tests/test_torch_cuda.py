@@ -195,6 +195,57 @@ def test_int8_matmul_wrapper_raises(dev):
         im.int8_matmul(xb, w8[0], scale[0].to(torch.bfloat16))
 
 
+# (OUT, IN): a ragged OUT over IN 11008 in ld 11264, Falcon-7B's q and k
+# (OUT 64), Llama-2-7B's fused gate/up; with GEMM_ROWS they take every
+# branch of the prefill plans (BM 64/128/256 for int8, 64/128 for int4,
+# split and unsplit)
+GEMM_SHAPES = [(520, 11008), (4544, 4544), (64, 4544), (22016, 4096)]
+GEMM_ROWS = [9, 63, 64, 65, 200, 256, 257, 1024]
+
+
+def test_gemm_cases_cover_every_plan_branch(dev):
+    sms = _build.sm_count(dev.index)
+    int8 = {(p.bm, p.splits > 1) for p in (im.plan(r, o, i, im.pad_in_features(i), 1, sms)
+                                           for o, i in GEMM_SHAPES for r in GEMM_ROWS)}
+    assert int8 == {(bm, split) for bm in (64, 128, 256) for split in (False, True)}
+    int4 = {(p.bm, p.splits > 1) for p in (i4.plan(r, o, i, i4.pad_in_features_int4(i) // 2, 1, sms)
+                                           for o, i in GEMM_SHAPES for r in GEMM_ROWS)}
+    assert int4 == {(bm, split) for bm in (64, 128) for split in (False, True)}
+
+
+@pytest.mark.parametrize("rows", GEMM_ROWS)
+@pytest.mark.parametrize("out_f,in_f", GEMM_SHAPES)
+def test_int8_gemm_matches_plain(dev, out_f, in_f, rows):
+    gen = torch.Generator(device=dev).manual_seed(rows + out_f)
+    w8, scale, _ = _int8(gen, dev, 1, out_f=out_f, in_f=in_f)
+    x = torch.randn((rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+    before = _build.KERNELS["int8_matmul"].launches
+    got = im.int8_matmul(x, w8[0], scale[0])
+    assert _build.KERNELS["int8_matmul"].launches == before + 1
+    _close(got, im.plain(x, w8[0], scale[0]))
+
+
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("rows", [65, 257, 1024])
+def test_int8_moe_gemm_matches_plain(dev, rows, per_expert):
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    w8, scale = _moe(gen, dev, 8, 520, 1040, L=1)
+    x = torch.randn((8, rows, 1040) if per_expert else (rows, 1040), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    _close(im.int8_moe_matmul(x, w8[0], scale[0]), im.moe_plain(x, w8[0], scale[0]))
+
+
+@pytest.mark.parametrize("rows", [64, 257, 1024])
+def test_int8_gemm_second_run_is_bit_identical(dev, rows):
+    """T=64 splits the contraction (the fixed-order last-block reduction);
+    every run of the same inputs gives the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    w8, scale, _ = _int8(gen, dev, 1, out_f=4096)
+    x = torch.randn((rows, 11008), generator=gen, device=dev).to(torch.bfloat16)
+    a = im.int8_matmul(x, w8[0], scale[0])
+    assert torch.equal(a, im.int8_matmul(x, w8[0], scale[0]))
+
+
 def test_int8_engine_on_the_card_launches_its_kernels(dev):
     """int8 layers and head run on the int8 kernel; decode attention on K3
     (max_len >= 1024 takes the flash rule for int8 layers)."""
@@ -361,6 +412,26 @@ def test_int4_matmul_wrapper_raises(dev):
         i4.int4_matmul(xb, w4[0], gs[0].t().contiguous())
 
 
+@pytest.mark.parametrize("rows", GEMM_ROWS)
+@pytest.mark.parametrize("out_f,in_f", GEMM_SHAPES)
+def test_int4_gemm_matches_plain(dev, out_f, in_f, rows):
+    gen = torch.Generator(device=dev).manual_seed(rows + out_f)
+    w4, gs, _ = _int4(gen, dev, 1, out_f=out_f, in_f=in_f)
+    x = torch.randn((rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+    before = _build.KERNELS["int4_matmul"].launches
+    got = i4.int4_matmul(x, w4[0], gs[0])
+    assert _build.KERNELS["int4_matmul"].launches == before + 1
+    _close(got, i4.plain(x, w4[0], gs[0]))
+
+
+@pytest.mark.parametrize("rows", [64, 257, 1024])
+def test_int4_gemm_second_run_is_bit_identical(dev, rows):
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    w4, gs, _ = _int4(gen, dev, 1, out_f=4096)
+    x = torch.randn((rows, 11008), generator=gen, device=dev).to(torch.bfloat16)
+    assert torch.equal(i4.int4_matmul(x, w4[0], gs[0]), i4.int4_matmul(x, w4[0], gs[0]))
+
+
 def test_int4_engine_on_the_card_launches_its_kernels(dev):
     """int4 layers run on the int4 kernel, the head is a dense product;
     decode attention on K3 (max_len >= 1024 takes the flash rule)."""
@@ -459,6 +530,16 @@ def test_int4_moe_matmul_wrapper_raises(dev):
         i4.moe_launch(xb, w4, gs.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="takes w4"):
         i4.moe_launch(xb, w4[0], gs[0])
+
+
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("rows", [65, 257, 1024])
+def test_int4_moe_gemm_matches_plain(dev, rows, per_expert):
+    w4, gs = _int4_moe(8, 520, 1040, L=1)
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn((8, rows, 1040) if per_expert else (rows, 1040), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    _close(i4.int4_moe_matmul(x, w4[0], gs[0]), i4.moe_plain(x, w4[0], gs[0]))
 
 
 def test_mixtral_int4_engine_on_the_card_launches_its_kernels(dev):
