@@ -3,8 +3,10 @@
 PyTorch counterpart of ``aqlm_tpu.ops.kernels.fused_onehot_matmul``, the
 path of every codes-mode projection whose out_features is not a multiple of
 128 (Falcon-7B's q/k/v/o/fc2). On a CUDA tensor every entry point launches
-kernel B15 (``csrc/onehot_matmul.cu``): a GEMV form for at most 8 rows and a
-tensor-core GEMM form above; on a CPU tensor it runs the plain version.
+kernel B15 (``csrc/onehot_matmul.cu``), laid out by the pure ``onehot_plan``:
+a GEMV form for at most 8 rows (a TMA ring of code slabs, mma.sync
+products) and, above, a GEMM form in K2's warp-specialised shape; on a CPU
+tensor it runs the plain version.
 
 Numerics follow the TPU kernel: each weight element is
 ``bf16(sum_k f32(cb_k[code_k]))``; the product accumulates in f32 and is
@@ -31,16 +33,20 @@ Each has a plain version beside it, which a CPU tensor runs.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.ops import _build
 
-__all__ = ["ONEHOT_GEMV_MAX_ROWS", "CB_GRAD_MAX_SEGMENTS", "fused_onehot_matmul",
+__all__ = ["ONEHOT_GEMV_MAX_ROWS", "CB_GRAD_MAX_SEGMENTS", "OnehotPlan", "onehot_plan",
+           "fused_onehot_matmul",
            "fused_onehot_matmul_indexed", "dequantize_groups", "dequantize_onehot",
            "cb_grad_segment", "gather_wraps"]
 
 ONEHOT_GEMV_MAX_ROWS = 8  # the GEMV form's largest row count; more rows take the GEMM form
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use on an H100 (B13's and B14's too)
 _KERNEL_GROUP = 8  # in_group_size the CUDA kernel is written for
 
 
@@ -62,6 +68,111 @@ def plain(xb, codes_t, codebooks, scales):
     wt = dequant_t(codes_t, codebooks).to(torch.bfloat16).float()
     y = torch.matmul(xb.float(), wt).to(xb.dtype)
     return y * scales.to(xb.dtype)[None, :]
+
+
+@dataclasses.dataclass(frozen=True)
+class OnehotPlan:
+    """One launch of B15. ``gemv`` (<= 8 rows): blocks of 128 columns over
+    ``splits`` runs of ``groups_per_split`` input groups (a multiple of the
+    ring's 32-group stage), ``stages`` ring stages, x staged as rows of
+    ``xg`` 16-byte groups. ``gemm``: ``bm`` rows a block, ``stages`` ring
+    stages, ``groups_per_split`` / 8 slabs a block. ``grid`` (column blocks,
+    row tiles, splits) and ``smem``, which the kernel checks against its own
+    layout."""
+
+    path: str
+    bm: int
+    stages: int
+    splits: int
+    groups_per_split: int
+    xg: int
+    grid: tuple
+    smem: int
+
+    def partials_shape(self, B: int, out_features: int):
+        """The f32 split partial sums, None when unsplit."""
+        if self.splits == 1:
+            return None
+        rows = B if self.path == "gemv" else self.grid[1] * self.bm
+        return (self.splits, rows, out_features)
+
+    @property
+    def n_tickets(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+_V_COLS, _V_GS, _V_MAX_STAGES = 128, 32, 4  # the GEMV's block columns, groups a stage, ring depth
+_M_STAGES = (4, 3)  # the GEMM's ring depths tried, deepest first
+
+
+def onehot_gemv_smem(K: int, S: int, stages: int, B: int, xg: int, f32: bool) -> int:
+    """The GEMV form's dynamic shared memory (the kernel's ``VLayout``): the
+    code ring, the codebooks, x (f32 x: hi and lo planes), the eight
+    warps' sums, the stage barriers, the split flag, 1024 bytes of
+    alignment slack."""
+    return (stages * K * _V_GS * _V_COLS + K * S * 16 + (2 if f32 else 1) * B * xg * 16
+            + 8 * 32 * 32 * 4 + 2 * stages * 8 + 16 + 1024)
+
+
+def onehot_gemm_smem(bm: int, K: int, S: int, stages: int) -> int:
+    """The GEMM form's dynamic shared memory (the kernel's ``MLayout``, K2's
+    with the code slab as [K, 8 groups, 128 columns])."""
+    return stages * (bm * 64 * 2 + 8 * K * 128) + 2 * 64 * 128 * 2 + K * S * 16 + (2 * stages + 4) * 8 \
+        + 16 + 1024
+
+
+def onehot_plan(B: int, out_features: int, ig: int, K: int, sm_count: int = 132, S: int = 256,
+                x_dtype=torch.bfloat16) -> OnehotPlan:
+    """B15's launch, a pure function of the shapes. At <= 8 rows the GEMV:
+    the input groups split until the column blocks fill the card twice (k/v
+    have one block), each split a whole number of 32-group stages, the ring
+    as deep as the split (at most 4), and more splits while shared memory
+    would overflow. Past 8 rows (bf16 x) the GEMM: 256 rows a block past 128
+    rows, else 128, the deepest ring that fits, and the input split only
+    where the output tiles leave SMs idle and K2's time model says it pays."""
+    if B < 1 or out_features < 1 or ig < 1 or not 1 <= K <= 8 or not 1 <= S <= 256:
+        raise ValueError(f"onehot_matmul kernel: no plan for B={B} OUT={out_features} IG={ig} "
+                         f"K={K} S={S}")
+    col_blocks = -(-out_features // _V_COLS)
+    if B <= ONEHOT_GEMV_MAX_ROWS:
+        if x_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"onehot_matmul GEMV takes bf16/f32 activations, got {x_dtype}")
+        n_units = -(-ig // _V_GS)
+        per = -(-n_units // max(1, min(n_units, -(-2 * sm_count // col_blocks))))
+        while True:  # fewer groups a split while shared memory would overflow
+            stages = min(_V_MAX_STAGES, per)
+            xg = per * _V_GS + 4
+            smem = onehot_gemv_smem(K, S, stages, B, xg, x_dtype == torch.float32)
+            if smem <= SMEM_LIMIT or per == 1:
+                break
+            per -= 1
+        splits = -(-n_units // per)  # no empty split
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"onehot_matmul GEMV: K={K} S={S} needs {smem} bytes of shared memory")
+        return OnehotPlan("gemv", 0, stages, splits, per * _V_GS, xg, (col_blocks, 1, splits), smem)
+    if x_dtype != torch.bfloat16:
+        raise ValueError(f"onehot_matmul GEMM takes bf16 activations, got {x_dtype}")
+    bm = 128 if B <= 128 else 256
+    stages = next((st for st in _M_STAGES if onehot_gemm_smem(bm, K, S, st) <= SMEM_LIMIT), None)
+    if stages is None:
+        raise ValueError(f"onehot_matmul GEMM: K={K} S={S} needs "
+                         f"{onehot_gemm_smem(bm, K, S, _M_STAGES[-1])} bytes of shared memory")
+    row_tiles, n_slabs = -(-B // bm), -(-ig // 8)
+    tiles = col_blocks * row_tiles
+    slab_us = {256: 0.55, 128: 0.35}[bm]  # K2's time model (gather_prefill.plan)
+
+    def cost(s):
+        waves = -(-tiles * s // sm_count)
+        part = 0 if s == 1 else 8 * s * row_tiles * bm * out_features / 3.35e6
+        return waves * -(-n_slabs // s) * slab_us + part
+
+    splits = 1
+    if tiles < sm_count:
+        splits = min(range(1, max(1, min(16, n_slabs // 4)) + 1), key=cost)
+    per = -(-n_slabs // splits)
+    splits = -(-n_slabs // per)  # no empty split
+    return OnehotPlan("gemm", bm, stages, splits, per * 8, 0, (col_blocks, row_tiles, splits),
+                      onehot_gemm_smem(bm, K, S, stages))
 
 
 def launch(xb, codes_t, codebooks, scales, group):
@@ -93,33 +204,18 @@ def launch(xb, codes_t, codebooks, scales, group):
     out = torch.empty((B, out_features), dtype=xb.dtype, device=dev)
     if B == 0:
         return out
-    sms = _build.sm_count(dev.index)
-    if gemv:
-        # split the input groups of each 256-column block over enough blocks
-        # to fill the card twice (k/v have one column block)
-        col_blocks, n_units = -(-out_features // 256), ig
-        splits = max(1, min(-(-2 * sms // col_blocks), n_units // 16))
-        t_pad = B
-    else:
-        # split the 64-wide input slabs where the output tiles alone would
-        # not fill the card twice
-        row_tiles, n_units = -(-B // 128), -(-ig // 8)
-        col_blocks = -(-out_features // 128) * row_tiles
-        splits = max(1, min(-(-2 * sms // col_blocks), n_units // 4))
-        t_pad = row_tiles * 128
-    splits = -(-n_units // -(-n_units // splits))  # no empty split
+    p = onehot_plan(B, out_features, ig, K, _build.sm_count(dev.index), S, xb.dtype)
     partials = tickets = None
-    if splits > 1:
-        partials = torch.empty((splits, t_pad, -(-out_features // 128) * 128),
-                               dtype=torch.float32, device=dev)
-        tickets = torch.zeros(col_blocks, dtype=torch.int32, device=dev)
+    if p.splits > 1:
+        partials = torch.empty(p.partials_shape(B, out_features), dtype=torch.float32, device=dev)
+        tickets = torch.zeros(p.n_tickets, dtype=torch.int32, device=dev)
     lib, _ = _build.library()
     rc = lib.onehot_matmul_launch(
         xb.data_ptr(), codes_t.data_ptr(), codebooks.data_ptr(), scales.data_ptr(),
         out.data_ptr(), None if partials is None else partials.data_ptr(),
         None if tickets is None else tickets.data_ptr(),
-        int(xb.dtype == torch.bfloat16), B, splits, ig, out_features, K, S,
-        int(out_features % 4 == 0 and codes_t.data_ptr() % 4 == 0), _build.stream_ptr(dev),
+        int(xb.dtype == torch.bfloat16), B, p.bm, p.stages, p.smem, p.splits, p.groups_per_split,
+        p.xg, ig, out_features, K, S, _build.stream_ptr(dev),
     )
     _build.check(rc, "onehot_matmul")
     _build.KERNELS["onehot_matmul"].launches += 1
@@ -159,8 +255,6 @@ def fused_onehot_matmul_indexed(x, codes_t_all, codebooks_all, scales_all, layer
 # B13: the dense weight from Kx8 codes (the differentiable dequant's forward)
 # ---------------------------------------------------------------------------
 
-_SMEM_MAX = 232448  # shared memory one block may take on Hopper (B13's codebooks, B14's sums)
-
 
 def dequant_plain(codes, codebooks, scales=None, *, precise: bool = True):
     """B13's plain version: W [OUT, IN] f32 from canonical ``codes [OG, IG, K]``
@@ -191,7 +285,7 @@ def dequant_launch(codes, codebooks, scales=None, *, precise: bool = True):
     if codes.dtype != torch.uint8 or codebooks.dtype != torch.float32:
         raise ValueError(f"dequantize kernel takes uint8 codes and f32 codebooks, got "
                          f"{codes.dtype} and {codebooks.dtype}")
-    if Kc != K or S > 256 or K * S * g * 4 > _SMEM_MAX:
+    if Kc != K or S > 256 or K * S * g * 4 > SMEM_LIMIT:
         raise ValueError(f"dequantize kernel: bad shapes codes {tuple(codes.shape)} codebooks "
                          f"{tuple(codebooks.shape)}")
     if scales is not None and (scales.dtype != torch.float32 or scales.shape != (og,)):
@@ -268,7 +362,7 @@ def cb_grad_launch(codes, data, num_segments: int, *, precise: bool = True):
     if codes.dtype != torch.uint8 or data.dtype != torch.float32:
         raise ValueError(f"cb_grad kernel takes uint8 codes and f32 data, got "
                          f"{codes.dtype} and {data.dtype}")
-    if num_segments > CB_GRAD_MAX_SEGMENTS or data.shape[0] != G or K * num_segments * g * 4 > _SMEM_MAX:
+    if num_segments > CB_GRAD_MAX_SEGMENTS or data.shape[0] != G or K * num_segments * g * 4 > SMEM_LIMIT:
         raise ValueError(f"cb_grad kernel: bad shapes codes {tuple(codes.shape)} data "
                          f"{tuple(data.shape)} segments {num_segments}")
     for t in (codes, data):

@@ -587,6 +587,9 @@ ONEHOT_PROJS = [("q", 4544, 4544), ("k", 64, 4544), ("v", 64, 4544), ("o", 4544,
 
 
 def check_onehot(gen, dev, failures):
+    """B15 at Falcon-7B's five projections, every main-path row count, two
+    bf16 steps from its plain version; each launch's plan, and at T=1024 a
+    bf16 ``torch.matmul`` aside on the pre-dequantized weight."""
     from aqlm_tpu_torch.ops import kernels as k15
 
     reps = {}
@@ -602,15 +605,21 @@ def check_onehot(gen, dev, failures):
                                          cb[i % N_LAYERS_TIMED], scales[i % N_LAYERS_TIMED], 8)
             plain = lambda i=0: k15.plain(x[0], codes[0], cb[0], scales[0])
             cmp = compare(run(0), plain(0), steps=2)
-            ms = time_ms(run, 50)
+            ms = time_ms(run, 50 if rows <= 256 else 10)
             plain_ms = time_ms(plain, 3)
             b_ms, b_by = bound(K * ig * out_f + rows * in_f * 2 + rows * out_f * 2 + K * 256 * 8 * 2
                                + out_f * 4, 2.0 * rows * out_f * in_f)
+            aside = {}
+            if rows == 1024:
+                w = k15.dequant_t(codes[0], cb[0]).to(torch.bfloat16).t().contiguous()
+                aside = bf16_matmul_aside(x[0], w)
+                del w
             # no one PyTorch call computes a codes dequant-matmul: no library column
             rec = {"phase": "check", "kernel": "onehot_matmul", "proj": name, "rows": rows,
                    "out_features": out_f, "in_features": in_f, **cmp, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library": "none",
-                   "library_ms": None, "host_ms": host_ms(run)}
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, **aside,
+                   "library": "none", "library_ms": None, "host_ms": host_ms(run),
+                   "plan": dataclasses.asdict(k15.onehot_plan(rows, out_f, ig, K, _sm_count()))}
             emit(rec)
             if not cmp["ok"]:
                 failures.append(rec)
@@ -704,14 +713,36 @@ GATHER16_PROJS = [("q", 4096, 4096, 8), ("gate", 11008, 4096, 8), ("down", 4096,
                   ("q_g16", 4096, 4096, 16)]
 
 
+def gather_ceiling() -> dict:
+    """The card's L2 gather ceiling (experiments/torch_gather_ceiling.py's
+    micro-kernel, built here): random 16-byte rows of a 1 MB table and
+    32-byte rows of a 2 MB one (lane pairs), codes streaming from device
+    memory; G rows a second by row width."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments",
+                        "torch_gather_ceiling.py")
+    spec = importlib.util.spec_from_file_location("torch_gather_ceiling", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    recs = probe.measure(probe.CEILING_CASES, n_codes=64 << 20, repeats=3)
+    emit({"phase": "check", "kernel": "gather_ceiling", "records": recs})
+    return {r["row_bytes"] // 2: r["g_rows_per_s"] for r in recs}  # by group: 8 -> 16 B rows
+
+
 def check_gather16(gen, dev, failures):
     """The 1x16 GEMV (decode rows) and GEMM (prefill rows) against their
     plain version, one bf16 step; with a bias (added after, in bf16: a
     second rounding) at one row count of each form, two steps. Beside the
-    bound, the L2 gather traffic: each code pulls one 2g-byte codebook row."""
+    bound, the L2 gather traffic (each code pulls one 2g-byte codebook row,
+    once per launch in both forms: the GEMM's pre-pass gathers each weight
+    once) and the card's gather ceiling; each launch's plan, and the GEMM's
+    transient W (its planned bytes and the peak the launch adds); at T=1024 a
+    bf16 ``torch.matmul`` aside."""
     from aqlm_tpu_torch.ops import gather16 as g16
 
     reps = {}
+    ceiling = gather_ceiling()
     decode, prefill = main_path_rows(engine_serve_config("codes_1x16"))
     for name, out_f, in_f, grp in GATHER16_PROJS:
         ig = in_f // grp
@@ -728,25 +759,43 @@ def check_gather16(gen, dev, failures):
             run = lambda i=0: launch(x[i % N_LAYERS_TIMED], codes[i % N_LAYERS_TIMED],
                                      cb[i % N_LAYERS_TIMED], scales[i % N_LAYERS_TIMED], grp)
             plain = lambda i=0: g16.plain(x[0], codes[0], cb[0], scales[0], grp)
-            cmp = compare(run(0), plain(0))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = run(0)
+            torch.cuda.synchronize()
+            peak_extra = torch.cuda.max_memory_allocated() - base
+            cmp = compare(got, plain(0))
+            del got
             biased = {}
             if rows in (4, 64):
                 b_cmp = compare(g16.gather_matmul_16(x[0], codes[0], cb[0], scales[0], bias, group=grp),
                                 plain(0) + bias, steps=2)
                 biased = {"with_bias": b_cmp}
                 cmp["ok"] = cmp["ok"] and b_cmp["ok"]
-            ms = time_ms(run, 50)
+            ms = time_ms(run, 50 if rows <= 256 else 10)
             plain_ms = time_ms(plain, 3)
             b_ms, b_by = bound(out_f * ig * 2 + 65536 * grp * 2 + rows * in_f * 2 + rows * out_f * 2
                                + out_f * 4, 2.0 * rows * out_f * in_f)
-            # the GEMM gathers each row tile's W once: ceil(rows / 128) times
-            l2 = out_f * ig * grp * 2 * (1 if rows <= g16.GATHER16_GEMV_MAX_BATCH else -(-rows // 128))
+            p = g16.plan(rows, out_f, ig, grp, _sm_count())
+            l2 = out_f * ig * grp * 2 * p.gathers_per_weight
+            rows_per_s = out_f * ig * p.gathers_per_weight / (ms * 1e-3) / 1e9
+            aside = {}
+            if rows == 1024:
+                w = g16._weight(codes[0], cb[0], grp)
+                aside = bf16_matmul_aside(x[0], w)
+                del w
             # no one PyTorch call computes a codebook-gather matmul: no library column
             rec = {"phase": "check", "kernel": kernel, "proj": name, "rows": rows, "group": grp,
                    "out_features": out_f, "in_features": in_f, **cmp, **biased, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "l2_gather_bytes": l2, "l2_gather_tb_s": l2 / (ms * 1e-3) / 1e12,
-                   "library": "none", "library_ms": None, "host_ms": host_ms(run)}
+                   "gathers_per_weight": p.gathers_per_weight, "l2_gather_g_rows_per_s": rows_per_s,
+                   "l2_ceiling_g_rows_per_s": ceiling[grp],
+                   "share_of_ceiling": rows_per_s / ceiling[grp], **aside,
+                   "scratch_bytes": p.scratch_bytes, "peak_extra_bytes": peak_extra,
+                   "library": "none", "library_ms": None, "host_ms": host_ms(run),
+                   "plan": dataclasses.asdict(p)}
             emit(rec)
             if not cmp["ok"]:
                 failures.append(rec)

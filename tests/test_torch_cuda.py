@@ -618,6 +618,63 @@ def test_onehot_matmul_kernel_is_deterministic(dev):
         assert torch.equal(a, k15.fused_onehot_matmul(x, codes[0], cb[0], scales[0], group=8))
 
 
+def _onehot_k(gen, dev, out_f, in_f, K, L=1):
+    """Untiled Kx8 codes [L, K, IG, OUT] over the full byte range."""
+    codes = torch.randint(0, 256, (L, K, in_f // 8, out_f), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    cb = (torch.randn((L, K, 256, 8), generator=gen, device=dev) / (4 * K ** 0.5)).to(torch.bfloat16)
+    scales = torch.rand((L, out_f), generator=gen, device=dev) + 0.5
+    return codes, cb, scales
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8, 9, 64, 200, 1024])
+@pytest.mark.parametrize("K", [1, 2, 8])
+@pytest.mark.parametrize("out_f", [64, 200, 4544])
+def test_onehot_plan_branches_match_plain(dev, out_f, K, rows):
+    """Every branch of onehot_plan: the GEMV (bf16 and f32 x; TMA code ring
+    at OUT 64/4544, byte loads at OUT 200; split over the input groups at
+    k/v and the wide projections) and the GEMM (BM 128 and 256, split and
+    unsplit, 16- or 4-byte code copies), two bf16 steps from the plain
+    version (f32 x: the f32 sum's order only)."""
+    gen = torch.Generator(device=dev).manual_seed(rows * 7 + K + out_f)
+    in_f = 4544
+    codes, cb, scales = _onehot_k(gen, dev, out_f, in_f, K)
+    x = torch.randn((rows, in_f), generator=gen, device=dev)
+    for xt in ((x.to(torch.bfloat16), x) if rows <= 8 else (x.to(torch.bfloat16),)):
+        got = k15.launch(xt, codes[0], cb[0], scales[0], 8)
+        want = k15.plain(xt, codes[0], cb[0], scales[0])
+        assert got.dtype == xt.dtype
+        if xt.dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+        else:
+            _close(got, want, steps=2)
+
+
+def test_onehot_plan_branches_are_covered():
+    """The cases above reach every plan branch."""
+    seen = set()
+    for out_f in (64, 200, 4544):
+        for K in (1, 2, 8):
+            for rows in (1, 4, 8, 9, 64, 200, 1024):
+                p = k15.onehot_plan(rows, out_f, 4544 // 8, K)
+                seen.add((p.path, p.bm, p.splits > 1, out_f % 16 == 0))
+    assert {("gemv", 0, True, True), ("gemv", 0, True, False), ("gemm", 128, True, True),
+            ("gemm", 256, True, True), ("gemm", 256, False, True), ("gemm", 128, True, False)} <= seen
+
+
+@pytest.mark.parametrize("rows", [4, 64, 1024])
+def test_onehot_split_runs_are_bit_identical(dev, rows):
+    """A second run gives identical bits: the warps and the input splits
+    meet in a fixed order."""
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    for out_f in (64, 4544):
+        codes, cb, scales = _onehot_k(gen, dev, out_f, 18176, 2)
+        x = torch.randn((rows, 18176), generator=gen, device=dev).to(torch.bfloat16)
+        a = k15.launch(x, codes[0], cb[0], scales[0], 8)
+        for _ in range(2):
+            assert torch.equal(a, k15.launch(x, codes[0], cb[0], scales[0], 8))
+
+
 def test_onehot_matmul_wrapper_raises(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     codes, cb, scales = _onehot(gen, dev, 64, 256, L=1)
@@ -825,6 +882,78 @@ def test_gather16_kernels_are_deterministic(dev):
         x = torch.randn((rows, 4096), generator=gen, device=dev).to(torch.bfloat16)
         a = g16.gather_matmul_16(x, codes[0], cb[0], scales[0], group=8)
         assert torch.equal(a, g16.gather_matmul_16(x, codes[0], cb[0], scales[0], group=8))
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8, 9, 63, 64, 65, 256, 257, 1024])
+@pytest.mark.parametrize("group", [8, 16])
+def test_gather16_plan_rows_match_plain(dev, group, rows):
+    """Llama-2-7B's down at every row count the plan treats apart: the GEMV
+    (bf16 x staged, f32 x at 8 rows read from device memory), the pre-pass
+    and GEMM at BM 128 and 256, split (T 9-257) and unsplit (T 1024); codes
+    over the full uint16 range; one bf16 step (f32 x: the sum's order only)."""
+    gen = torch.Generator(device=dev).manual_seed(rows + group)
+    codes, cb, scales = _g16(gen, dev, 4096, 11008, group, L=1)
+    x = torch.randn((rows, 11008), generator=gen, device=dev)
+    for xt in ((x.to(torch.bfloat16), x) if rows <= 8 else (x.to(torch.bfloat16),)):
+        got = g16.gather_matmul_16(xt, codes[0], cb[0], scales[0], group=group)
+        want = g16.plain(xt, codes[0], cb[0], scales[0], group)
+        if xt.dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+        else:
+            _close(got, want)
+
+
+@pytest.mark.parametrize("rows", [1, 5, 8, 9, 300])
+@pytest.mark.parametrize("group", [8, 16])
+def test_gather16_odd_out_matches_plain(dev, group, rows):
+    """An odd OUT: the g=16 GEMV's last row pair holds one row, the GEMM
+    stores its last column alone."""
+    gen = torch.Generator(device=dev).manual_seed(rows * 3 + group)
+    codes, cb, scales = _g16(gen, dev, 201, 1024, group, L=1)
+    x = torch.randn((rows, 1024), generator=gen, device=dev).to(torch.bfloat16)
+    _close(g16.gather_matmul_16(x, codes[0], cb[0], scales[0], group=group),
+           g16.plain(x, codes[0], cb[0], scales[0], group))
+
+
+def test_gather16_plan_rows_cover_every_branch():
+    """The cases above and below reach every plan branch: the first design
+    (g=8, g=16 past 4 rows), the lane-pair kernel with x staged and read
+    from device memory, the GEMM at BM 128 and 256, split and unsplit."""
+    seen = set()
+    for group in (8, 16):
+        for rows in (1, 4, 8, 9, 63, 64, 65, 256, 257, 1024):
+            for dt in (torch.bfloat16, torch.float32) if rows <= 8 else (torch.bfloat16,):
+                p = g16.plan(rows, 4096, 11008 // group, group, 132, dt)
+                first = p.path == "gemv" and (group == 8 or rows > 4)
+                seen.add((p.path, p.bm, p.splits > 1, p.x_staged, first))
+    p = g16.plan(4, 512, 20480 // 16, 16, 132, torch.float32)
+    seen.add((p.path, p.bm, p.splits > 1, p.x_staged, False))
+    assert {("gemv", 0, False, True, True), ("gemv", 0, False, True, False),
+            ("gemv", 0, False, False, False), ("gemm", 128, True, False, False),
+            ("gemm", 256, True, False, False), ("gemm", 256, False, False, False)} <= seen
+
+
+@pytest.mark.parametrize("rows", [3, 4])
+def test_gather16_pair_gemv_unstaged_x_matches_plain(dev, rows):
+    """f32 x too wide to stage (IN 20480 at g=16): the lane-pair kernel reads
+    x from device memory."""
+    assert not g16.plan(rows, 512, 20480 // 16, 16, 132, torch.float32).x_staged
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    codes, cb, scales = _g16(gen, dev, 512, 20480, 16, L=1)
+    x = torch.randn((rows, 20480), generator=gen, device=dev)
+    got = g16.gather_matmul_16(x, codes[0], cb[0], scales[0], group=16)
+    want = g16.plain(x, codes[0], cb[0], scales[0], 16)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def test_gather16_gemm_second_run_is_bit_identical(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    codes, cb, scales = _g16(gen, dev, 4096, 11008, 8, L=1)
+    for rows in (9, 64, 257):
+        x = torch.randn((rows, 11008), generator=gen, device=dev).to(torch.bfloat16)
+        a = g16.gather_matmul_16(x, codes[0], cb[0], scales[0], group=8)
+        for _ in range(2):
+            assert torch.equal(a, g16.gather_matmul_16(x, codes[0], cb[0], scales[0], group=8))
 
 
 def test_gather16_wrapper_raises(dev):
