@@ -221,15 +221,15 @@ def _declare(lib) -> None:
     lib.gather16_gemv_launch.argtypes = [P] * 5 + [I] * 8 + [P]
     lib.gather16_wt_launch.argtypes = [P] * 3 + [L, I, I, P]
     lib.gather16_gemm_launch.argtypes = [P] * 6 + [I] * 8 + [P]
-    lib.flash_decode_write_launch.argtypes = [P] * 13 + [I] * 8 + [ctypes.c_float, P]
+    lib.flash_decode_write_launch.argtypes = [P] * 14 + [I] * 10 + [ctypes.c_float, P]
     lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 11 + [P]
-    lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 11 + [P]
+    lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 12 + [P]
     lib.onehot_matmul_launch.argtypes = [P] * 7 + [I] * 12 + [P]
     lib.calib_dequant_launch.argtypes = [P] * 4 + [L] + [I] * 5 + [P]
     lib.cb_grad_launch.argtypes = [P] * 3 + [L] + [I] * 4 + [P]
     lib.gather_dequant_wt_launch.argtypes = [P] * 4 + [I] * 6 + [P]
     lib.int8_matmul_t_launch.argtypes = [P] * 7 + [I] * 9 + [P]
-    lib.flash_decode_launch.argtypes = [P] * 9 + [I] * 10 + [ctypes.c_float, P]
+    lib.flash_decode_launch.argtypes = [P] * 10 + [I] * 12 + [ctypes.c_float, P]
     lib.kv_write_launch.argtypes = [ctypes.POINTER(P), ctypes.POINTER(P), ctypes.POINTER(I), I, P,
                                     I, I, I, P]
     lib.gather_wraps_launch.argtypes = [P] * 3 + [I, P]

@@ -7,30 +7,57 @@
 // The layer index is a pointer offset applied by the caller.
 //
 // For every (row b, kv head h): write the new key/value row (and its scales)
-// at offsets[b], in place; then attend the REP query heads of the group to
-// the keys in [max(0, len - window), len), len = offsets[b] + 1, with an
-// online softmax (f32 m, l and accumulators) and the same length mask and
-// sliding window as the TPU kernel (flash_decode.py:32-38, :65-79).
+// at offsets[b], in place; then attend the rep query heads of the group to
+// the keys in [max(0, len - window), len), len = offsets[b] + 1, with the
+// same length mask and sliding window as the TPU kernel
+// (flash_decode.py:32-38, :65-79), in f32 (m, l and accumulators).
 //
 // What bounds it on an H100: the cache bytes of the valid keys, read once:
 // 2 * (D + 4) bytes per key per kv head for int8 (2 * 2D for bf16); the
-// arithmetic is 4*REP*D FLOP per key. Unlike the TPU grid, which visits every
-// tile up to max_len, the kernel reads only keys below the row's length.
+// arithmetic, 4*rep*D FLOP per key, is far below the card's ridge. Unlike
+// the TPU grid, which visits every tile up to max_len, the kernel reads only
+// keys below the row's length.
 //
-// Design, simple first: one 256-thread block per (b, h). The block writes the
-// new row first and synchronises, so the attention reads it back like any
-// other key (global writes before __syncthreads are visible to the block;
-// the cache is read with ordinary, not read-only-cache, loads). The eight
-// warps take 32-key tiles in turn: each lane scores one key against the REP
-// queries held in shared memory, the warp updates its running max and sum
-// with shuffles, then the lanes (each owning D/32 output elements) accumulate
-// p * v over the tile's keys, eight value rows in flight at a time. The
-// eight warps' states merge in shared memory.
+// 1, 2, 4 or 8 query heads per kv head (Llama-2-7B: 1 over 32 kv heads;
+// Mixtral-8x7B: 4 over 8): flash_decode_rows_kernel. The first design, one
+// block per (b, h) walking its row's keys in series, left most SMs idle (32
+// blocks at Mixtral's B=4; the row at offset 1999 streamed by one SM) and
+// reached 17% of the byte bound. Here each row's keys are cut into splits of
+// kps keys (64, 128 or 256; flash-decoding) counted from the row's first
+// key, gridded with the kv heads and the rows. The plan
+// (flash_decode.row_plan) depends only on what the host knows (B, Hkv, rep,
+// D, max_len, the window, the SM count); the offsets stay on the device: a
+// block whose split lies past its row's keys exits at once, and a window
+// of at most kps keys is one split, so its rows need no merge. Within a
+// block each warp takes the split's 16-key tiles w, w + 8, ... on its own:
+//   - loads: lane 0 issues bulk copies of the warp's K and V rows (one a
+//     tile, each completing on the warp's barrier), the lanes cp.async the
+//     two f32 scale planes;
+//   - scores: mma.sync m16n8k16 with the keys as the 16-row operand and the
+//     rep heads (padded to 8) as the 8 columns (an int8 key is exact in
+//     bf16). A thread's 16-byte chunk of a row is its A values of four
+//     (int8) or two (bf16) k-steps, the query's B fragments permuted to
+//     match (the dot product does not care which dims meet in which k
+//     slot);
+//   - softmax: the warp's max of each head (shuffles), p = exp(s - max)
+//     times the key's value scale into the warp's p buffer, the exp sums;
+//   - values: the lanes take the dims, p broadcast from shared memory into
+//     f32 FMAs (an int8 value widened by a byte permute and an add).
+// The warps meet once, at the end: their sums, each weighted by exp(its max
+// - the split's), are added in warp order. A row held by one split writes
+// its output at once. Otherwise each split writes (m, l, acc) to f32
+// partials and the row's last split to finish (an atomic ticket, released
+// and acquired, which it resets to zero for the next launch) merges them in
+// split order, as flash_decode.merge_partials defines, so the result does not
+// change from run to run: one launch, no memset, no host sync. The split
+// holding offsets[b] writes the new row (and its scales) to the cache and
+// takes it from k_new/v_new; no block reads that cache row. A row whose
+// offset lies outside [0, S) writes nothing and returns NaN.
 //
-// More query heads per kv head than the 1/2/4/8 the single-block instances
-// hold (Falcon-7B: 71 over one kv head; one block would need 145 KB of
-// static accumulators and ~280 registers a thread) run split-KV on the tensor
-// cores (flash_decode_split_kernel, then flash_decode_combine_kernel). The
+// Other head counts per kv head (Falcon-7B: 71 over one kv head; a block
+// per (b, h, split) would need ~145 KB of accumulators for all its heads on
+// the CUDA cores) run split-KV with every head of the group in 16-row mma
+// tiles (flash_decode_split_kernel, then flash_decode_combine_kernel). The
 // work there is small (Falcon at B=4 and offsets 0/511/512/1999: ~145 MFLOP,
 // ~0.4 MB), so latency and the count of busy SMs bound it, not bytes: the
 // keys of a row are cut into splits of 64-256 (gridded with the kv heads and
@@ -38,23 +65,19 @@
 // its (b, h) (up to 128, in 16-row mma tiles), so each K/V row is read once
 // per row, and the two products run as mma.sync m16n8k16. Every block takes
 // the new row at `offset` from k_new/v_new; the split holding it writes it.
-// Folded into the single-block template, this path moved those instances'
-// registers: it is a kernel of its own.
 //
 // B6, flash decode without the row write, replaces the TPU kernels
 // flash_decode_attention (_call, pallas_call at :152) and
-// flash_decode_attention_indexed (_call_idx, :656): the same loops,
-// instanced without WRITE (flash_decode_kernel, and the split kernel with
-// WRITE off). They take each row's length in place of offset + 1, read every
-// key from the cache, and at a length of 0 return what the TPU grid returns
-// there, the mean of V over the tiles it visits (key_range). The loops are
-// shared __device__ bodies or kernels under a WRITE flag, so K3's
-// single-block kernels keep their names, signatures and code.
+// flash_decode_attention_indexed (_call_idx, :656): the same kernels
+// instanced without WRITE. They take each row's length in place of
+// offset + 1, read every key from the cache, and at a length of 0 return
+// what the TPU grid returns there, the mean of V over the tiles it visits
+// (key_range), split like any other range.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int NWARP = 8;
 constexpr float NEG = -1e30f;
 
 template <bool QUANT>
@@ -63,38 +86,6 @@ template <>
 struct Storage<true> { using T = int8_t; };
 template <>
 struct Storage<false> { using T = __nv_bfloat16; };
-
-// 16 bytes of a key row -> floats: 16 int8 or 8 bf16.
-__device__ __forceinline__ void unpack16(const int8_t* p, float* f) {
-  const int4 v = *reinterpret_cast<const int4*>(p);
-  const int w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) f[i * 4 + j] = (float)(int8_t)((w[i] >> (8 * j)) & 0xff);
-}
-__device__ __forceinline__ void unpack16(const __nv_bfloat16* p, float* f) {
-  aqlm::bf16x8_to_float(*reinterpret_cast<const uint4*>(p), f);
-}
-
-// EPL (2 or 4) consecutive elements of a value row -> floats, one load.
-template <int EPL>
-__device__ __forceinline__ void load_v(const int8_t* p, float* f) {
-  const int w = EPL == 4 ? *reinterpret_cast<const int*>(p)
-                         : (int)*reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) f[e] = (float)(int8_t)((w >> (8 * e)) & 0xff);
-}
-template <int EPL>
-__device__ __forceinline__ void load_v(const __nv_bfloat16* p, float* f) {
-  if (EPL == 4) {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    aqlm::bf16x2_to_float(w.x, f[0], f[1]);
-    aqlm::bf16x2_to_float(w.y, f[2], f[3]);
-  } else {
-    aqlm::bf16x2_to_float(*reinterpret_cast<const uint32_t*>(p), f[0], f[1]);
-  }
-}
 
 // The key range of a row. WRITE (K3): keys [max(0, len - window), len),
 // len = offset + 1. Otherwise (B6) `pos` is the row's length: the same
@@ -122,201 +113,6 @@ __device__ __forceinline__ void key_range(int pos, int S, int window, int ts, in
     }
   }
 }
-
-// One (b, h) of single-block flash decode. WRITE (K3) first writes the new
-// row at offsets[b]; without it (B6) `offsets` holds the rows' lengths and
-// the cache is only read.
-template <int D, int REP, bool QUANT, bool WRITE>
-__device__ __forceinline__ void
-flash_decode_body(const __nv_bfloat16* __restrict__ q,       // [B, Hkv, REP, D]
-                  const typename Storage<QUANT>::T* __restrict__ k_new,  // [B, Hkv, D]
-                  const typename Storage<QUANT>::T* __restrict__ v_new,
-                  const float* __restrict__ ks_new,          // [B, Hkv] (int8 only)
-                  const float* __restrict__ vs_new,
-                  typename Storage<QUANT>::T* k_cache,       // [B, Hkv, S, D] one layer
-                  typename Storage<QUANT>::T* v_cache,
-                  float* ks_cache,                           // [B, Hkv, S] one layer
-                  float* vs_cache,
-                  const int* __restrict__ offsets,           // [B] (lengths without WRITE)
-                  __nv_bfloat16* __restrict__ out,           // [B, Hkv, REP, D]
-                  int Hkv, int S, int window, float scale, int ts, int n_tiles) {
-  using T = typename Storage<QUANT>::T;
-  constexpr int EPL = D / 32;
-  __shared__ float s_q[REP][D];
-  __shared__ float s_m[NWARP][REP], s_l[NWARP][REP];
-  __shared__ float s_acc[NWARP][REP][D];
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int bh = b * Hkv + h;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int offset = offsets[b];
-  if (WRITE && (offset < 0 || offset >= S)) {
-    // no row to write inside the cache: touch nothing, and make the row's
-    // output NaN so the fault shows instead of corrupting device memory
-    for (int i = tid; i < REP * D; i += blockDim.x)
-      out[(size_t)bh * REP * D + i] = __float2bfloat16(NAN);
-    return;
-  }
-  int kstart, len;
-  bool uniform;
-  key_range<WRITE>(offset, S, window, ts, n_tiles, kstart, len, uniform);
-
-  T* kc = k_cache + (size_t)bh * S * D;
-  T* vc = v_cache + (size_t)bh * S * D;
-  float* ksc = QUANT ? ks_cache + (size_t)bh * S : nullptr;
-  float* vsc = QUANT ? vs_cache + (size_t)bh * S : nullptr;
-
-  // 1. write the new row in place
-  if constexpr (WRITE) {
-    for (int d = tid; d < D; d += blockDim.x) {
-      kc[(size_t)offset * D + d] = k_new[(size_t)bh * D + d];
-      vc[(size_t)offset * D + d] = v_new[(size_t)bh * D + d];
-    }
-    if (QUANT && tid == 0) {
-      ksc[offset] = ks_new[bh];
-      vsc[offset] = vs_new[bh];
-    }
-  }
-  for (int i = tid; i < REP * D; i += blockDim.x)
-    s_q[i / D][i % D] = __bfloat162float(q[(size_t)bh * REP * D + i]);
-  __syncthreads();
-
-  // 2. online softmax over 32-key tiles, warps taking tiles in turn
-  float m[REP], l[REP], acc[REP][EPL];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    m[r] = NEG;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
-  }
-
-  for (int t0 = kstart + warp * 32; t0 < len; t0 += NWARP * 32) {
-    const int key = t0 + lane;
-    const bool valid = key < len;
-    float logit[REP];
-    float ksc_v = 1.f;
-#pragma unroll
-    for (int r = 0; r < REP; ++r) logit[r] = 0.f;
-    if (valid) {
-      const T* kr = kc + (size_t)key * D;
-      constexpr int CH = 16 / (int)sizeof(T);  // elements per 16-byte load
-#pragma unroll
-      for (int d0 = 0; d0 < D; d0 += CH) {
-        float f[16];
-        unpack16(kr + d0, f);
-#pragma unroll
-        for (int r = 0; r < REP; ++r)
-#pragma unroll
-          for (int j = 0; j < CH; ++j) logit[r] = fmaf(s_q[r][d0 + j], f[j], logit[r]);
-      }
-      if (QUANT) ksc_v = ksc[key];
-    }
-    float p[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      const float lg = valid ? (uniform ? 0.f : logit[r] * ksc_v * scale) : -INFINITY;
-      float tmax = lg;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_new = fmaxf(m[r], tmax);
-      const float corr = expf(m[r] - m_new);
-      p[r] = valid ? expf(lg - m_new) : 0.f;
-      float psum = p[r];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l[r] = l[r] * corr + psum;
-      m[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[r][e] *= corr;
-    }
-    const float vsc_lane = (QUANT && valid) ? vsc[key] : 1.f;
-    const int nvalid = min(32, len - t0);
-    // value rows in batches of 8 loads in flight (one row at a time waited a
-    // full memory latency per key); rows past the length read as zero
-#pragma unroll
-    for (int j0 = 0; j0 < 32; j0 += 8) {
-      if (j0 >= nvalid) break;
-      float v[8][EPL];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        if (j0 + u < nvalid) {
-          load_v<EPL>(vc + (size_t)(t0 + j0 + u) * D + lane * EPL, v[u]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) v[u][e] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float vs = __shfl_sync(0xffffffffu, vsc_lane, j0 + u);
-#pragma unroll
-        for (int r = 0; r < REP; ++r) {
-          const float pj = __shfl_sync(0xffffffffu, p[r], j0 + u) * vs;
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(pj, v[u][e], acc[r][e]);
-        }
-      }
-    }
-  }
-
-  // 3. merge the warps' states
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    if (lane == 0) {
-      s_m[warp][r] = m[r];
-      s_l[warp][r] = l[r];
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) s_acc[warp][r][lane * EPL + e] = acc[r][e];
-  }
-  __syncthreads();
-  for (int i = tid; i < REP * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    float mx = NEG;
-#pragma unroll
-    for (int w = 0; w < NWARP; ++w) mx = fmaxf(mx, s_m[w][r]);
-    float num = 0.f, den = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARP; ++w) {
-      const float c = expf(s_m[w][r] - mx);
-      num += c * s_acc[w][r][d];
-      den += c * s_l[w][r];
-    }
-    out[(size_t)bh * REP * D + i] = __float2bfloat16(num / fmaxf(den, 1e-30f));
-  }
-}
-
-// K3: write the new row, then attend (the body with WRITE).
-template <int D, int REP, bool QUANT>
-__global__ void __launch_bounds__(NWARP * 32)
-flash_decode_write_kernel(const __nv_bfloat16* __restrict__ q,
-                          const typename Storage<QUANT>::T* __restrict__ k_new,
-                          const typename Storage<QUANT>::T* __restrict__ v_new,
-                          const float* __restrict__ ks_new, const float* __restrict__ vs_new,
-                          typename Storage<QUANT>::T* k_cache, typename Storage<QUANT>::T* v_cache,
-                          float* ks_cache, float* vs_cache, const int* __restrict__ offsets,
-                          __nv_bfloat16* __restrict__ out, int Hkv, int S, int window,
-                          float scale) {
-  flash_decode_body<D, REP, QUANT, true>(q, k_new, v_new, ks_new, vs_new, k_cache, v_cache,
-                                         ks_cache, vs_cache, offsets, out, Hkv, S, window, scale,
-                                         0, 0);
-}
-
-// B6: attend over the cache as it is, keys below lengths[b] (the body
-// without WRITE).
-template <int D, int REP, bool QUANT>
-__global__ void __launch_bounds__(NWARP * 32)
-flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    typename Storage<QUANT>::T* k_cache, typename Storage<QUANT>::T* v_cache,
-                    float* ks_cache, float* vs_cache, const int* __restrict__ lengths,
-                    __nv_bfloat16* __restrict__ out, int Hkv, int S, int window, float scale,
-                    int ts, int n_tiles) {
-  flash_decode_body<D, REP, QUANT, false>(q, nullptr, nullptr, nullptr, nullptr, k_cache, v_cache,
-                                          ks_cache, vs_cache, lengths, out, Hkv, S, window, scale,
-                                          ts, n_tiles);
-}
-
 // More query heads per kv head than the single-block instances hold
 // (Falcon-7B: 71 over one kv head): split-KV on the tensor cores. Block
 // (h, b, z * n_hch + hc) takes keys [z * kps, (z + 1) * kps) of the row's
@@ -661,134 +457,553 @@ cudaError_t launch_split(const void* q, const void* kn, const void* vn, const vo
           (__nv_bfloat16*)out, Hkv, S, rep, splits);
   return cudaGetLastError();
 }
+// ---------------------------------------------------------------------------
+// 1, 2, 4 or 8 query heads per kv head: a row's keys split over blocks
+// ---------------------------------------------------------------------------
 
-template <int D, int REP>
-cudaError_t launch_dr(bool quant, const void* q, const void* kn, const void* vn, const void* ksn,
-                      const void* vsn, void* kc, void* vc, void* ksc, void* vsc,
-                      const void* offsets, void* out, int B, int Hkv, int S, int window,
-                      float scale, cudaStream_t st) {
-  const dim3 grid(Hkv, B);
-  if (quant)
-    flash_decode_write_kernel<D, REP, true><<<grid, NWARP * 32, 0, st>>>(
-        (const __nv_bfloat16*)q, (const int8_t*)kn, (const int8_t*)vn, (const float*)ksn,
-        (const float*)vsn, (int8_t*)kc, (int8_t*)vc, (float*)ksc, (float*)vsc,
-        (const int*)offsets, (__nv_bfloat16*)out, Hkv, S, window, scale);
-  else
-    flash_decode_write_kernel<D, REP, false><<<grid, NWARP * 32, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn, (const __nv_bfloat16*)vn, nullptr,
-        nullptr, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc, nullptr, nullptr, (const int*)offsets,
-        (__nv_bfloat16*)out, Hkv, S, window, scale);
-  return cudaGetLastError();
+constexpr int RS_WARPS = 8;
+constexpr int RS_THREADS = RS_WARPS * 32;
+constexpr int RS_MAX_KPS = 256;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use on an H100
+
+// Splits a row of the grid holds: every split of the cache, or, where `span`
+// (the most keys a row attends) is shorter, the splits a run of `span` keys
+// takes, counted from its first key. flash_decode.row_splits computes the
+// same.
+__host__ __device__ inline int row_splits(int S, int kps, int span) {
+  const int full = (S + kps - 1) / kps;
+  if (span <= 0 || span >= S) return full;
+  return min(full, (span + kps - 1) / kps);
 }
 
-template <int D>
-cudaError_t launch_d(int rep, bool quant, const void* q, const void* kn, const void* vn,
-                     const void* ksn, const void* vsn, void* kc, void* vc, void* ksc, void* vsc,
-                     const void* offsets, void* out, void* part_acc, void* part_ml, int B,
-                     int Hkv, int S, int window, float scale, int kps, cudaStream_t st) {
-  switch (rep) {
-    case 1: return launch_dr<D, 1>(quant, q, kn, vn, ksn, vsn, kc, vc, ksc, vsc, offsets, out, B, Hkv, S, window, scale, st);
-    case 2: return launch_dr<D, 2>(quant, q, kn, vn, ksn, vsn, kc, vc, ksc, vsc, offsets, out, B, Hkv, S, window, scale, st);
-    case 4: return launch_dr<D, 4>(quant, q, kn, vn, ksn, vsn, kc, vc, ksc, vsc, offsets, out, B, Hkv, S, window, scale, st);
-    case 8: return launch_dr<D, 8>(quant, q, kn, vn, ksn, vsn, kc, vc, ksc, vsc, offsets, out, B, Hkv, S, window, scale, st);
-    default:  // any other count: split-KV on the tensor cores
-      if (rep < 1) return cudaErrorInvalidValue;
-      if (quant)
-        return launch_split<D, true, true>(q, kn, vn, ksn, vsn, kc, vc, ksc, vsc, offsets, out,
-                                           part_acc, part_ml, B, Hkv, S, window, scale, rep, kps,
-                                           0, 0, st);
-      return launch_split<D, false, true>(q, kn, vn, nullptr, nullptr, kc, vc, nullptr, nullptr,
-                                          offsets, out, part_acc, part_ml, B, Hkv, S, window,
-                                          scale, rep, kps, 0, 0, st);
+// Byte offsets of a block's dynamic shared memory, a split of kps keys:
+// region 0 holds the K rows, the V rows and the two f32 scale planes, and,
+// once every warp's products are done, the warps' sums [8][REP][D] f32;
+// then each warp's p [8][REP][16 mtw + 4] f32 (mtw: the 16-key tiles a warp
+// takes), the warps' max and exp sum of each head [2][8][8], the heads' max
+// and denominator [2][8]; the row's splits' (m, l), later their merge
+// weights, [splits][8][2]; each warp's two barriers (its K and V bulk
+// copies); the last-split flag. flash_decode.row_smem computes the same
+// total, and a launch whose total differs is refused.
+struct RowLayout {
+  int kps, row, rep, d, splits, mtw;
+  bool quant;
+  __host__ __device__ RowLayout(int kps_, int d_, int rep_, bool quant_, int splits_)
+      : kps(kps_), row(d_ * (quant_ ? 1 : 2)), rep(rep_), d(d_), splits(splits_),
+        mtw((kps_ / 16 + RS_WARPS - 1) / RS_WARPS), quant(quant_) {}
+  __host__ __device__ int v() const { return kps * row; }
+  __host__ __device__ int ks() const { return 2 * kps * row; }
+  __host__ __device__ int vs() const { return ks() + kps * 4; }
+  __host__ __device__ int p() const {
+    const int kv = 2 * kps * row + (quant ? 8 * kps : 0), red = RS_WARPS * rep * d * 4;
+    return kv > red ? kv : red;
   }
+  __host__ __device__ int pstride() const { return 16 * mtw + 4; }  // floats of a head's p row
+  __host__ __device__ int stats() const { return p() + RS_WARPS * rep * pstride() * 4; }
+  __host__ __device__ int mz() const { return stats() + (2 * 64 + 2 * 8) * 4; }
+  __host__ __device__ int bars() const { return mz() + splits * 8 * 2 * 4; }
+  __host__ __device__ int flag() const { return bars() + RS_WARPS * 2 * 8; }
+  __host__ __device__ int total() const { return flag() + 16; }
+};
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// B6: the same instances without the row write.
-template <int D, int REP, bool QUANT>
-cudaError_t launch_read(const void* q, void* kc, void* vc, void* ksc, void* vsc,
-                        const void* lengths, void* out, void* part_acc, void* part_ml, int B,
-                        int Hkv, int S, int window, float scale, int ts, int n_tiles, int rep,
-                        int kps, cudaStream_t st) {
-  using T = typename Storage<QUANT>::T;
-  if constexpr (REP == 0) {  // split-KV on the tensor cores
-    return launch_split<D, QUANT, false>(q, nullptr, nullptr, nullptr, nullptr, kc, vc, ksc, vsc,
-                                         lengths, out, part_acc, part_ml, B, Hkv, S, window,
-                                         scale, rep, kps, ts, n_tiles, st);
+// atomicAdd at gpu scope with release (this block's stores, ordered before
+// it by a barrier, are visible to whoever acquires the value it writes) and
+// acquire (the stores released by earlier adds are visible after it).
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n" : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// EPL (2 or 4) consecutive elements of a value row in shared memory -> f32.
+// An int8 b: with u = b + 128 (the sign bit flipped), the f32 with bits
+// 0x4B0000uu is 2^23 + u, so subtracting 2^23 + 128 gives b exactly (a byte
+// permute and an add an element).
+template <int EPL>
+__device__ __forceinline__ void v_elems(const int8_t* p, float* f) {
+  const uint32_t w = (EPL == 4 ? *reinterpret_cast<const uint32_t*>(p)
+                               : (uint32_t)*reinterpret_cast<const unsigned short*>(p)) ^ 0x80808080u;
+#pragma unroll
+  for (int e = 0; e < EPL; ++e)
+    f[e] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | e)) - 8388736.f;
+}
+template <int EPL>
+__device__ __forceinline__ void v_elems(const __nv_bfloat16* p, float* f) {
+  if (EPL == 4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    aqlm::bf16x2_to_float(w.x, f[0], f[1]);
+    aqlm::bf16x2_to_float(w.y, f[2], f[3]);
   } else {
-    flash_decode_kernel<D, REP, QUANT><<<dim3(Hkv, B), NWARP * 32, 0, st>>>(
-        (const __nv_bfloat16*)q, (T*)kc, (T*)vc, (float*)ksc, (float*)vsc, (const int*)lengths,
-        (__nv_bfloat16*)out, Hkv, S, window, scale, ts, n_tiles);
+    aqlm::bf16x2_to_float(*reinterpret_cast<const uint32_t*>(p), f[0], f[1]);
   }
+}
+
+// Block (h, b, z): keys [kstart + z kps, kstart + (z + 1) kps) of row b's
+// range for kv head h. WRITE (K3) writes the new row at offsets[b] (the
+// split holding it); without it (B6) `offsets` holds the rows' lengths and
+// the cache is only read. Warp w takes the 16-key tiles w, w + 8, ... of the
+// split on its own (its rows' loads, scores, softmax and p V); the warps meet
+// once, at the end.
+template <int D, int REP, bool QUANT, bool WRITE>
+__global__ void __launch_bounds__(RS_THREADS)
+flash_decode_rows_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hkv, REP, D]
+                         const typename Storage<QUANT>::T* __restrict__ k_new,  // [B, Hkv, D]
+                         const typename Storage<QUANT>::T* __restrict__ v_new,
+                         const float* __restrict__ ks_new,  // [B, Hkv] (int8 only)
+                         const float* __restrict__ vs_new,
+                         typename Storage<QUANT>::T* k_cache,  // [B, Hkv, S, D] one layer
+                         typename Storage<QUANT>::T* v_cache,
+                         float* ks_cache,  // [B, Hkv, S] one layer
+                         float* vs_cache,
+                         const int* __restrict__ offsets,  // [B] (lengths without WRITE)
+                         __nv_bfloat16* __restrict__ out,  // [B, Hkv, REP, D]
+                         float* __restrict__ part_acc,     // [B, Hkv, splits, REP, D]
+                         float* __restrict__ part_ml,      // [B, Hkv, splits, REP, 2]
+                         int* __restrict__ tickets,        // [B * Hkv], zero between launches
+                         int Hkv, int S, int window, float scale, int kps, int ts, int n_tiles) {
+  using T = typename Storage<QUANT>::T;
+  constexpr int ROW = D * (int)sizeof(T);  // bytes of a key row
+  constexpr int CPR = ROW / 16;            // 16-byte chunks a row: 4, 8 or 16
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements a chunk
+  constexpr int EPL = D / 32;               // value elements a lane
+  constexpr int MTW = RS_MAX_KPS / 16 / RS_WARPS;  // the most 16-key tiles a warp takes
+  extern __shared__ __align__(16) unsigned char smem[];
+  const RowLayout Lo(kps, D, REP, QUANT, gridDim.z);
+  unsigned char* sk = smem;
+  unsigned char* sv = smem + Lo.v();
+  float* sks = reinterpret_cast<float*>(smem + Lo.ks());
+  float* svs = reinterpret_cast<float*>(smem + Lo.vs());
+  const int pst = Lo.pstride();
+  float* wm = reinterpret_cast<float*>(smem + Lo.stats());  // [8 warps][8 heads]
+  float* wl = wm + 64;                                       // [8 warps][8 heads]
+  float* hmax = wl + 64;                                     // [8 heads]
+  float* hden = hmax + 8;                                    // [8 heads]
+  float* smz = reinterpret_cast<float*>(smem + Lo.mz());     // [splits][8 heads][2]
+  int* s_last = reinterpret_cast<int*>(smem + Lo.flag());
+
+  const int h = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int bh = b * Hkv + h;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane >> 2, tig = lane & 3;  // mma fragment row and column pair
+  float* pw = reinterpret_cast<float*>(smem + Lo.p()) + warp * REP * pst;  // this warp's p [REP][pst]
+  const int pos = offsets[b];
+  __nv_bfloat16* o = out + (size_t)bh * REP * D;
+  if (WRITE && (pos < 0 || pos >= S)) {
+    // no row to write inside the cache: touch nothing, and make the row's
+    // output NaN so the fault shows instead of corrupting device memory
+    if (z == 0)
+      for (int i = tid; i < REP * D; i += RS_THREADS) o[i] = __float2bfloat16(NAN);
+    return;
+  }
+  int kstart, kend;
+  bool uniform;
+  key_range<WRITE>(pos, S, window, ts, n_tiles, kstart, kend, uniform);
+  const int k0 = kstart + z * kps, k1 = min(kend, k0 + kps);
+  if (k0 >= k1) return;  // no key of the row in this split
+  const int n_act = (kend - kstart + kps - 1) / kps;  // the row's splits that hold keys
+  const int nk = k1 - k0, n_mt = (nk + 15) / 16;
+  // the query's B fragments, in flight with the rows: head gid (zero past
+  // REP), the dims that thread tig's chunk (tig + 4 i) of a K row holds at
+  // sub-step u
+  uint32_t qf[CPR / 4][EPC / 4][2];
+#pragma unroll
+  for (int i = 0; i < CPR / 4; ++i)
+#pragma unroll
+    for (int u = 0; u < EPC / 4; ++u) {
+      const int dim = (tig + 4 * i) * EPC + 4 * u;
+      const uint2 w = gid < REP
+                          ? *reinterpret_cast<const uint2*>(q + ((size_t)bh * REP + gid) * D + dim)
+                          : make_uint2(0, 0);
+      qf[i][u][0] = w.x;
+      qf[i][u][1] = w.y;
+    }
+
+  T* kc = k_cache + (size_t)bh * S * D;
+  T* vc = v_cache + (size_t)bh * S * D;
+  float* ksc = QUANT ? ks_cache + (size_t)bh * S : nullptr;
+  float* vsc = QUANT ? vs_cache + (size_t)bh * S : nullptr;
+  const int rf = WRITE ? pos - k0 : -1;  // the new row's place in the split
+  const int my_mt = warp < n_mt ? (n_mt - warp + RS_WARPS - 1) / RS_WARPS : 0;
+
+  // 1. this warp's rows into shared memory, all in flight at once: its K
+  // rows and its V rows by bulk copies (one a 16-key tile, lane 0 issuing,
+  // each completing on its barrier), both scale planes by the lanes'
+  // cp.async (zero past the split). V rows past the split up to a 16-key
+  // tile are zeroed (their p is 0, and 0 times a stale NaN is not). The new
+  // row replaces its stale copy once the bulk copies land, and its warp
+  // writes it to the cache.
+  uint64_t* kbar = reinterpret_cast<uint64_t*>(smem + Lo.bars()) + 2 * warp;
+  uint64_t* vbar = kbar + 1;
+  if (lane == 0) {
+    aqlm::mbar_init(kbar, 1);
+    aqlm::mbar_init(vbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    int bytes = 0;
+    for (int j = 0; j < my_mt; ++j) bytes += min(16, nk - (warp + RS_WARPS * j) * 16) * ROW;
+    aqlm::mbar_arrive_expect_tx(kbar, bytes);
+    for (int j = 0; j < my_mt; ++j) {
+      const int r = (warp + RS_WARPS * j) * 16, n = min(16, nk - r) * ROW;
+      aqlm::bulk_copy(sk + r * ROW, kc + (size_t)(k0 + r) * D, n, kbar);
+    }
+    aqlm::mbar_arrive_expect_tx(vbar, bytes);
+    for (int j = 0; j < my_mt; ++j) {
+      const int r = (warp + RS_WARPS * j) * 16, n = min(16, nk - r) * ROW;
+      aqlm::bulk_copy(sv + r * ROW, vc + (size_t)(k0 + r) * D, n, vbar);
+    }
+  }
+  __syncwarp();  // the barriers initialised before any lane waits on them
+  if constexpr (QUANT) {
+    for (int i = lane; i < my_mt * 16; i += 32) {
+      const int r = (warp + RS_WARPS * (i / 16)) * 16 + i % 16;
+      const bool valid = r < nk;
+      aqlm::cp_async4(sks + r, ksc + (valid ? k0 + r : k0), valid);
+      aqlm::cp_async4(svs + r, vsc + (valid ? k0 + r : k0), valid);
+    }
+  }
+  aqlm::cp_async_commit();
+  if (my_mt > 0 && (n_mt - 1) % RS_WARPS == warp)  // the split's last tile: zero its V rows past nk
+    for (int i = lane; i < (n_mt * 16 - nk) * ROW / 16; i += 32)
+      reinterpret_cast<uint4*>(sv + nk * ROW)[i] = make_uint4(0, 0, 0, 0);
+  const bool fresh = rf >= 0 && rf < nk && (rf / 16) % RS_WARPS == warp;
+  const T* kn = WRITE ? k_new + (size_t)bh * D : nullptr;
+  const T* vn = WRITE ? v_new + (size_t)bh * D : nullptr;
+  if (fresh)
+    for (int d = lane; d < D; d += 32) {
+      kc[(size_t)pos * D + d] = kn[d];
+      vc[(size_t)pos * D + d] = vn[d];
+    }
+
+  aqlm::mbar_wait(kbar, 0);
+  aqlm::cp_async_wait<0>();
+  if (fresh) {
+    T* skr = reinterpret_cast<T*>(sk + rf * ROW);
+    for (int d = lane; d < D; d += 32) skr[d] = kn[d];
+    if (QUANT && lane == 0) {
+      ksc[pos] = sks[rf] = ks_new[bh];
+      vsc[pos] = svs[rf] = vs_new[bh];
+    }
+  }
+  __syncwarp();  // this warp's K rows and scales visible to it
+
+  // 2. scores of the warp's 16-key tiles on the tensor cores: S^T [16 keys
+  // x 8 heads], element e of tile j: key 16 mt + gid + 8 (e >> 1), head
+  // 2 tig + (e & 1)
+  float sc[MTW][4];
+  float tmax[2] = {-INFINITY, -INFINITY};  // heads 2 tig, 2 tig + 1
+#pragma unroll
+  for (int j = 0; j < MTW; ++j) {
+    const int mt = warp + RS_WARPS * j;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = -INFINITY;
+    if (j >= my_mt) continue;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    const int r0 = mt * 16 + gid, r1 = r0 + 8;
+#pragma unroll
+    for (int i = 0; i < CPR / 4; ++i) {
+      const int ch = tig + 4 * i;
+      const uint4 w0 = *reinterpret_cast<const uint4*>(sk + r0 * ROW + ch * 16);
+      const uint4 w1 = *reinterpret_cast<const uint4*>(sk + r1 * ROW + ch * 16);
+#pragma unroll
+      for (int u = 0; u < EPC / 4; ++u) {
+        uint32_t a[4];
+        if constexpr (QUANT) {
+          aqlm::s8x4_to_bf16x2(word_of(w0, u), a[0], a[2]);
+          aqlm::s8x4_to_bf16x2(word_of(w1, u), a[1], a[3]);
+        } else {
+          a[0] = word_of(w0, 2 * u);
+          a[2] = word_of(w0, 2 * u + 1);
+          a[1] = word_of(w1, 2 * u);
+          a[3] = word_of(w1, 2 * u + 1);
+        }
+        mma_bf16_16816(c, a, qf[i][u][0], qf[i][u][1]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e < 2 ? r0 : r1;
+      const float ksv = QUANT ? sks[r] : 1.f;
+      sc[j][e] = r < nk ? (uniform ? 0.f : c[e] * ksv * scale) : -INFINITY;
+      tmax[e & 1] = fmaxf(tmax[e & 1], sc[j][e]);
+    }
+  }
+
+  // 3. the warp's max of each head, p = exp(s - max) (times the key's value
+  // scale into p V) and the exp sums; lanes gid = 0 keep the warp's (m, l)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      tmax[hh] = fmaxf(tmax[hh], __shfl_xor_sync(0xffffffffu, tmax[hh], off));
+  float lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < MTW; ++j) {
+    if (j >= my_mt) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kl = 16 * j + gid + 8 * (e >> 1), head = 2 * tig + (e & 1);
+      const float p = sc[j][e] == -INFINITY ? 0.f : expf(sc[j][e] - tmax[e & 1]);
+      lsum[e & 1] += p;
+      if (head < REP) pw[head * pst + kl] = QUANT ? p * svs[16 * (warp + RS_WARPS * j) + kl - 16 * j] : p;
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) lsum[hh] += __shfl_xor_sync(0xffffffffu, lsum[hh], off);
+    if (gid == 0 && 2 * tig + hh < REP) {
+      wm[warp * 8 + 2 * tig + hh] = tmax[hh];
+      wl[warp * 8 + 2 * tig + hh] = lsum[hh];
+    }
+  }
+  aqlm::mbar_wait(vbar, 0);
+  if (fresh) {
+    T* svr = reinterpret_cast<T*>(sv + rf * ROW);
+    for (int d = lane; d < D; d += 32) svr[d] = vn[d];
+  }
+  __syncwarp();  // this warp's V rows and p visible to it
+
+  // 4. p V over the warp's keys, its lanes EPL dims each
+  float acc[REP][EPL];
+#pragma unroll
+  for (int r = 0; r < REP; ++r)
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < MTW; ++j) {
+    if (j >= my_mt) continue;
+    const int kb = (warp + RS_WARPS * j) * 16;
+#pragma unroll 2
+    for (int kk = 0; kk < 16; kk += 4) {
+      float4 p4[REP];
+#pragma unroll
+      for (int r = 0; r < REP; ++r)
+        p4[r] = *reinterpret_cast<const float4*>(pw + r * pst + 16 * j + kk);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float v[EPL];
+        v_elems<EPL>(reinterpret_cast<const T*>(sv + (kb + kk + jj) * ROW) + lane * EPL, v);
+#pragma unroll
+        for (int r = 0; r < REP; ++r) {
+          const float pj = jj == 0 ? p4[r].x : jj == 1 ? p4[r].y : jj == 2 ? p4[r].z : p4[r].w;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(pj, v[e], acc[r][e]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every warp done with the rows: region 0 free for the warps' sums
+  float* red = reinterpret_cast<float*>(smem);  // [RS_WARPS][REP][D]
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    float* dst = red + (warp * REP + r) * D + lane * EPL;
+    if constexpr (EPL == 4)
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    else
+      *reinterpret_cast<float2*>(dst) = make_float2(acc[r][0], acc[r][1]);
+  }
+  if (tid < REP) {  // the split's max and exp sum of each head, and each warp's weight in it
+    float m = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < RS_WARPS; ++w) m = fmaxf(m, wm[w * 8 + tid]);
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < RS_WARPS; ++w) {
+      const float c = wl[w * 8 + tid] > 0.f ? expf(wm[w * 8 + tid] - m) : 0.f;
+      l += c * wl[w * 8 + tid];
+      wm[w * 8 + tid] = c;
+    }
+    hmax[tid] = m;
+    hden[tid] = l;
+  }
+  __syncthreads();
+
+  // 5. the warps' sums, each weighted by exp(its max - the split's), in warp
+  // order; one split writes the row, else the split's partial state, and the
+  // row's last split merges them
+  const int nz = gridDim.z;
+  float* pacc = part_acc + ((size_t)bh * nz + z) * REP * D;
+  for (int i = tid; i < REP * D; i += RS_THREADS) {
+    const int r = i / D;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < RS_WARPS; ++w) a += wm[w * 8 + r] * red[w * REP * D + i];
+    if (n_act == 1) o[i] = __float2bfloat16(a / fmaxf(hden[r], 1e-30f));
+    else pacc[i] = a;
+  }
+  if (n_act == 1) return;
+  if (tid < REP) {
+    float* pml = part_ml + ((size_t)bh * nz + z) * REP * 2;
+    pml[2 * tid] = hmax[tid];
+    pml[2 * tid + 1] = hden[tid];
+  }
+  // the block's partial state, then its ticket: one release-acquire atomic
+  // after the barrier (the barrier orders every thread's stores before it)
+  __syncthreads();
+  if (tid == 0) *s_last = atomic_add_acq_rel(tickets + bh, 1) == n_act - 1;
+  __syncthreads();
+  if (!*s_last) return;
+  // the merge, splits in order: their (m, l) into shared memory while each
+  // thread's first MZ partial sums load into registers, then each head's
+  // max, denominator and split weights exp(m_z - max), then the sums
+  constexpr int MZ = 8;
+  constexpr int EPT = (REP * D + RS_THREADS - 1) / RS_THREADS;  // elements a thread
+  const float* pa = part_acc + (size_t)bh * nz * REP * D;
+  const float* pm = part_ml + (size_t)bh * nz * REP * 2;
+  for (int i = tid; i < n_act * REP * 2; i += RS_THREADS)
+    smz[(i / (REP * 2)) * 16 + i % (REP * 2)] = __ldcg(pm + i);
+  float first[EPT][MZ];
+#pragma unroll
+  for (int k = 0; k < EPT; ++k)
+#pragma unroll
+    for (int zz = 0; zz < MZ; ++zz) {
+      const int i = tid + k * RS_THREADS;
+      first[k][zz] = i < REP * D && zz < n_act ? __ldcg(pa + (size_t)zz * REP * D + i) : 0.f;
+    }
+  __syncthreads();
+  if (tid < REP) {
+    float mx = NEG;
+    for (int zz = 0; zz < n_act; ++zz) mx = fmaxf(mx, smz[zz * 16 + 2 * tid]);
+    float den = 0.f;
+    for (int zz = 0; zz < n_act; ++zz) {
+      const float c = expf(smz[zz * 16 + 2 * tid] - mx);
+      den += c * smz[zz * 16 + 2 * tid + 1];
+      smz[zz * 16 + 2 * tid] = c;
+    }
+    hden[tid] = den;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < EPT; ++k) {
+    const int i = tid + k * RS_THREADS, r = i / D;
+    if (i >= REP * D) break;
+    float num = 0.f;
+#pragma unroll
+    for (int zz = 0; zz < MZ; ++zz)
+      if (zz < n_act) num += smz[zz * 16 + 2 * r] * first[k][zz];
+#pragma unroll 8
+    for (int zz = MZ; zz < n_act; ++zz)
+      num += smz[zz * 16 + 2 * r] * __ldcg(pa + (size_t)zz * REP * D + i);
+    o[i] = __float2bfloat16(num / fmaxf(hden[r], 1e-30f));
+  }
+  if (tid == 0) tickets[bh] = 0;  // every split of the row has taken its ticket
+}
+
+template <int D, int REP, bool QUANT, bool WRITE>
+cudaError_t launch_rows(const void* q, const void* kn, const void* vn, const void* ksn,
+                        const void* vsn, void* kc, void* vc, void* ksc, void* vsc,
+                        const void* offsets, void* out, void* part_acc, void* part_ml,
+                        void* tickets, int B, int Hkv, int S, int window, float scale, int kps,
+                        int splits, int smem, int ts, int n_tiles, cudaStream_t st) {
+  using T = typename Storage<QUANT>::T;
+  const int span = window <= 0 ? 0 : WRITE ? window : max(window, n_tiles * ts);
+  if (kps < 64 || kps > RS_MAX_KPS || kps % 64 ||
+      smem != RowLayout(kps, D, REP, QUANT, splits).total() ||
+      smem > SMEM_LIMIT || splits != row_splits(S, kps, span) ||
+      (splits > 1 && (!part_acc || !part_ml || !tickets)))
+    return cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_decode_rows_kernel<D, REP, QUANT, WRITE>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               SMEM_LIMIT);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  flash_decode_rows_kernel<D, REP, QUANT, WRITE><<<dim3(Hkv, B, splits), RS_THREADS, smem, st>>>(
+      (const __nv_bfloat16*)q, (const T*)kn, (const T*)vn, (const float*)ksn, (const float*)vsn,
+      (T*)kc, (T*)vc, (float*)ksc, (float*)vsc, (const int*)offsets, (__nv_bfloat16*)out,
+      (float*)part_acc, (float*)part_ml, (int*)tickets, Hkv, S, window, scale, kps, ts, n_tiles);
   return cudaGetLastError();
 }
 
-template <int D, bool QUANT>
-cudaError_t launch_read_d(int rep, const void* q, void* kc, void* vc, void* ksc, void* vsc,
-                          const void* lengths, void* out, void* part_acc, void* part_ml, int B,
-                          int Hkv, int S, int window, float scale, int ts, int n_tiles, int kps,
-                          cudaStream_t st) {
-#define AQLM_FD_READ(R)                                                                        \
-  launch_read<D, R, QUANT>(q, kc, vc, ksc, vsc, lengths, out, part_acc, part_ml, B, Hkv, S, \
-                           window, scale, ts, n_tiles, rep, kps, st)
+// One head dim, cache type and WRITE flag: the row kernels at 1/2/4/8 heads
+// per kv head, split-KV on the tensor cores at any other count.
+template <int D, bool QUANT, bool WRITE>
+cudaError_t dispatch(int rep, const void* q, const void* kn, const void* vn, const void* ksn,
+                     const void* vsn, void* kc, void* vc, void* ksc, void* vsc,
+                     const void* offsets, void* out, void* part_acc, void* part_ml,
+                     void* tickets, int B, int Hkv, int S, int window, float scale, int kps,
+                     int splits, int smem, int ts, int n_tiles, cudaStream_t st) {
+#define AQLM_FD_ROWS(R)                                                                       \
+  launch_rows<D, R, QUANT, WRITE>(q, kn, vn, ksn, vsn, kc, vc, ksc, vsc, offsets, out,       \
+                                  part_acc, part_ml, tickets, B, Hkv, S, window, scale, kps, \
+                                  splits, smem, ts, n_tiles, st)
   switch (rep) {
-    case 1: return AQLM_FD_READ(1);
-    case 2: return AQLM_FD_READ(2);
-    case 4: return AQLM_FD_READ(4);
-    case 8: return AQLM_FD_READ(8);
+    case 1: return AQLM_FD_ROWS(1);
+    case 2: return AQLM_FD_ROWS(2);
+    case 4: return AQLM_FD_ROWS(4);
+    case 8: return AQLM_FD_ROWS(8);
     default:
-      if (rep < 1) return cudaErrorInvalidValue;
-      return AQLM_FD_READ(0);
+      if (rep < 1 || kps < KT || splits != (S + kps - 1) / kps) return cudaErrorInvalidValue;
+      return launch_split<D, QUANT, WRITE>(q, kn, vn, ksn, vsn, kc, vc, ksc, vsc, offsets, out,
+                                           part_acc, part_ml, B, Hkv, S, window, scale, rep, kps,
+                                           ts, n_tiles, st);
   }
-#undef AQLM_FD_READ
+#undef AQLM_FD_ROWS
 }
 
 }  // namespace
 
-// window <= 0 means no sliding window. At a head count other than 1/2/4/8
-// per kv head the split-KV kernels run: kps keys a split (a multiple of 64),
-// partials part_acc [B, Hkv, ceil(S / kps), rep, D] and part_ml [..., rep, 2]
-// f32 (the other instances ignore the three).
+// window <= 0 means no sliding window. 1/2/4/8 query heads per kv head run
+// the row kernel as flash_decode.row_plan lays it out: kps keys a split (64,
+// 128 or 256), `splits` splits a row in the grid, `smem` dynamic bytes
+// (checked against the kernel's own layout); when splits > 1, partials
+// part_acc [B, Hkv, splits, rep, D] and part_ml [..., rep, 2] f32 and
+// tickets [B * Hkv] int32, zero before the first launch (each launch leaves
+// them zero). Any other count runs split-KV: kps a multiple of 64, splits =
+// ceil(S / kps), the same partials, no tickets, smem unused.
 extern "C" int flash_decode_write_launch(const void* q, const void* k_new, const void* v_new,
                                          const void* ks_new, const void* vs_new, void* k_cache,
                                          void* v_cache, void* ks_cache, void* vs_cache,
                                          const void* offsets, void* out, void* part_acc,
-                                         void* part_ml, int B, int Hkv, int S, int D, int rep,
-                                         int quant, int window, int kps, float scale,
-                                         void* stream) {
+                                         void* part_ml, void* tickets, int B, int Hkv, int S,
+                                         int D, int rep, int quant, int window, int kps,
+                                         int splits, int smem, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128)
-    return launch_d<128>(rep, quant != 0, q, k_new, v_new, ks_new, vs_new, k_cache, v_cache,
-                         ks_cache, vs_cache, offsets, out, part_acc, part_ml, B, Hkv, S, window,
-                         scale, kps, st);
-  if (D == 64)
-    return launch_d<64>(rep, quant != 0, q, k_new, v_new, ks_new, vs_new, k_cache, v_cache,
-                        ks_cache, vs_cache, offsets, out, part_acc, part_ml, B, Hkv, S, window,
-                        scale, kps, st);
+#define AQLM_FD_WRITE(DD, Q)                                                                  \
+  return dispatch<DD, Q, true>(rep, q, k_new, v_new, ks_new, vs_new, k_cache, v_cache,        \
+                               ks_cache, vs_cache, offsets, out, part_acc, part_ml, tickets, \
+                               B, Hkv, S, window, scale, kps, splits, smem, 0, 0, st)
+  if (D == 128) {
+    if (quant) AQLM_FD_WRITE(128, true);
+    AQLM_FD_WRITE(128, false);
+  }
+  if (D == 64) {
+    if (quant) AQLM_FD_WRITE(64, true);
+    AQLM_FD_WRITE(64, false);
+  }
+#undef AQLM_FD_WRITE
   return cudaErrorInvalidValue;
 }
 
 // B6: flash decode over one layer of the cache as it is, keys below
 // lengths[b] (within the window when window > 0); ts and n_tiles are the TPU
 // grid's tile length and visited tile count, which decide the result of a
-// row with no key in range (see key_range); kps and the partials as above.
+// row with no key in range (see key_range); kps, splits, smem, the partials
+// and the tickets as above.
 extern "C" int flash_decode_launch(const void* q, void* k_cache, void* v_cache, void* ks_cache,
                                    void* vs_cache, const void* lengths, void* out, void* part_acc,
-                                   void* part_ml, int B, int Hkv, int S, int D, int rep,
-                                   int quant, int window, int ts, int n_tiles, int kps,
-                                   float scale, void* stream) {
+                                   void* part_ml, void* tickets, int B, int Hkv, int S, int D,
+                                   int rep, int quant, int window, int ts, int n_tiles, int kps,
+                                   int splits, int smem, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (ts < 1 || n_tiles < 1) return cudaErrorInvalidValue;
-#define AQLM_FD_READ_D(DD, Q)                                                                  \
-  return launch_read_d<DD, Q>(rep, q, k_cache, v_cache, ks_cache, vs_cache, lengths, out,       \
-                              part_acc, part_ml, B, Hkv, S, window, scale, ts, n_tiles, kps, st)
+#define AQLM_FD_READ(DD, Q)                                                                    \
+  return dispatch<DD, Q, false>(rep, q, nullptr, nullptr, nullptr, nullptr, k_cache, v_cache,  \
+                                ks_cache, vs_cache, lengths, out, part_acc, part_ml, tickets, \
+                                B, Hkv, S, window, scale, kps, splits, smem, ts, n_tiles, st)
   if (D == 128) {
-    if (quant) AQLM_FD_READ_D(128, true);
-    AQLM_FD_READ_D(128, false);
+    if (quant) AQLM_FD_READ(128, true);
+    AQLM_FD_READ(128, false);
   }
   if (D == 64) {
-    if (quant) AQLM_FD_READ_D(64, true);
-    AQLM_FD_READ_D(64, false);
+    if (quant) AQLM_FD_READ(64, true);
+    AQLM_FD_READ(64, false);
   }
-#undef AQLM_FD_READ_D
+#undef AQLM_FD_READ
   return cudaErrorInvalidValue;
 }

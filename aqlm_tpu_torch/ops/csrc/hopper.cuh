@@ -1,7 +1,7 @@
 // Hopper helpers shared by the port's warp-specialised kernels (K2 in
 // gather_prefill.cu, B10's and the forward's GEMMs in int8_matmul.cu, the
 // int4 GEMM in int4_matmul.cu): shared-memory addresses, mbarriers, named
-// barriers, TMA tile copies, wgmma descriptors and instructions, exact
+// barriers, TMA tile and bulk copies, wgmma descriptors and instructions, exact
 // int8 -> bf16 widening, the split path's fixed-order reduction, and the
 // tensor-map encoder reached through the runtime (no libcuda link).
 #pragma once
@@ -83,6 +83,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// global to shared memory, completing on `bar` by its byte count.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -31,21 +31,30 @@
 //   weight make a GEMV issue-bound near T = 4 (a first version ran at 27% of
 //   the byte bound there), so the product runs on the tensor cores instead,
 //   transposed: W is the 16-row operand of mma.sync m16n8k16 and the
-//   activation rows, padded to 8, the other. A block owns 16 output rows;
-//   its 8 warps take interleaved 128-byte packing blocks of the contraction
-//   and add their sums in shared memory in a fixed order. A thread loads 64
-//   bytes of each packing block (two 16-byte loads per row, neighbouring
-//   threads neighbouring bytes, the warp's next block and its group scales
-//   in flight while this one computes) and widens each 4-byte word straight
-//   into its A fragment: the low nibbles for group 2i, the high nibbles for
-//   group 2i + 1, each group an f32 fragment added in with its scale. The
+//   activation rows, padded to 8, the other. A thread loads 64 bytes of each
+//   128-byte packing block (two 16-byte loads per row, neighbouring threads
+//   neighbouring bytes) and widens each 4-byte word straight into its A
+//   fragment: the low nibbles for group 2i, the high nibbles for group
+//   2i + 1, each group an f32 fragment added in with its scale. The
 //   widening is exact (bf16 q - 8) and nothing is rounded with the scale,
-//   as on the prefill path. Activations come from
-//   global memory through L1 (8-byte loads; the same x serves every block).
-//   Narrow projections (OUT = 4096) cannot fill 132 SMs by rows alone, so
-//   the columns are also split over blocks: each split writes f32 partial
-//   sums and the last block of a row group to finish (an atomic ticket) adds
-//   them in a fixed order, so the result does not change from run to run.
+//   as on the prefill path. The first design split the
+//   contraction over blocks to fill the card at OUT = 4096 (partial sums,
+//   a fence, an atomic ticket, and a torch.zeros of the tickets before each
+//   launch) and loaded 8 bytes of x from L1 for every mma; at o that fixed
+//   cost set a ~0.012 ms floor, above torch._weight_int4pack_mm
+//   (experiments/torch_int4_gemv_ablate.py: unsplit, or without the x
+//   loads, it ran 20-40% faster). Now one block of 16 warps an SM walks a
+//   contiguous run of 16-row tiles (the expert a tile coordinate), the
+//   warps of a block taking a tile's packing blocks in turn and adding their
+//   sums in shared memory in warp order: no split over blocks, no partials,
+//   no tickets, no second launch, and the result does not change from run
+//   to run. Each warp stages the activation columns of its own packing
+//   blocks once in shared memory by bulk copies (the whole contraction: at
+//   most 8 x 11008 bf16 a block; where that does not fit, Mixtral's
+//   per-expert down at 7-8 rows, in two runs of the contraction, each tile's
+//   sums kept in shared memory between them), so no warp waits for
+//   another's, and keeps its next packing block in flight across tile
+//   boundaries.
 // - Prefill, T > 8: bound by operations (2*T*OUT*IN on the bf16 tensor
 //   cores; Llama-2-7B's fused qkv at T = 1024: 103 GFLOP, 0.104 ms at 989
 //   TFLOP/s), laid out by the wrapper's planning function (int4_matmul.plan)
@@ -86,11 +95,12 @@
 // All experts (MoE): w4 [E, OUT, ldb], gscale [E, 2 * ldb / 128, OUT], out
 // [E, T, OUT]; x is [T, in_features] shared by every expert (gate and up)
 // or [E, T, in_features], one slab per expert (down), never padded. One
-// launch covers every expert: the expert is the decode grid's z axis and is
-// folded with the splits into the prefill grid's z axis; each block offsets
-// its pointers (decode) or its tensor-map coordinates (prefill) by its
-// expert, and split partial sums and tickets are per expert, so the
-// last-block reduction never mixes experts. Mixtral-8x7B
+// launch covers every expert: the expert is the decode tiles' leading
+// coordinate and is folded with the splits into the prefill grid's z axis;
+// each tile or block offsets its pointers (decode) or its tensor-map
+// coordinates (prefill) by its expert, and the prefill's split partial sums
+// and tickets are per expert, so the last-block reduction never mixes
+// experts. Mixtral-8x7B
 // decode at T = 4 reads 235 MB of gate nibbles and 14.7 MB of scales
 // (~0.075 ms at 3.35 TB/s): the same tensor-core GEMV with E times the
 // blocks. The expert axis is a template flag (MOE): a single matrix runs
@@ -131,146 +141,253 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
 // decode: T <= 8
 // ---------------------------------------------------------------------------
 
-constexpr int GV_WARPS = 8;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use on an H100
+constexpr int GV_WARPS = 16;
 constexpr int GV_THREADS = GV_WARPS * 32;
-constexpr int GV_ROWS = 16;  // output rows per block: one m16 tile, its contraction split over the warps
+constexpr int GV_ROWS = 16;                         // output rows of a tile: one m16 tile
+constexpr int GV_RED = GV_WARPS * GV_ROWS * 8 * 4;  // one tile's warp sums, f32; two alternate
+constexpr int GV_TILE = GV_ROWS * 8 * 4;            // one tile's f32 sums, kept between runs
+constexpr int GV_XROW = 512 + 16;                   // a staged activation row of one packing block
+
+// The GEMV's shared memory for T rows, `tiles` 16-row tiles over `blocks`
+// blocks: two alternating buffers of the warps' sums; (where the contraction
+// takes several runs, each tile's sums kept between them, `park`;) each
+// warp's barrier for its activation copies; then each warp's own
+// activation columns (the packing blocks it takes, `slots` of them, T rows
+// of 256 columns each, 16 bytes apart from bank to bank), for the whole
+// contraction where they fit, else for `chunks` runs of packing blocks in
+// turn. int4_matmul.gemv_layout
+// computes the same, and a launch whose chunks or total differ is refused.
+struct GemvLayout {
+  int n_pb, chunks, pbc, slots, park, total_;
+  __host__ __device__ GemvLayout(int T, int in_features, int tiles, int blocks) {
+    n_pb = (in_features + 255) / 256;
+    const int run = (tiles + blocks - 1) / blocks;  // the most tiles a block walks
+    for (chunks = 1;; ++chunks) {
+      pbc = (n_pb + chunks - 1) / chunks;
+      slots = (pbc + GV_WARPS - 1) / GV_WARPS;
+      park = chunks > 1 ? run * GV_TILE : 0;
+      if (2 * GV_RED + park + GV_WARPS * 8 + GV_WARPS * slots * T * GV_XROW <= SMEM_LIMIT ||
+          pbc <= GV_WARPS)
+        break;
+    }
+    total_ = 2 * GV_RED + park + GV_WARPS * 8 + GV_WARPS * slots * T * GV_XROW;
+  }
+  __host__ __device__ int total() const { return total_; }
+};
 
 // y^T = W x^T on the tensor cores: W is the 16-row A operand, the (at most 8)
-// activation rows the 8-column B operand. Warp w takes packing blocks
-// p = w, w + 8, ... of the block's column range; a thread holds bytes
-// 16 tig .. 16 tig + 15 and 64 + 16 tig .. of rows gid and gid + 8 of each.
-// One of its 4-byte words gives its A values of one 16-column step (its
-// columns j0 .. j0 + 3 stand for mma k 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9)
-// and its B values are x[gid][j0 .. j0 + 3], one 8-byte load.
+// activation rows the 8-column B operand. One block of 16 warps an SM walks
+// a contiguous run of 16-row tiles (tile t: expert t / row_tiles); within a
+// tile warp w takes packing blocks p = w, w + 16, ... of the run, and the
+// warps' sums meet in shared memory, added in warp order. A thread holds
+// bytes 16 tig .. 16 tig + 15 and 64 + 16 tig .. of rows gid and gid + 8 of
+// a packing block; one of its 4-byte words gives its A values of one
+// 16-column step (its columns j0 .. j0 + 3 stand for mma k 2 tig, 2 tig + 1,
+// 2 tig + 8, 2 tig + 9) and its B values are x[gid][j0 .. j0 + 3], read from
+// the warp's own staged activation columns (each warp takes the same packing
+// blocks in every tile, so it stages them once, and waits for no other
+// warp's). Each warp keeps its next packing block (across tiles and runs) in
+// flight while one computes; the sums' two buffers let a tile end at one
+// barrier.
 template <bool MOE>
-__global__ void __launch_bounds__(GV_THREADS)
+__global__ void __launch_bounds__(GV_THREADS, 1)
 int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,  // [T, in_features], or [E, T, ...]
                  const uint8_t* __restrict__ w4,        // [E, OUT, ldb] of one layer
                  const float* __restrict__ gscale,      // [E, 2 * ldb / 128, OUT]
                  __nv_bfloat16* __restrict__ out,       // [E, T, OUT]
-                 float* __restrict__ partials,          // [E, splits, T, OUT] when split
-                 int* __restrict__ tickets,             // [E, gridDim.x] zeroed, when split
-                 int T, int out_features, int in_features, int ldb, int cols_per_split,
-                 int x_per_expert) {
-  __shared__ float s_red[GV_WARPS][GV_ROWS][8];
-  __shared__ int s_last;
-
-  if (MOE) {  // the expert (blockIdx.z) is a pointer offset
-    const size_t ex = blockIdx.z;
-    x += x_per_expert ? ex * T * in_features : 0;
-    w4 += ex * out_features * ldb;
-    gscale += ex * (2 * ldb / 128) * out_features;
-    out += ex * T * out_features;
-    if (gridDim.y > 1) {
-      partials += ex * gridDim.y * T * out_features;
-      tickets += ex * gridDim.x;
-    }
-  }
+                 int T, int out_features, int in_features, int ldb, int experts,
+                 int x_per_expert, int chunks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row_tiles = (out_features + GV_ROWS - 1) / GV_ROWS;
+  const int tiles = (MOE ? experts : 1) * row_tiles;
+  // GemvLayout's runs (`chunks`, checked by the launch) unpacked with few
+  // divisions: the first loads issue sooner
+  const int n_pb = (in_features + 255) / 256, pbc = (n_pb + chunks - 1) / chunks;
+  const int slots = (pbc + GV_WARPS - 1) / GV_WARPS;
+  const int run = (tiles + gridDim.x - 1) / gridDim.x;
+  float* park = reinterpret_cast<float*>(smem + 2 * GV_RED);  // [run][16][8]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int gid = lane / 4, tig = lane % 4;
-  const int row_base = blockIdx.x * GV_ROWS;
-  const int k_begin = blockIdx.y * cols_per_split;
-  const int k_end = min(in_features, k_begin + cols_per_split);
-  const int p_end = (k_end + 255) / 256;  // packing blocks [k_begin / 256, p_end)
-  const int r0 = row_base + gid, r1 = r0 + 8;
-  const bool v0 = r0 < out_features, v1 = r1 < out_features;
-  const uint8_t* w0 = w4 + (size_t)(v0 ? r0 : 0) * ldb + 16 * tig;
-  const uint8_t* w1 = w4 + (size_t)(v1 ? r1 : 0) * ldb + 16 * tig;
-  const bool xrow = gid < T;
-  const __nv_bfloat16* xr = x + (size_t)(xrow ? gid : 0) * in_features;
-
-  // a thread's 64 bytes of packing block p and the block's two group scales
-  // of its rows (zeros past the end)
-  auto load_w = [&](uint4 (&d)[4], float (&sc)[4], int p) {
-    const bool in = p < p_end;
-    const uint4 z = make_uint4(0, 0, 0, 0);
-    const float* sg = gscale + (size_t)(2 * p) * out_features;
-    sc[0] = (in && v0) ? __ldg(sg + r0) : 0.f;
-    sc[1] = (in && v1) ? __ldg(sg + r1) : 0.f;
-    sc[2] = (in && v0) ? __ldg(sg + out_features + r0) : 0.f;
-    sc[3] = (in && v1) ? __ldg(sg + out_features + r1) : 0.f;
-    d[0] = (in && v0) ? __ldcs(reinterpret_cast<const uint4*>(w0 + 128 * (size_t)p)) : z;
-    d[1] = (in && v0) ? __ldcs(reinterpret_cast<const uint4*>(w0 + 128 * (size_t)p + 64)) : z;
-    d[2] = (in && v1) ? __ldcs(reinterpret_cast<const uint4*>(w1 + 128 * (size_t)p)) : z;
-    d[3] = (in && v1) ? __ldcs(reinterpret_cast<const uint4*>(w1 + 128 * (size_t)p + 64)) : z;
+  // this warp's barrier and staged columns: [slot j][T][GV_XROW bytes]
+  uint64_t* xbar =
+      reinterpret_cast<uint64_t*>(smem + 2 * GV_RED + (chunks > 1 ? run * GV_TILE : 0)) + warp;
+  unsigned char* xw = reinterpret_cast<unsigned char*>(xbar - warp + GV_WARPS) +
+                      (size_t)warp * slots * T * GV_XROW;
+  const int t_begin = blockIdx.x * tiles / gridDim.x;
+  const int t_end = (blockIdx.x + 1) * tiles / gridDim.x;
+  const size_t w_expert = (size_t)out_features * ldb;
+  const size_t s_expert = (size_t)(2 * ldb / 128) * out_features;
+  // this warp's packing blocks of a tile in run c
+  auto per_tile = [&](int c) {
+    const int n = min(n_pb, (c + 1) * pbc) - c * pbc;
+    return warp < n ? (n - warp + GV_WARPS - 1) / GV_WARPS : 0;
   };
 
-  // element e: row gid + 8 (e >> 1), activation row 2 tig + (e & 1)
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  uint4 wv[4];
-  float sv[4];
-  int p = k_begin / 256 + warp;
-  load_w(wv, sv, p);
-  for (; p < p_end; p += GV_WARPS) {
-    uint4 wn[4];  // the warp's next packing block is in flight while this one computes
-    float sn[4];
-    load_w(wn, sn, p + GV_WARPS);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {  // group 2p (low nibbles), then 2p + 1 (high)
-      const int c_base = 256 * p + 128 * half;
-      if (c_base >= k_end) break;  // a group wholly past the end meets zeros
-      float g[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int seg = 0; seg < 2; ++seg)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int c = c_base + seg * 64 + 16 * tig + 4 * s;
-          const uint2 xv = (xrow && c < k_end) ? __ldg(reinterpret_cast<const uint2*>(xr + c))
-                                               : make_uint2(0, 0);
-          uint32_t u0 = word_of(wv[seg], s), u1 = word_of(wv[2 + seg], s);
-          u0 = (half ? u0 >> 4 : u0) & 0x0F0F0F0Fu;
-          u1 = (half ? u1 >> 4 : u1) & 0x0F0F0F0Fu;
-          uint32_t a[4];
-          nib4_to_bf16x2(u0, a[0], a[2]);
-          nib4_to_bf16x2(u1, a[1], a[3]);
-          mma_bf16_16816(g, a, xv.x, xv.y);
+  // the load cursor (run lc, tile lt, item lj) walks the warp's items in
+  // compute order; lc == chunks past the last
+  int lc = 0, lt = t_begin, lj = 0;
+  auto skip_empty = [&]() {
+    while (lc < chunks && per_tile(lc) == 0) ++lc;
+  };
+  skip_empty();
+  // the item at the cursor: a thread's 64 bytes of its packing block, then
+  // the block's two group scales of its rows (zeros past the end; the bytes
+  // go out first); then advance
+  auto load_w = [&](uint4 (&d)[4], float (&sc)[4]) {
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    const bool in = lc < chunks && lt < t_end;
+    const int p = lc * pbc + warp + GV_WARPS * lj;
+    const int e = MOE ? lt / row_tiles : 0;
+    const int r0 = (lt - e * row_tiles) * GV_ROWS + gid, r1 = r0 + 8;
+    const bool v0 = in && r0 < out_features, v1 = in && r1 < out_features;
+    const uint8_t* w = w4 + (MOE ? e * w_expert : 0) + 128 * (size_t)p + 16 * tig;
+    const float* sg = gscale + (MOE ? e * s_expert : 0) + (size_t)(2 * p) * out_features;
+    d[0] = v0 ? __ldcs(reinterpret_cast<const uint4*>(w + (size_t)r0 * ldb)) : z;
+    d[1] = v0 ? __ldcs(reinterpret_cast<const uint4*>(w + (size_t)r0 * ldb + 64)) : z;
+    d[2] = v1 ? __ldcs(reinterpret_cast<const uint4*>(w + (size_t)r1 * ldb)) : z;
+    d[3] = v1 ? __ldcs(reinterpret_cast<const uint4*>(w + (size_t)r1 * ldb + 64)) : z;
+    sc[0] = v0 ? __ldg(sg + r0) : 0.f;
+    sc[1] = v1 ? __ldg(sg + r1) : 0.f;
+    sc[2] = v0 ? __ldg(sg + out_features + r0) : 0.f;
+    sc[3] = v1 ? __ldg(sg + out_features + r1) : 0.f;
+    if (!in) return;
+    if (++lj < per_tile(lc)) return;
+    lj = 0;
+    if (++lt < t_end) return;
+    lt = t_begin;
+    ++lc;
+    skip_empty();
+  };
+
+  // the warp's packing blocks of run c of expert e's activations into its
+  // slots: lane 0 bulk-copies each row's 512 bytes (the columns past
+  // in_features zeroed by the lanes instead), completing on the warp's
+  // barrier, which it waits on (wait_x) only before their first use
+  int x_phase = 0;
+  if (lane == 0) {
+    aqlm::mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  auto issue_x = [&](int c, int e, int pt) {
+    const __nv_bfloat16* xe = x + (MOE && x_per_expert ? (size_t)e * T * in_features : 0);
+    const int col0 = 256 * (c * pbc + warp);
+    const int tail = min(in_features - col0 - GV_WARPS * 256 * (pt - 1), 256);
+    if (tail < 256)  // the last packing block's columns past in_features: the copy skips them
+      for (int i = lane; i < T * (256 - tail) / 8; i += 32) {
+        const int r = i / ((256 - tail) / 8), cc = i % ((256 - tail) / 8);
+        *reinterpret_cast<uint4*>(xw + (size_t)((pt - 1) * T + r) * GV_XROW + 2 * tail + 16 * cc) =
+            make_uint4(0, 0, 0, 0);
+      }
+    __syncwarp();  // the lanes' reads of the last run's columns come first
+    if (lane == 0) {
+      aqlm::fence_proxy_async();
+      aqlm::mbar_arrive_expect_tx(xbar, T * (512 * (pt - 1) + 2 * tail));
+      for (int j = 0; j < pt; ++j)
+        for (int r = 0; r < T; ++r)
+          aqlm::bulk_copy(xw + (size_t)(j * T + r) * GV_XROW,
+                          xe + (size_t)r * in_features + col0 + GV_WARPS * 256 * j,
+                          j + 1 < pt ? 512 : 2 * tail, xbar);
+    }
+  };
+  auto wait_x = [&]() {
+    aqlm::mbar_wait(xbar, x_phase);
+    x_phase ^= 1;
+    __syncwarp();
+  };
+
+  uint4 w0[4], w1[4];
+  float s0[4], s1[4];
+  load_w(w0, s0);
+  int x_c = -1, x_e = -1;  // the run and expert whose activations are staged
+  bool x_wait = false;
+  int k = 0;  // tiles ended so far: their parity picks the sums' buffer
+  for (int c = 0; c < chunks; ++c) {
+    const int pt = per_tile(c);
+    for (int t = t_begin; t < t_end; ++t, ++k) {
+      const int e = MOE ? t / row_tiles : 0;
+      if (pt > 0 && (x_c != c || (MOE && x_per_expert && e != x_e))) {
+        issue_x(c, e, pt);
+        x_c = c;
+        x_e = e;
+        x_wait = true;
+      }
+      // element q: row gid + 8 (q >> 1), activation row 2 tig + (q & 1)
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int j = 0; j < pt; ++j) {
+        load_w(w1, s1);  // the next packing block is in flight while this one computes
+        if (x_wait) {
+          wait_x();
+          x_wait = false;
         }
-      const float s0 = sv[2 * half], s1 = sv[2 * half + 1];
-      acc[0] = fmaf(g[0], s0, acc[0]);
-      acc[1] = fmaf(g[1], s0, acc[1]);
-      acc[2] = fmaf(g[2], s1, acc[2]);
-      acc[3] = fmaf(g[3], s1, acc[3]);
-    }
+        const int p = c * pbc + warp + GV_WARPS * j;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      wv[i] = wn[i];
-      sv[i] = sn[i];
+        for (int half = 0; half < 2; ++half) {  // group 2p (low nibbles), then 2p + 1 (high)
+          if (256 * p + 128 * half >= in_features) break;  // a group wholly past the end meets zeros
+          float g[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int seg = 0; seg < 2; ++seg) {
+            // x[gid][c0 .. c0 + 15] of the packing block: the B values of this thread's four steps
+            uint4 xv[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+            if (gid < T) {
+              const unsigned char* xp = xw + (size_t)(j * T + gid) * GV_XROW +
+                                        2 * (128 * half + 64 * seg + 16 * tig);
+              xv[0] = *reinterpret_cast<const uint4*>(xp);
+              xv[1] = *reinterpret_cast<const uint4*>(xp + 16);
+            }
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+              uint32_t u0 = word_of(w0[seg], s), u1 = word_of(w0[2 + seg], s);
+              u0 = (half ? u0 >> 4 : u0) & 0x0F0F0F0Fu;
+              u1 = (half ? u1 >> 4 : u1) & 0x0F0F0F0Fu;
+              uint32_t a[4];
+              nib4_to_bf16x2(u0, a[0], a[2]);
+              nib4_to_bf16x2(u1, a[1], a[3]);
+              mma_bf16_16816(g, a, word_of(xv[s >> 1], 2 * (s & 1)),
+                             word_of(xv[s >> 1], 2 * (s & 1) + 1));
+            }
+          }
+          const float sa = s0[2 * half], sb = s0[2 * half + 1];
+          acc[0] = fmaf(g[0], sa, acc[0]);
+          acc[1] = fmaf(g[1], sa, acc[1]);
+          acc[2] = fmaf(g[2], sb, acc[2]);
+          acc[3] = fmaf(g[3], sb, acc[3]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          w0[q] = w1[q];
+          s0[q] = s1[q];
+        }
+      }
+
+      // the warps' sums meet in shared memory and are added in warp order
+      // (then to the earlier runs' sum of the tile, kept in `park`)
+      float* red = reinterpret_cast<float*>(smem) + (k & 1) * (GV_RED / 4);  // [GV_WARPS][16][8]
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        red[(warp * GV_ROWS + gid + 8 * (q >> 1)) * 8 + 2 * tig + (q & 1)] = acc[q];
+      __syncthreads();
+      if (tid < GV_ROWS * 8) {
+        const int rr = tid / 8, bb = tid % 8, row = (t - e * row_tiles) * GV_ROWS + rr;
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < GV_WARPS; ++w) v += red[(w * GV_ROWS + rr) * 8 + bb];
+        float* pk = park + (t - t_begin) * (GV_TILE / 4) + tid;
+        if (c > 0) v = *pk + v;
+        if (c + 1 < chunks) *pk = v;
+        else if (bb < T && row < out_features)
+          out[((size_t)(MOE ? e : 0) * T + bb) * out_features + row] = __float2bfloat16(v);
+      }
     }
   }
-
-  // the warps' sums meet in shared memory and are added in warp order
-#pragma unroll
-  for (int e = 0; e < 4; ++e) s_red[warp][gid + 8 * (e >> 1)][2 * tig + (e & 1)] = acc[e];
-  __syncthreads();
-  const int rr = tid / 8 % GV_ROWS, bb = tid % 8, row = row_base + rr;
-  float v = 0.f;
-#pragma unroll
-  for (int w = 0; w < GV_WARPS; ++w) v += s_red[w][rr][bb];
-  const bool mine = tid < GV_ROWS * 8 && bb < T && row < out_features;
-
-  if (gridDim.y == 1) {
-    if (mine) out[(size_t)bb * out_features + row] = __float2bfloat16(v);
-    return;
-  }
-  if (mine) partials[((size_t)blockIdx.y * T + bb) * out_features + row] = v;
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(tickets + blockIdx.x, 1) == (int)gridDim.y - 1;
-  __syncthreads();
-  if (!s_last || !mine) return;
-  __threadfence();
-  float sum = 0.f;
-  for (int sp = 0; sp < (int)gridDim.y; ++sp)
-    sum += __ldcg(partials + ((size_t)sp * T + bb) * out_features + row);
-  out[(size_t)bb * out_features + row] = __float2bfloat16(sum);
 }
 
 // ---------------------------------------------------------------------------
 // prefill: T > 8 (int4_matmul.plan lays it out)
 // ---------------------------------------------------------------------------
 
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use on an H100
 constexpr int Q_BN = 128;           // output channels per block
 constexpr int Q_BK = 64;            // x columns per slab; four slabs a packing block
 constexpr int Q_PB = 128;           // bytes of a packing block's row: 256 columns, 2 groups
@@ -631,7 +748,7 @@ template <bool MOE>
 int dispatch(const void* x, const void* w4, const void* gscale, void* out, void* partials,
              void* tickets, int experts, int x_per_expert, int T, int splits, int cols_per_split,
              int out_features, int in_features, int ldb, int bm, int stages, int smem,
-             cudaStream_t st) {
+             int blocks, cudaStream_t st) {
   if (T > 8) {
     if ((bm != 64 && bm != 128) || stages < 2 || stages > Q_MAX_STAGES || smem > SMEM_LIMIT ||
         smem != QLayout(bm, stages).total() || (bm == 64 && stages * 64 * Q_BK * 2 < 32768) ||
@@ -646,12 +763,22 @@ int dispatch(const void* x, const void* w4, const void* gscale, void* out, void*
                                    T, splits, cols_per_split / (2 * Q_PB), stages, smem,
                                    out_features, in_features, ldb, st);
   }
-  if (bm != 0) return cudaErrorInvalidValue;
-  const dim3 grid((out_features + GV_ROWS - 1) / GV_ROWS, splits, experts);
-  int4_gemv_kernel<MOE><<<grid, GV_THREADS, 0, st>>>(
-      (const __nv_bfloat16*)x, (const uint8_t*)w4, (const float*)gscale, (__nv_bfloat16*)out,
-      (float*)partials, (int*)tickets, T, out_features, in_features, ldb, cols_per_split,
-      x_per_expert);
+  const int n_pb = (in_features + 255) / 256;
+  const int tiles = experts * ((out_features + GV_ROWS - 1) / GV_ROWS);
+  if (bm != 0 || splits != 1 || cols_per_split != n_pb * 256 || blocks < 1 || blocks > tiles)
+    return cudaErrorInvalidValue;
+  const GemvLayout lo(T, in_features, tiles, blocks);
+  if (stages != lo.chunks || smem != lo.total() || smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int4_gemv_kernel<MOE>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  int4_gemv_kernel<MOE><<<blocks, GV_THREADS, smem, st>>>(
+      (const __nv_bfloat16*)x, (const uint8_t*)w4, (const float*)gscale, (__nv_bfloat16*)out, T,
+      out_features, in_features, ldb, experts, x_per_expert, lo.chunks);
   return cudaGetLastError();
 }
 
@@ -661,28 +788,30 @@ int dispatch(const void* x, const void* w4, const void* gscale, void* out, void*
 // gscale [E, 2 * ldb / 128, OUT], out [E, T, OUT]; x [T, in_features] shared
 // by the experts (x_per_expert = 0) or [E, T, in_features]; E = 1 for one
 // matrix. ldb is the packed row length (IN_pad / 2, a multiple of 128);
-// in_features <= 2 * ldb and a multiple of 16. T <= 8 runs the decode path
-// (bm = 0, static shared memory), more rows the prefill GEMM (bm = 128, or
-// 64 with the contraction's groups split over the two consumer warpgroups;
-// `stages` x-ring stages, `smem` dynamic bytes, checked against the
-// kernel's own layout). splits > 1 splits the contraction into runs of
-// cols_per_split columns (a multiple of 256); partials and tickets are then
-// required: decode [E, splits, T, OUT] f32 and [E, ceil(OUT/16)] int32,
-// prefill [E, splits, ceil(T/bm)*bm, OUT] f32 and [E, ceil(T/bm),
-// ceil(OUT/128)] int32, tickets zeroed.
+// in_features <= 2 * ldb and a multiple of 16. T <= 8 runs the decode path:
+// bm = 0, splits = 1, cols_per_split the whole contraction in packing
+// blocks, `blocks` blocks, `stages` the activations' staged runs and `smem`
+// the dynamic bytes, both as GemvLayout computes them. More
+// rows run the prefill GEMM (bm = 128, or 64 with the contraction's groups
+// split over the two consumer warpgroups; `stages` x-ring stages, `smem`
+// dynamic bytes, checked against the kernel's own layout; `blocks` unused);
+// splits > 1 splits its contraction into runs of cols_per_split columns (a
+// multiple of 256), and partials [E, splits, ceil(T/bm)*bm, OUT] f32 and
+// tickets [E, ceil(T/bm), ceil(OUT/128)] int32, zeroed, are then required.
 extern "C" int int4_matmul_launch(const void* x, const void* w4, const void* gscale, void* out,
                                   void* partials, void* tickets, int experts, int x_per_expert,
                                   int T, int splits, int cols_per_split, int out_features,
                                   int in_features, int ldb, int bm, int stages, int smem,
-                                  void* stream) {
+                                  int blocks, void* stream) {
   if (experts < 1 || splits < 1 || T < 1 || out_features < 1 || in_features < 16 ||
       in_features % 16 || ldb < Q_PB || ldb % Q_PB || in_features > 2 * ldb)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (experts > 1)
     return dispatch<true>(x, w4, gscale, out, partials, tickets, experts, x_per_expert, T, splits,
-                          cols_per_split, out_features, in_features, ldb, bm, stages, smem, st);
+                          cols_per_split, out_features, in_features, ldb, bm, stages, smem, blocks,
+                          st);
   // one matrix (or one expert) needs no offsets: the kernels compiled without them
   return dispatch<false>(x, w4, gscale, out, partials, tickets, 1, 0, T, splits, cols_per_split,
-                         out_features, in_features, ldb, bm, stages, smem, st);
+                         out_features, in_features, ldb, bm, stages, smem, blocks, st);
 }

@@ -10,10 +10,13 @@ PyTorch counterparts of ``aqlm_tpu.ops.flash_decode``:
   unindexed form is the indexed one at layer 0.
 
 On a CUDA tensor each launches its kernel (``csrc/flash_decode.cu``); on a
-CPU tensor it runs the plain version. At a head count other than 1, 2, 4 or
-8 per kv head the kernels split each row's keys over blocks (split-KV) and
-merge the splits' partial softmax states in a fixed order; the plain
-versions compute the same way (``split_partials``, ``merge_partials``).
+CPU tensor it runs the plain version. The kernels split each row's keys
+over blocks and merge the splits' partial softmax states in a fixed order:
+at 1, 2, 4 or 8 query heads per kv head the row kernel, laid out by the pure
+``row_plan`` (a row's last split merges them, in the same launch); at any
+other count split-KV on the tensor cores (``split_plan``) and a combine
+kernel. The plain versions compute the same way (``split_partials``,
+``merge_partials``; ``kps`` sets their keys a split).
 
 Layouts: q [B, 1, Hq, D]; k/v cache [L, B, Hkv, S, D] int8 or bf16; scales
 [L, B, Hkv, S, 1] f32 (int8 only); offsets [B] int32 (K3: row b is written
@@ -22,19 +25,90 @@ at offsets[b] and attends to keys < offsets[b] + 1); lengths [B] int32 (B6).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from aqlm_tpu_torch.ops import _build
 
 __all__ = [
     "flash_decode_write_attention_indexed", "flash_decode_attention_indexed",
-    "flash_decode_attention", "NEG_INF", "SINGLE_BLOCK_REPS", "split_plan", "split_partials",
-    "merge_partials",
+    "flash_decode_attention", "NEG_INF", "ROW_REPS", "RowPlan", "row_plan", "row_smem",
+    "row_splits", "split_plan", "split_partials", "merge_partials",
 ]
 
 NEG_INF = -1e30
-SINGLE_BLOCK_REPS = (1, 2, 4, 8)  # query heads per kv head of the single-block kernels
+ROW_REPS = (1, 2, 4, 8)  # query heads per kv head of the row kernels
 SPLIT_TILE = 64  # keys per tile of the split-KV kernels; a split holds 1-4 (or more) tiles
+# the row kernels' keys a split, the shared memory that keeps three blocks an
+# SM, and the grid (kv heads x rows x splits) the smallest split may reach
+ROW_KPS = (64, 128, 256)
+ROW_SMEM_MAX = 75 * 1024
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use on an H100
+ROW_BLOCKS_PER_SM = 4
+_ROW_WARPS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """One launch of the row kernel: keys a split, splits a row in the grid
+    (blockIdx.z), dynamic shared memory (checked by the kernel)."""
+
+    kps: int
+    splits: int
+    smem: int
+
+
+def row_smem(kps: int, d: int, rep: int, quant: bool, splits: int) -> int:
+    """The row kernel's shared memory (csrc ``RowLayout``): the split's K and
+    V rows and scale planes (later the warps' sums, whichever is larger),
+    each warp's p [rep][16 x its 16-key tiles + 4] f32, the warps' and
+    heads' softmax statistics, the row's splits' (m, l) for the merge, two
+    barriers a warp (its K and V copies), a flag."""
+    row = d * (1 if quant else 2)
+    kv = 2 * kps * row + (8 * kps if quant else 0)
+    mtw = -(-(kps // 16) // _ROW_WARPS)
+    return (max(kv, _ROW_WARPS * rep * d * 4) + _ROW_WARPS * rep * (16 * mtw + 4) * 4
+            + (2 * 64 + 2 * 8) * 4 + splits * 8 * 2 * 4 + _ROW_WARPS * 2 * 8 + 16)
+
+
+def row_splits(s_len: int, kps: int, span: int | None) -> int:
+    """Splits a row of the grid holds (csrc ``row_splits``): every split of
+    the cache, or, where ``span`` (the most keys a row attends: the window)
+    is shorter, the ceil(span / kps) such a run takes, counted from its
+    first key."""
+    full = -(-s_len // kps)
+    if span is None or span <= 0 or span >= s_len:
+        return full
+    return min(full, -(-span // kps))
+
+
+def row_plan(b: int, hkv: int, rep: int, d: int, s_len: int, quant: bool,
+             span: int | None = None, kps: int | None = None, sm_count: int = 132) -> RowPlan:
+    """The row kernel's launch, a pure function of what the host knows (the
+    offsets stay on the device). With a window (``span``, the most keys a
+    row attends, shorter than the cache): the smallest split of ``ROW_KPS``
+    that holds it and fits a block, so that no row merges, else the largest
+    whose shared memory keeps three blocks an SM. Without one, of the splits
+    that keep three blocks an SM, the smallest of at least 32 keys a query
+    head (a split's partial state, rep x D f32, stays small beside its keys)
+    whose grid stays within ``ROW_BLOCKS_PER_SM`` blocks an SM, else the
+    largest. ``kps`` overrides."""
+    if rep not in ROW_REPS or d not in (64, 128) or b < 1 or hkv < 1 or s_len < 1:
+        raise ValueError(f"no row-kernel plan for B={b} Hkv={hkv} rep={rep} D={d} S={s_len}")
+    if kps is None:
+        smem = lambda k: row_smem(k, d, rep, quant, row_splits(s_len, k, span))
+        fits = [k for k in ROW_KPS if smem(k) <= ROW_SMEM_MAX]
+        if span is not None and 0 < span < s_len:
+            # a window's rows are few keys: one split each (any shared memory), so none merges
+            kps = next((k for k in ROW_KPS if k >= span and smem(k) <= SMEM_LIMIT), fits[-1])
+        else:
+            kps = next((k for k in fits if k >= 32 * rep and b * hkv * row_splits(s_len, k, span)
+                        <= ROW_BLOCKS_PER_SM * sm_count), fits[-1])
+    elif kps not in ROW_KPS:
+        raise ValueError(f"the row kernel takes {ROW_KPS} keys a split, got {kps}")
+    splits = row_splits(s_len, kps, span)
+    return RowPlan(kps, splits, row_smem(kps, d, rep, quant, splits))
 
 
 def split_plan(b: int, hkv: int, rep: int, s_len: int, splits: int | None = None,
@@ -87,18 +161,39 @@ def merge_partials(m, l, acc):
     return num / torch.clamp(den, min=1e-30)[..., None]
 
 
-def _attend(logits, v, splits):
-    """softmax(logits) @ v in f32, as ``splits`` parts merged in order."""
-    kps, _ = split_plan(1, 1, 1, logits.shape[-1], splits or 1)
-    return merge_partials(*split_partials(logits, v, kps))
+def _row_starts(pos, s_len, window, write, ts=0, n_tiles=0):
+    """Each row's first key (csrc ``key_range``), where the row kernel's
+    splits start: K3 (``write``) at offsets ``pos``, B6 at lengths ``pos``
+    (a row with no key in range starts at the first tile the TPU grid
+    visits)."""
+    pos = pos.long()
+    zero = torch.zeros_like(pos)
+    if write:
+        return torch.clamp(pos + 1 - window, min=0) if window else zero
+    start = torch.clamp(pos - window, min=0) if window else zero
+    nt_full = -(-s_len // ts)
+    st = torch.clamp(start // ts, max=nt_full - n_tiles) if n_tiles < nt_full else zero
+    return torch.where(torch.clamp(pos, max=s_len) <= start, st * ts, start)
+
+
+def _attend(logits, v, splits, kps=None, starts=None):
+    """softmax(logits) @ v in f32, as ``splits`` parts from key 0 merged in
+    order, or (``kps``) as the row kernel splits each row: parts of ``kps``
+    keys from the row's first key, ``starts`` [B]."""
+    if kps is None:
+        kps, _ = split_plan(1, 1, 1, logits.shape[-1], splits or 1)
+        return merge_partials(*split_partials(logits, v, kps))
+    return torch.cat([merge_partials(*split_partials(logits[i:i + 1, ..., s:], v[i:i + 1, :, s:], kps))
+                      for i, s in enumerate(starts.tolist())])
 
 
 def plain(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window, splits=None,
-          out_dtype=torch.bfloat16):
+          out_dtype=torch.bfloat16, kps=None):
     """K3's plain version. One layer's cache [B, Hkv, S, D] (+ scales
     [B, Hkv, S, 1]); q_hm [B, Hkv, rep, D] bf16; nk/nv [B, Hkv, D]; nks/nvs
-    [B, Hkv] or None. The keys are cut into ``splits`` parts (None: one)
-    whose softmax states merge as the split-KV kernel merges them; the f32
+    [B, Hkv] or None. The keys are cut into ``splits`` parts (None: one), or
+    into parts of ``kps`` keys from each row's first key (the row kernel's
+    splits), whose softmax states merge as the kernels merge them; the f32
     result is cast to ``out_dtype``."""
     b = q_hm.shape[0]
     s_len = k_c.shape[2]
@@ -120,7 +215,8 @@ def plain(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window, 
     if window is not None:
         valid = valid & (key_pos >= length - window)
     logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
-    return _attend(logits, v, splits).to(out_dtype)
+    starts = None if kps is None else _row_starts(off, s_len, window, True)
+    return _attend(logits, v, splits, kps, starts).to(out_dtype)
 
 
 def _check(q_hm, k_c, v_c, ks_c, vs_c, rows, *new) -> bool:
@@ -152,47 +248,86 @@ def _check(q_hm, k_c, v_c, ks_c, vs_c, rows, *new) -> bool:
     return quant
 
 
-def _partials(q_hm, s_len, splits):
-    """(keys per split, part_acc, part_ml) of a split-KV launch, allocated on
-    torch's current stream; (0, None, None) for the single-block kernels."""
+@dataclasses.dataclass
+class _Scratch:
+    """A launch's split layout and scratch: keys a split, splits a row, the
+    row kernel's shared memory (0 for split-KV), the f32 partials (None for
+    one split) and the row kernel's tickets."""
+
+    kps: int
+    splits: int
+    smem: int
+    acc: torch.Tensor | None = None
+    ml: torch.Tensor | None = None
+    tickets: torch.Tensor | None = None
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(dev, n: int) -> torch.Tensor:
+    """The row kernels' tickets, int32 zeros kept per device: every launch
+    leaves them zero, so they are zeroed once. A larger need allocates anew
+    and keeps the old buffer alive (a captured CUDA graph may hold it)."""
+    bufs = _TICKETS.setdefault(dev.index, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=dev))
+    return bufs[-1]
+
+
+def _scratch(q_hm, s_len, quant, span, splits, kps) -> _Scratch:
+    """The launch's ``_Scratch``, allocated on torch's current stream (no
+    memset): the row kernel at 1/2/4/8 heads per kv head (``row_plan``;
+    ``kps`` overrides), else split-KV (``split_plan``; ``splits`` overrides)."""
     b, hkv, rep, d = q_hm.shape
-    if rep in SINGLE_BLOCK_REPS:
-        return 0, None, None
-    kps, z = split_plan(b, hkv, rep, s_len, splits, _build.sm_count(q_hm.device.index))
-    acc = torch.empty((b, hkv, z, rep, d), dtype=torch.float32, device=q_hm.device)
-    ml = torch.empty((b, hkv, z, rep, 2), dtype=torch.float32, device=q_hm.device)
-    return kps, acc, ml
+    dev = q_hm.device
+    sms = _build.sm_count(dev.index)
+    if rep in ROW_REPS:
+        p = row_plan(b, hkv, rep, d, s_len, quant, span, kps, sms)
+        sc = _Scratch(p.kps, p.splits, p.smem)
+        if p.splits == 1:
+            return sc
+        sc.tickets = _tickets(dev, b * hkv)
+    else:
+        kps, z = split_plan(b, hkv, rep, s_len, splits, sms)
+        sc = _Scratch(kps, z, 0)
+    n = b * hkv * sc.splits * rep
+    part = torch.empty(n * (d + 2), dtype=torch.float32, device=dev)
+    sc.acc, sc.ml = part[:n * d], part[n * d:]
+    return sc
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window, splits=None):
+def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window, splits=None,
+           kps=None):
     """K3 on one layer's cache (same arguments as ``plain``; ``splits``
-    overrides the split-KV kernel's split count). Each offset must lie in
-    [0, S), as the caller (the Engine) guarantees; the kernel does not read
-    offsets back to the host, so a row whose offset lies outside writes
-    nothing and returns NaN instead of raising."""
+    overrides the split-KV kernel's split count, ``kps`` the row kernel's
+    keys a split). Each offset must lie in [0, S), as the caller (the Engine)
+    guarantees; the kernel does not read offsets back to the host, so a row
+    whose offset lies outside writes nothing and returns NaN instead of
+    raising."""
     b, hkv, rep, d = q_hm.shape
     s_len = k_c.shape[2]
     dev = q_hm.device
     quant = _check(q_hm, k_c, v_c, ks_c, vs_c, offsets, nk, nv,
                    *((nks, nvs) if k_c.dtype == torch.int8 else ()))
-    if rep not in SINGLE_BLOCK_REPS and (nk.data_ptr() % 16 or nv.data_ptr() % 16):
+    if rep not in ROW_REPS and (nk.data_ptr() % 16 or nv.data_ptr() % 16):
         # the split-KV kernel copies the new row as cache rows are copied
         raise ValueError("flash_decode kernel needs 16-byte aligned new rows at this head count")
     out = torch.empty((b, hkv, rep, d), dtype=torch.bfloat16, device=dev)
-    kps, part_acc, part_ml = _partials(q_hm, s_len, splits)
+    sc = _scratch(q_hm, s_len, quant, window, splits, kps)
     lib, _ = _build.library()
     rc = lib.flash_decode_write_launch(
         q_hm.data_ptr(), nk.data_ptr(), nv.data_ptr(),
         nks.data_ptr() if quant else None, nvs.data_ptr() if quant else None,
         k_c.data_ptr(), v_c.data_ptr(),
         ks_c.data_ptr() if quant else None, vs_c.data_ptr() if quant else None,
-        offsets.data_ptr(), out.data_ptr(), _ptr(part_acc), _ptr(part_ml),
-        b, hkv, s_len, d, rep, int(quant), 0 if window is None else int(window), kps,
-        float(scale), _build.stream_ptr(dev),
+        offsets.data_ptr(), out.data_ptr(), _ptr(sc.acc), _ptr(sc.ml), _ptr(sc.tickets),
+        b, hkv, s_len, d, rep, int(quant), 0 if window is None else int(window), sc.kps,
+        sc.splits, sc.smem, float(scale), _build.stream_ptr(dev),
     )
     _build.check(rc, "flash_decode_write")
     _build.KERNELS["flash_decode_write"].launches += 1
@@ -257,10 +392,10 @@ def tiles(s_len: int, window: int | None) -> tuple[int, int, int]:
 
 
 def plain_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window, splits=None,
-                 out_dtype=torch.bfloat16):
+                 out_dtype=torch.bfloat16, kps=None):
     """B6's plain version on one layer's cache [B, Hkv, S, D] (+ scales
-    [B, Hkv, S, 1]); q_hm [B, Hkv, rep, D] bf16; lengths [B]; ``splits``
-    and ``out_dtype`` as for ``plain``.
+    [B, Hkv, S, 1]); q_hm [B, Hkv, rep, D] bf16; lengths [B]; ``splits``,
+    ``out_dtype`` and ``kps`` as for ``plain``.
 
     Keys in [max(0, len - window), len) attend. Keys of the tiles the TPU
     grid visits that fall outside get the logit NEG_INF, as the TPU kernel
@@ -284,27 +419,37 @@ def plain_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window, splits=None
     visited = (pos >= start * ts) & (pos < (start + n_tiles) * ts)
     logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
     logits = torch.where(visited[:, None, None, :], logits, torch.full_like(logits, -torch.inf))
-    return _attend(logits, v, splits).to(out_dtype)
+    starts = None if kps is None else _row_starts(lengths, s_len, window, False, ts, n_tiles)
+    return _attend(logits, v, splits, kps, starts).to(out_dtype)
 
 
-def launch_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window, splits=None):
+def _b6_span(s_len, window):
+    """The most keys a B6 row attends with a window: the window, or the
+    tiles the TPU grid visits for a row with no key in range."""
+    if not window:
+        return None
+    ts, _, n_tiles = tiles(s_len, window)
+    return max(window, n_tiles * ts)
+
+
+def launch_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window, splits=None, kps=None):
     """B6 on one layer's cache (same arguments as ``plain_attend``;
-    ``splits`` as for ``launch``). The cache is only read; lengths are not
-    read back to the host."""
+    ``splits`` and ``kps`` as for ``launch``). The cache is only read;
+    lengths are not read back to the host."""
     b, hkv, rep, d = q_hm.shape
     s_len = k_c.shape[2]
     dev = q_hm.device
     quant = _check(q_hm, k_c, v_c, ks_c, vs_c, lengths)
     ts, _, n_tiles = tiles(s_len, window)
     out = torch.empty((b, hkv, rep, d), dtype=torch.bfloat16, device=dev)
-    kps, part_acc, part_ml = _partials(q_hm, s_len, splits)
+    sc = _scratch(q_hm, s_len, quant, _b6_span(s_len, window), splits, kps)
     lib, _ = _build.library()
     rc = lib.flash_decode_launch(
         q_hm.data_ptr(), k_c.data_ptr(), v_c.data_ptr(),
         ks_c.data_ptr() if quant else None, vs_c.data_ptr() if quant else None,
-        lengths.data_ptr(), out.data_ptr(), _ptr(part_acc), _ptr(part_ml), b, hkv, s_len, d, rep,
-        int(quant), 0 if window is None else int(window), ts, n_tiles, kps, float(scale),
-        _build.stream_ptr(dev),
+        lengths.data_ptr(), out.data_ptr(), _ptr(sc.acc), _ptr(sc.ml), _ptr(sc.tickets), b, hkv,
+        s_len, d, rep, int(quant), 0 if window is None else int(window), ts, n_tiles, sc.kps,
+        sc.splits, sc.smem, float(scale), _build.stream_ptr(dev),
     )
     _build.check(rc, "flash_decode")
     _build.KERNELS["flash_decode"].launches += 1

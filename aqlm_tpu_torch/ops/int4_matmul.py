@@ -6,7 +6,8 @@ PyTorch counterpart of ``aqlm_tpu.ops.int4_matmul`` (``int4_matmul``,
 kernel of ``csrc/int4_matmul.cu``; on a CPU tensor it runs the plain version
 of the same function. The layer-indexed variants are the same kernel with a
 layer pointer offset; the MoE forms run every expert in one launch, the
-expert being one more grid axis of the same kernel. The pure ``plan`` lays
+expert being one more tile coordinate (GEMV) or grid axis (GEMM) of the
+same kernel. The pure ``plan`` lays
 each launch out: a tensor-core GEMV at <= 8 rows, and past them a
 warp-specialised TMA + wgmma GEMM.
 
@@ -31,7 +32,7 @@ import torch
 
 from aqlm_tpu_torch.ops import _build
 from aqlm_tpu_torch.ops.int8_matmul import (_BYTES_PER_US, INT8_GEMV_MAX_ROWS, T_SMEM_LIMIT, Plan,
-                                            _splits, pad_in_features)
+                                            pad_in_features)
 
 __all__ = [
     "GROUP",
@@ -47,17 +48,19 @@ __all__ = [
     "int4_moe_matmul_indexed",
     "Plan",
     "plan",
+    "gemv_layout",
     "gemm_smem",
 ]
 
 GROUP = 128  # original columns per scale group
 INT4_GEMV_MAX_ROWS = INT8_GEMV_MAX_ROWS  # up to this many rows take the kernel's decode path
-# the kernel's shapes (csrc/int4_matmul.cu): the GEMV's rows a block and its
-# contraction unit (a packing block); the GEMM's 128 output channels a
-# block, 64-column x slabs (four to a packing block), its ring depth, its
-# four W^T buffers, and the planner's time model of one block-packing-block
-# (us)
-_GEMV_ROWS = 16
+# the kernel's shapes (csrc/int4_matmul.cu): the GEMV's rows a tile, its
+# warps a block and their sums' shared memory, and its contraction unit (a
+# packing block); the GEMM's 128 output channels a block, 64-column x slabs
+# (four to a packing block), its ring depth, its four W^T buffers, and the
+# planner's time model of one block-packing-block (us)
+_GEMV_ROWS, _GEMV_WARPS = 16, 16
+_GEMV_RED = _GEMV_WARPS * _GEMV_ROWS * 8 * 4
 _PACK = 2 * GROUP  # columns of a 128-byte packing block
 _GEMM_BN, _GEMM_BK, _GEMM_NB, _GEMM_STAGES = 128, 64, 4, 4
 _GEMM_PACK_US = 1.4
@@ -163,6 +166,26 @@ def moe_plain(xb, w4, gscale):
                         for e in range(w4.shape[0])])
 
 
+def gemv_layout(T: int, in_features: int, tiles: int, blocks: int) -> tuple[int, int]:
+    """(runs, shared memory) of the GEMV (the kernel's ``GemvLayout``): two
+    buffers of the warps' sums of a tile, then each warp's barrier and own
+    activation columns (the packing blocks it takes: T rows of 256 columns
+    each, 16 bytes apart from bank to bank) for the whole contraction where
+    they fit, else for the fewest equal runs of packing blocks that fit,
+    each tile's sums kept between runs."""
+    n_pb = -(-in_features // _PACK)
+    run = -(-tiles // blocks)  # the most tiles a block walks
+    chunks = 1
+    while True:
+        pbc = -(-n_pb // chunks)
+        slots = -(-pbc // _GEMV_WARPS)
+        park = run * _GEMV_ROWS * 8 * 4 if chunks > 1 else 0
+        total = 2 * _GEMV_RED + park + _GEMV_WARPS * (8 + slots * T * (_PACK * 2 + 16))
+        if total <= T_SMEM_LIMIT or pbc <= _GEMV_WARPS:
+            return chunks, total
+        chunks += 1
+
+
 def gemm_smem(bm: int, stages: int) -> int:
     """The GEMM's dynamic shared memory (the kernel's ``QLayout``): the x
     ring (bm rows a stage), two packed slabs and their two groups' scales,
@@ -177,8 +200,10 @@ def gemm_smem(bm: int, stages: int) -> int:
 def plan(T: int, out_features: int, in_features: int, ldb: int, experts: int = 1,
          sm_count: int = 132) -> Plan:
     """Path, tile, stages, split and grid of one launch, a pure function of
-    the shapes. At <= 8 rows the GEMV (16 output rows a block, the
-    contraction split in packing blocks to fill the card twice). Past 8 rows
+    the shapes. At <= 8 rows the GEMV: one block an SM (or one a 16-row
+    tile, where there are fewer tiles) walking a contiguous run of tiles,
+    each over the whole contraction (no split over blocks), the activations
+    staged in shared memory in ``stages`` runs (``gemv_layout``). Past 8 rows
     the GEMM: 128 rows a block (64 a consumer warpgroup) past 64 rows, else
     64 rows with the groups of the contraction taken in turn by the two
     consumer warpgroups; the contraction split over blocks in whole packing
@@ -192,10 +217,10 @@ def plan(T: int, out_features: int, in_features: int, ldb: int, experts: int = 1
                          "256-column packing blocks)")
     n_units = -(-in_features // _PACK)  # packing blocks
     if T <= INT4_GEMV_MAX_ROWS:
-        blocks = -(-out_features // _GEMV_ROWS)
-        splits = _splits(experts * blocks, n_units, sm_count, max(1, n_units // 8))
-        per_split = -(-n_units // splits) * _PACK
-        return Plan("gemv", 0, 0, splits, per_split, (blocks, splits, experts), 0)
+        tiles = experts * -(-out_features // _GEMV_ROWS)
+        blocks = min(tiles, sm_count)
+        chunks, smem = gemv_layout(T, in_features, tiles, blocks)
+        return Plan("gemv", 0, chunks, 1, n_units * _PACK, (blocks, 1, 1), smem)
     bm = 64 if T <= 64 else 128
     col_tiles, row_tiles = -(-out_features // _GEMM_BN), -(-T // bm)
     tiles = experts * col_tiles * row_tiles
@@ -258,7 +283,7 @@ def _run(xb, w4, gscale, name, x_per_expert):
         None if partials is None else partials.data_ptr(),
         None if tickets is None else tickets.data_ptr(),
         experts, int(x_per_expert), rows, p.splits, p.per_split, out_features, in_features, ldb,
-        p.bm, p.stages, p.smem, _build.stream_ptr(dev),
+        p.bm, p.stages, p.smem, p.grid[0], _build.stream_ptr(dev),
     )
     _build.check(rc, name)
     _build.KERNELS[name].launches += 1

@@ -24,8 +24,10 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    projections and the lm_head, the int4 kernel at both for the four
    projections, each MoE kernel at both for Mixtral-8x7B's gate/up, shared
    x, and down, per-expert x, B15 at both for Falcon-7B's q, k, v, o and
-   fc2, K3 at Llama-2-7B's 32 kv heads and at Falcon-7B's 71 query heads
-   over one (split-KV there, its split count recorded), the all-expert codes
+   fc2, K3 at Llama-2-7B's 32 kv heads (B=4, and B=1 at offset 1999), at
+   Mixtral-8x7B's 4 query heads over each of 8 and at Falcon-7B's 71 over
+   one (each record with its split plan: the row kernel's keys a split,
+   splits and shared memory, or the split-KV kernel's), the all-expert codes
    matmul at Mixtral-8x7B's gate/up and down (K1's MoE instance at the
    decode rows, K2's f32 instance over all experts in one launch at the
    prefill rows), the 1x16 GEMV and GEMM at Llama-2-7B's q, gate
@@ -36,7 +38,7 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    (``int8_matmul_transposed``) at its q, gate and down at 1024 rows and at
    q at rows 1, 8 and 200 (one bf16 step), B5 (``gather_dequant_wt``) at
    q, gate and down (bit-identical), B6 (``flash_decode``, K3 without the
-   row write) at K3's two shapes, int8 and bf16, lengths 1/512/513/2048,
+   row write) at K3's three shapes, int8 and bf16, lengths 1/512/513/2048,
    with and without a window of 256, and its unindexed form once (one bf16
    step, the cache unchanged), and B8 (``kv_write``) into the int8_short
    run's cache [32, 4, 32, 2048, 128], the one-array write of a bf16 cache
@@ -1033,27 +1035,38 @@ def _sdpa_ms(q_hm, k_c, v_c, lengths, window, S, L, dev):
 
 
 # (model, kv heads, query heads per kv head, head_dim): K3's decode shapes
-K3_SHAPES = [("llama2_7b", 32, 1, 128), ("falcon_7b", 1, 71, 64)]
+K3_SHAPES = [("llama2_7b", 32, 1, 128), ("falcon_7b", 1, 71, 64), ("mixtral_8x7b", 8, 4, 128)]
+K3_OFFSETS = [0, 511, 512, 1999]  # 0 and a 512 edge, at B=4; B=1 takes the last alone
 
 
-def _split(fd, B, H, rep, S) -> dict:
-    """The split-KV kernel's keys per split and split count at a shape (none
-    for the single-block kernels)."""
-    if rep in fd.SINGLE_BLOCK_REPS:
-        return {"splits": None}
-    kps, splits = fd.split_plan(B, H, rep, S, sm_count=torch.cuda.get_device_properties(0)
-                                .multi_processor_count)
-    return {"splits": splits, "keys_per_split": kps}
+def _split(fd, B, H, rep, D, S, quant, span=None) -> dict:
+    """The launch's split plan at a shape: the row kernel's keys a split,
+    splits a row and shared memory (1/2/4/8 heads per kv head), else the
+    split-KV kernel's keys a split and split count."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if rep in fd.ROW_REPS:
+        p = fd.row_plan(B, H, rep, D, S, quant, span, sm_count=sms)
+        return {"splits": p.splits, "keys_per_split": p.kps, "smem": p.smem, "kernel_form": "rows"}
+    kps, splits = fd.split_plan(B, H, rep, S, sm_count=sms)
+    return {"splits": splits, "keys_per_split": kps, "kernel_form": "split-KV"}
 
 
 def check_k3(gen, dev, failures):
+    """K3 at its three decode shapes (Llama-2-7B, Falcon-7B, Mixtral-8x7B),
+    int8 and bf16, no window and a window of 256, B=4 at offsets 0/511/512/
+    1999, and Llama-2-7B at B=1, offset 1999 (int8 and bf16), layer i % L of
+    the stacked cache: one bf16 step of the plain version, and the written
+    rows equal to the plain version's."""
     from aqlm_tpu_torch.ops import flash_decode as fd
 
-    L, B, S = 4, 4, 2048
-    offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)  # 0 and a 512 edge
+    L, S = 4, 2048
     reps = {}
-    for (model, H, rep, D), quant, window in itertools.product(K3_SHAPES, (True, False),
-                                                               (None, 256)):
+    cases = [(*shape, quant, window, K3_OFFSETS) for shape, quant, window in itertools.product(
+        K3_SHAPES, (True, False), (None, 256))]
+    cases += [(*K3_SHAPES[0], quant, None, K3_OFFSETS[-1:]) for quant in (True, False)]
+    for model, H, rep, D, quant, window, offs in cases:
+        B = len(offs)
+        offsets = torch.tensor(offs, dtype=torch.int32, device=dev)
         q = torch.randn((B, 1, H * rep, D), generator=gen, device=dev).to(torch.bfloat16)
         if quant:
             kv = [torch.randint(-127, 128, (L, B, H, S, D), generator=gen, device=dev,
@@ -1082,25 +1095,25 @@ def check_k3(gen, dev, failures):
             None if ref_sc[0] is None else ref_sc[0][0],
             None if ref_sc[1] is None else ref_sc[1][0], offsets, D ** -0.5, window)
         cmp = compare(run(0).reshape(B, H, rep, D), plain(0))
-        cmp["ok"] = cmp["ok"] and bool((kv[0][0] == ref_kv[0][0]).all()) and bool(
-            (kv[1][0] == ref_kv[1][0]).all())
+        cmp["ok"] = cmp["ok"] and all(torch.equal(a[0], r[0]) for a, r in zip(
+            kv + [s for s in sc if s is not None], ref_kv + [s for s in ref_sc if s is not None]))
         ms = time_ms(run, 50)
         plain_ms = time_ms(plain, 5)
-        keys = [min(int(o) + 1, window or S) for o in offsets.tolist()]
+        keys = [min(int(o) + 1, window or S) for o in offs]
         row_bytes = 2 * (D + 4) if quant else 2 * 2 * D
         nbytes = sum(keys) * H * row_bytes + 2 * B * H * rep * D * 2 + B * H * row_bytes + B * 4
         b_ms, b_by = bound(nbytes, sum(keys) * H * rep * 4.0 * D)
         library_ms = None if quant else _sdpa_ms(q_hm, kv[0], kv[1], offsets + 1, window, S, L, dev)
         rec = {"phase": "check", "kernel": "flash_decode_write", "model": model,
                "kv": "int8" if quant else "bf16", "window": window, "B": B, "Hkv": H, "rep": rep,
-               "D": D, "max_len": S, "offsets": offsets.tolist(), **_split(fd, B, H, rep, S),
+               "D": D, "max_len": S, "offsets": offs, **_split(fd, B, H, rep, D, S, quant, window),
                **cmp, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
                "host_ms": host_ms(run)}
         emit(rec)
         if not cmp["ok"]:
             failures.append(rec)
-        if model == "llama2_7b" and quant and window is None:
+        if model == "llama2_7b" and quant and window is None and B == 4:
             reps["flash_decode_write"] = rec
         del kv, sc, ref_kv, ref_sc
         torch.cuda.empty_cache()
@@ -1108,8 +1121,8 @@ def check_k3(gen, dev, failures):
 
 
 def check_b6(gen, dev, failures):
-    """B6 (``flash_decode``, K3's loops without the row write) at K3's two
-    decode shapes, int8 and bf16, lengths 1, 512, 513 and 2048, no window and
+    """B6 (``flash_decode``, K3's kernels without the row write) at K3's
+    three decode shapes, int8 and bf16, lengths 1, 512, 513 and 2048, no window and
     a window of 256 (which skips the tiles outside it), layer i % L of the
     stacked cache; then the unindexed form once. The cache must stay as it
     was. The library time is SDPA over the bf16 twin of the cache (the int8
@@ -1157,7 +1170,8 @@ def check_b6(gen, dev, failures):
         rec = {"phase": "check", "kernel": "flash_decode", "model": model,
                "form": "indexed" if indexed else "unindexed",
                "kv": "int8" if quant else "bf16", "window": window, "B": B, "Hkv": H, "rep": rep,
-               "D": D, "max_len": S, "lengths": lengths.tolist(), **_split(fd, B, H, rep, S),
+               "D": D, "max_len": S, "lengths": lengths.tolist(),
+               **_split(fd, B, H, rep, D, S, quant, fd._b6_span(S, window)),
                **cmp, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
                "library": "scaled_dot_product_attention over the bf16 twin",

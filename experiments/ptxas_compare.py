@@ -9,7 +9,8 @@ checkouts, or experiments/torch_k1_b10_ab.py's ``ptxas_new.txt`` and
 template arguments, and each difference is printed with the count that
 match; the groups of instances a change must leave alone are also counted
 apart: int8_matmul.cu's decode GEMV (``int8_gemv_kernel``) and B10's three
-kernels, int4_matmul.cu's decode GEMV (``int4_gemv_kernel``).
+kernels, int4_matmul.cu's decode GEMV (``int4_gemv_kernel``) and prefill
+GEMM (``int4_gemm_kernel``), flash_decode.cu's split-KV kernels.
 
 Reads a report written by experiments/torch_codes_probe.py (sections
 ``== <source>.o.log`` of this checkout and ``== parent <source>.cu rc 0`` of
@@ -70,7 +71,10 @@ def compare(name, new, old):
 GROUPS = {("int8_matmul", "decode GEMV"): ("int8_gemv_kernel<",),
           ("int8_matmul", "B10"): ("int8_gemv_t_kernel<", "int8_scale_g_kernel",
                                    "int8_gemm_t_kernel<"),
-          ("int4_matmul", "decode GEMV"): ("int4_gemv_kernel<",)}
+          ("int4_matmul", "decode GEMV"): ("int4_gemv_kernel<",),
+          ("int4_matmul", "prefill GEMM"): ("int4_gemm_kernel<",),
+          ("flash_decode", "split-KV"): ("flash_decode_split_kernel<",
+                                         "flash_decode_combine_kernel<")}
 
 
 def main_two(path_new, path_old):

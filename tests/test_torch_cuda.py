@@ -1626,3 +1626,115 @@ def test_int8_matmul_transposed_paths_at_ragged_edges(dev, out_f, ld, rows, g_dt
     assert got.shape == (rows, ld) and got.dtype == torch.bfloat16
     _close(got, im.plain_t(g, w8, scale))
     assert torch.equal(im.launch_t(g, w8, scale), got)
+
+
+# The int4 GEMV (<= 8 rows) over its plan's branches: activations staged in
+# shared memory whole, or in two runs where they do not fit (8 rows of 14336
+# columns); an OUT that is not a multiple of 16; every row count.
+GEMV4_IN = [4096, 11008, 14336]
+GEMV4_OUT = [4096, 200]
+
+
+def test_int4_gemv_cases_cover_both_plan_branches(dev):
+    runs = {i4.plan(rows, o, i, i4.pad_in_features_int4(i) // 2).stages
+            for rows in range(1, 9) for o in GEMV4_OUT for i in GEMV4_IN}
+    assert runs == {1, 2}
+
+
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("in_f", GEMV4_IN)
+@pytest.mark.parametrize("out_f", GEMV4_OUT)
+def test_int4_gemv_plan_branches_match_plain(dev, out_f, in_f, rows):
+    """Within one bf16 step of the plain version, and bit-identical over two
+    runs (the warps' sums meet in a fixed order)."""
+    gen = torch.Generator(device=dev).manual_seed(rows + out_f + in_f)
+    w4, gs, _ = _int4(gen, dev, 1, out_f=out_f, in_f=in_f)
+    x = torch.randn((rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+    before = _build.KERNELS["int4_matmul"].launches
+    got = i4.int4_matmul(x, w4[0], gs[0])
+    assert _build.KERNELS["int4_matmul"].launches == before + 1
+    _close(got, i4.plain(x, w4[0], gs[0]))
+    assert torch.equal(got, i4.int4_matmul(x, w4[0], gs[0]))
+
+
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("rows", [1, 2, 4, 5, 8])
+@pytest.mark.parametrize("shape", [(3, 200, 4096), (2, 4096, 11008), (8, 4096, 14336)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int4_moe_gemv_plan_branches_match_plain(dev, shape, rows, per_expert):
+    """All experts in one launch, the expert a tile coordinate: shared and
+    per-expert x (staged again where a block's tiles change expert; in two
+    runs at 8 rows of 14336 columns); bit-identical over two runs."""
+    E, out_f, in_f = shape
+    w4, gs = _int4_moe(E, out_f, in_f)
+    gen = torch.Generator(device=dev).manual_seed(rows + E)
+    x = torch.randn((E, rows, in_f) if per_expert else (rows, in_f), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    got = i4.int4_moe_matmul_indexed(x, w4, gs, 1)
+    _close(got, i4.moe_plain(x, w4[1], gs[1]))
+    assert torch.equal(got, i4.int4_moe_matmul_indexed(x, w4, gs, 1))
+
+
+def _k3_inputs(gen, dev, quantized, L, B, H, rep, S, d):
+    q = torch.randn((B, H, rep, d), generator=gen, device=dev).to(torch.bfloat16)
+    kv, sc = _decode_cache(gen, dev, quantized, L, B, H, S, d)
+    if quantized:
+        new = [torch.randint(-127, 128, (B, H, d), generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8) for _ in range(2)]
+        nsc = [torch.rand((B, H), generator=gen, device=dev) / 50 for _ in range(2)]
+    else:
+        new = [torch.randn((B, H, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(2)]
+        nsc = [None, None]
+    return q, kv, sc, new, nsc
+
+
+@pytest.mark.parametrize("kps", [None, 64, 256])
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("rep,d", [(1, 128), (2, 128), (4, 128), (8, 128), (1, 64), (8, 64)])
+def test_flash_decode_row_kernel_matches_plain(dev, rep, d, quantized, window, kps):
+    """K3's row kernel at 1/2/4/8 query heads per kv head, offsets 0, 63, 64
+    and S - 1 of a 512-row cache, its plan's split (None) and 64- and
+    256-key splits (one split a row, or several merged by the row's last):
+    one bf16 step of the plain version, the written rows and scales equal
+    to the plain version's, the output bit-identical over two runs."""
+    gen = torch.Generator(device=dev).manual_seed(rep + d + (window or 0))
+    L, B, H, S = 2, 4, 2, 512
+    offsets = torch.tensor([0, 63, 64, S - 1], dtype=torch.int32, device=dev)
+    q, kv, sc, new, nsc = _k3_inputs(gen, dev, quantized, L, B, H, rep, S, d)
+    ref = [None if t is None else t[1].clone() for t in kv + sc]
+    layer = lambda t: None if t is None else t[1]
+    args = (q, new[0], new[1], nsc[0], nsc[1], *[layer(t) for t in kv + sc], offsets, d ** -0.5,
+            window)
+    got = fd.launch(*args, kps=kps)
+    want = fd.plain(q, new[0], new[1], nsc[0], nsc[1], *ref, offsets, d ** -0.5, window)
+    _close(got, want)
+    for t, r in zip(kv + sc, ref):
+        if r is not None:
+            assert torch.equal(t[1], r)
+    assert torch.equal(got, fd.launch(*args, kps=kps))
+
+
+def test_flash_decode_row_kernel_makes_no_sync(dev):
+    """A K3 launch whose rows merge several splits issues one kernel and no
+    synchronising call (its scratch comes from the allocator, its tickets
+    are kept zero by the kernel itself)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    L, B, H, rep, S, d = 2, 4, 8, 4, 2048, 128
+    offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)
+    q = torch.randn((B, 1, H * rep, d), generator=gen, device=dev).to(torch.bfloat16)
+    kv, sc = _decode_cache(gen, dev, True, L, B, H, S, d)
+    nk = torch.randint(-127, 128, (B, 1, H, d), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    ns = torch.rand((B, 1, H, 1), generator=gen, device=dev) / 50
+    run = lambda: fd.flash_decode_write_attention_indexed(
+        q, nk, nk, kv[0], kv[1], sc[0], sc[1], 1, offsets, k_scale_new=ns, v_scale_new=ns)[0]
+    first = run()
+    assert fd.row_plan(B, H, rep, d, S, True).splits > 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(first, second)
