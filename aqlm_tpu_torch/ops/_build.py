@@ -223,7 +223,8 @@ def _declare(lib) -> None:
     lib.gather16_gemm_launch.argtypes = [P] * 6 + [I] * 8 + [P]
     lib.flash_decode_write_launch.argtypes = [P] * 14 + [I] * 10 + [ctypes.c_float, P]
     lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 11 + [P]
-    lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 12 + [P]
+    lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 11 + [P]
+    lib.int4_gemv_launch.argtypes = [P] * 4 + [I] * 9 + [P]
     lib.onehot_matmul_launch.argtypes = [P] * 7 + [I] * 12 + [P]
     lib.calib_dequant_launch.argtypes = [P] * 4 + [L] + [I] * 5 + [P]
     lib.cb_grad_launch.argtypes = [P] * 3 + [L] + [I] * 4 + [P]
@@ -236,7 +237,8 @@ def _declare(lib) -> None:
     for fn in (lib.lut_gemv_launch, lib.gather_prefill_launch,
                lib.gather16_gemv_launch, lib.gather16_wt_launch, lib.gather16_gemm_launch,
                lib.flash_decode_write_launch,
-               lib.int8_matmul_launch, lib.int4_matmul_launch, lib.onehot_matmul_launch,
+               lib.int8_matmul_launch, lib.int4_matmul_launch, lib.int4_gemv_launch,
+               lib.onehot_matmul_launch,
                lib.calib_dequant_launch, lib.cb_grad_launch, lib.gather_dequant_wt_launch,
                lib.int8_matmul_t_launch, lib.flash_decode_launch, lib.kv_write_launch,
                lib.gather_wraps_launch):

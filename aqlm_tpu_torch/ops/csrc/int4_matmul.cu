@@ -745,30 +745,32 @@ cudaError_t gemm_launch(const void* x, const void* w4, const void* gscale, void*
 }
 
 template <bool MOE>
-int dispatch(const void* x, const void* w4, const void* gscale, void* out, void* partials,
-             void* tickets, int experts, int x_per_expert, int T, int splits, int cols_per_split,
-             int out_features, int in_features, int ldb, int bm, int stages, int smem,
-             int blocks, cudaStream_t st) {
-  if (T > 8) {
-    if ((bm != 64 && bm != 128) || stages < 2 || stages > Q_MAX_STAGES || smem > SMEM_LIMIT ||
-        smem != QLayout(bm, stages).total() || (bm == 64 && stages * 64 * Q_BK * 2 < 32768) ||
-        cols_per_split < 2 * Q_PB ||
-        cols_per_split % (2 * Q_PB) || (long long)(splits - 1) * cols_per_split >= in_features)
-      return cudaErrorInvalidValue;
-    if (bm == 64)
-      return gemm_launch<MOE, true>(x, w4, gscale, out, partials, tickets, experts, x_per_expert,
-                                    T, splits, cols_per_split / (2 * Q_PB), stages, smem,
-                                    out_features, in_features, ldb, st);
-    return gemm_launch<MOE, false>(x, w4, gscale, out, partials, tickets, experts, x_per_expert,
-                                   T, splits, cols_per_split / (2 * Q_PB), stages, smem,
-                                   out_features, in_features, ldb, st);
-  }
-  const int n_pb = (in_features + 255) / 256;
-  const int tiles = experts * ((out_features + GV_ROWS - 1) / GV_ROWS);
-  if (bm != 0 || splits != 1 || cols_per_split != n_pb * 256 || blocks < 1 || blocks > tiles)
+int gemm_dispatch(const void* x, const void* w4, const void* gscale, void* out, void* partials,
+                  void* tickets, int experts, int x_per_expert, int T, int splits,
+                  int cols_per_split, int out_features, int in_features, int ldb, int bm,
+                  int stages, int smem, cudaStream_t st) {
+  if ((bm != 64 && bm != 128) || stages < 2 || stages > Q_MAX_STAGES || smem > SMEM_LIMIT ||
+      smem != QLayout(bm, stages).total() || (bm == 64 && stages * 64 * Q_BK * 2 < 32768) ||
+      cols_per_split < 2 * Q_PB ||
+      cols_per_split % (2 * Q_PB) || (long long)(splits - 1) * cols_per_split >= in_features)
     return cudaErrorInvalidValue;
+  if (bm == 64)
+    return gemm_launch<MOE, true>(x, w4, gscale, out, partials, tickets, experts, x_per_expert, T,
+                                  splits, cols_per_split / (2 * Q_PB), stages, smem, out_features,
+                                  in_features, ldb, st);
+  return gemm_launch<MOE, false>(x, w4, gscale, out, partials, tickets, experts, x_per_expert, T,
+                                 splits, cols_per_split / (2 * Q_PB), stages, smem, out_features,
+                                 in_features, ldb, st);
+}
+
+template <bool MOE>
+int gemv_dispatch(const void* x, const void* w4, const void* gscale, void* out, int experts,
+                  int x_per_expert, int T, int out_features, int in_features, int ldb,
+                  int blocks, int runs, int smem, cudaStream_t st) {
+  const int tiles = experts * ((out_features + GV_ROWS - 1) / GV_ROWS);
+  if (blocks < 1 || blocks > tiles) return cudaErrorInvalidValue;
   const GemvLayout lo(T, in_features, tiles, blocks);
-  if (stages != lo.chunks || smem != lo.total() || smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  if (runs != lo.chunks || smem != lo.total() || smem > SMEM_LIMIT) return cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -782,36 +784,55 @@ int dispatch(const void* x, const void* w4, const void* gscale, void* out, void*
   return cudaGetLastError();
 }
 
+bool shapes_ok(int experts, int T, int out_features, int in_features, int ldb) {
+  return experts >= 1 && T >= 1 && out_features >= 1 && in_features >= 16 &&
+         in_features % 16 == 0 && ldb >= Q_PB && ldb % Q_PB == 0 && in_features <= 2 * ldb;
+}
+
 }  // namespace
 
 // The forward, as int4_matmul.plan lays it out. w4 [E, OUT, ldb],
 // gscale [E, 2 * ldb / 128, OUT], out [E, T, OUT]; x [T, in_features] shared
 // by the experts (x_per_expert = 0) or [E, T, in_features]; E = 1 for one
 // matrix. ldb is the packed row length (IN_pad / 2, a multiple of 128);
-// in_features <= 2 * ldb and a multiple of 16. T <= 8 runs the decode path:
-// bm = 0, splits = 1, cols_per_split the whole contraction in packing
-// blocks, `blocks` blocks, `stages` the activations' staged runs and `smem`
-// the dynamic bytes, both as GemvLayout computes them. More
-// rows run the prefill GEMM (bm = 128, or 64 with the contraction's groups
+// in_features <= 2 * ldb and a multiple of 16. One matrix (or one expert)
+// needs no offsets: it runs the kernels compiled without them.
+//
+// The prefill GEMM, T > 8: bm = 128, or 64 with the contraction's groups
 // split over the two consumer warpgroups; `stages` x-ring stages, `smem`
-// dynamic bytes, checked against the kernel's own layout; `blocks` unused);
-// splits > 1 splits its contraction into runs of cols_per_split columns (a
-// multiple of 256), and partials [E, splits, ceil(T/bm)*bm, OUT] f32 and
-// tickets [E, ceil(T/bm), ceil(OUT/128)] int32, zeroed, are then required.
+// dynamic bytes, checked against the kernel's own layout; splits > 1 splits
+// its contraction into runs of cols_per_split columns (a multiple of 256),
+// and partials [E, splits, ceil(T/bm)*bm, OUT] f32 and tickets [E,
+// ceil(T/bm), ceil(OUT/128)] int32, zeroed, are then required.
 extern "C" int int4_matmul_launch(const void* x, const void* w4, const void* gscale, void* out,
                                   void* partials, void* tickets, int experts, int x_per_expert,
                                   int T, int splits, int cols_per_split, int out_features,
                                   int in_features, int ldb, int bm, int stages, int smem,
-                                  int blocks, void* stream) {
-  if (experts < 1 || splits < 1 || T < 1 || out_features < 1 || in_features < 16 ||
-      in_features % 16 || ldb < Q_PB || ldb % Q_PB || in_features > 2 * ldb)
+                                  void* stream) {
+  if (!shapes_ok(experts, T, out_features, in_features, ldb) || T <= 8 || splits < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (experts > 1)
-    return dispatch<true>(x, w4, gscale, out, partials, tickets, experts, x_per_expert, T, splits,
-                          cols_per_split, out_features, in_features, ldb, bm, stages, smem, blocks,
-                          st);
-  // one matrix (or one expert) needs no offsets: the kernels compiled without them
-  return dispatch<false>(x, w4, gscale, out, partials, tickets, 1, 0, T, splits, cols_per_split,
-                         out_features, in_features, ldb, bm, stages, smem, blocks, st);
+    return gemm_dispatch<true>(x, w4, gscale, out, partials, tickets, experts, x_per_expert, T,
+                               splits, cols_per_split, out_features, in_features, ldb, bm, stages,
+                               smem, st);
+  return gemm_dispatch<false>(x, w4, gscale, out, partials, tickets, 1, 0, T, splits,
+                              cols_per_split, out_features, in_features, ldb, bm, stages, smem,
+                              st);
+}
+
+// The decode GEMV, T <= 8: `blocks` blocks, `runs` the activations' staged
+// runs and `smem` the dynamic bytes, the last two as GemvLayout computes them.
+extern "C" int int4_gemv_launch(const void* x, const void* w4, const void* gscale, void* out,
+                                int experts, int x_per_expert, int T, int out_features,
+                                int in_features, int ldb, int blocks, int runs, int smem,
+                                void* stream) {
+  if (!shapes_ok(experts, T, out_features, in_features, ldb) || T > 8)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (experts > 1)
+    return gemv_dispatch<true>(x, w4, gscale, out, experts, x_per_expert, T, out_features,
+                               in_features, ldb, blocks, runs, smem, st);
+  return gemv_dispatch<false>(x, w4, gscale, out, 1, 0, T, out_features, in_features, ldb, blocks,
+                              runs, smem, st);
 }

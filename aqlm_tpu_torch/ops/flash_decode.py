@@ -84,7 +84,7 @@ def row_splits(s_len: int, kps: int, span: int | None) -> int:
 
 
 def row_plan(b: int, hkv: int, rep: int, d: int, s_len: int, quant: bool,
-             span: int | None = None, kps: int | None = None, sm_count: int = 132) -> RowPlan:
+             span: int | None = None, sm_count: int = 132) -> RowPlan:
     """The row kernel's launch, a pure function of what the host knows (the
     offsets stay on the device). With a window (``span``, the most keys a
     row attends, shorter than the cache): the smallest split of ``ROW_KPS``
@@ -93,20 +93,17 @@ def row_plan(b: int, hkv: int, rep: int, d: int, s_len: int, quant: bool,
     that keep three blocks an SM, the smallest of at least 32 keys a query
     head (a split's partial state, rep x D f32, stays small beside its keys)
     whose grid stays within ``ROW_BLOCKS_PER_SM`` blocks an SM, else the
-    largest. ``kps`` overrides."""
+    largest."""
     if rep not in ROW_REPS or d not in (64, 128) or b < 1 or hkv < 1 or s_len < 1:
         raise ValueError(f"no row-kernel plan for B={b} Hkv={hkv} rep={rep} D={d} S={s_len}")
-    if kps is None:
-        smem = lambda k: row_smem(k, d, rep, quant, row_splits(s_len, k, span))
-        fits = [k for k in ROW_KPS if smem(k) <= ROW_SMEM_MAX]
-        if span is not None and 0 < span < s_len:
-            # a window's rows are few keys: one split each (any shared memory), so none merges
-            kps = next((k for k in ROW_KPS if k >= span and smem(k) <= SMEM_LIMIT), fits[-1])
-        else:
-            kps = next((k for k in fits if k >= 32 * rep and b * hkv * row_splits(s_len, k, span)
-                        <= ROW_BLOCKS_PER_SM * sm_count), fits[-1])
-    elif kps not in ROW_KPS:
-        raise ValueError(f"the row kernel takes {ROW_KPS} keys a split, got {kps}")
+    smem = lambda k: row_smem(k, d, rep, quant, row_splits(s_len, k, span))
+    fits = [k for k in ROW_KPS if smem(k) <= ROW_SMEM_MAX]
+    if span is not None and 0 < span < s_len:
+        # a window's rows are few keys: one split each (any shared memory), so none merges
+        kps = next((k for k in ROW_KPS if k >= span and smem(k) <= SMEM_LIMIT), fits[-1])
+    else:
+        kps = next((k for k in fits if k >= 32 * rep and b * hkv * row_splits(s_len, k, span)
+                    <= ROW_BLOCKS_PER_SM * sm_count), fits[-1])
     splits = row_splits(s_len, kps, span)
     return RowPlan(kps, splits, row_smem(kps, d, rep, quant, splits))
 
@@ -266,24 +263,27 @@ _TICKETS: dict = {}
 
 
 def _tickets(dev, n: int) -> torch.Tensor:
-    """The row kernels' tickets, int32 zeros kept per device: every launch
-    leaves them zero, so they are zeroed once. A larger need allocates anew
-    and keeps the old buffer alive (a captured CUDA graph may hold it)."""
-    bufs = _TICKETS.setdefault(dev.index, [])
+    """The row kernels' tickets, int32 zeros kept per (device, stream): every
+    launch leaves them zero, so they are zeroed once, and launches on one
+    stream run in order, so no two of them share a ticket at once. Launches
+    on two streams take two buffers (a captured CUDA graph keeps its capture
+    stream's). A larger need allocates anew and keeps the old buffer alive
+    (a captured graph may hold it)."""
+    bufs = _TICKETS.setdefault((dev.index, _build.stream_ptr(dev)), [])
     if not bufs or bufs[-1].numel() < n:
         bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=dev))
     return bufs[-1]
 
 
-def _scratch(q_hm, s_len, quant, span, splits, kps) -> _Scratch:
+def _scratch(q_hm, s_len, quant, span, splits) -> _Scratch:
     """The launch's ``_Scratch``, allocated on torch's current stream (no
-    memset): the row kernel at 1/2/4/8 heads per kv head (``row_plan``;
-    ``kps`` overrides), else split-KV (``split_plan``; ``splits`` overrides)."""
+    memset): the row kernel at 1/2/4/8 heads per kv head (``row_plan``), else
+    split-KV (``split_plan``; ``splits`` overrides)."""
     b, hkv, rep, d = q_hm.shape
     dev = q_hm.device
     sms = _build.sm_count(dev.index)
     if rep in ROW_REPS:
-        p = row_plan(b, hkv, rep, d, s_len, quant, span, kps, sms)
+        p = row_plan(b, hkv, rep, d, s_len, quant, span, sms)
         sc = _Scratch(p.kps, p.splits, p.smem)
         if p.splits == 1:
             return sc
@@ -301,14 +301,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window, splits=None,
-           kps=None):
+def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window, splits=None):
     """K3 on one layer's cache (same arguments as ``plain``; ``splits``
-    overrides the split-KV kernel's split count, ``kps`` the row kernel's
-    keys a split). Each offset must lie in [0, S), as the caller (the Engine)
-    guarantees; the kernel does not read offsets back to the host, so a row
-    whose offset lies outside writes nothing and returns NaN instead of
-    raising."""
+    overrides the split-KV kernel's split count). Each offset must lie in
+    [0, S), as the caller (the Engine) guarantees; the kernel does not read
+    offsets back to the host, so a row whose offset lies outside writes
+    nothing and returns NaN instead of raising. Launches on two streams may
+    overlap: each stream has its own tickets (``_tickets``)."""
     b, hkv, rep, d = q_hm.shape
     s_len = k_c.shape[2]
     dev = q_hm.device
@@ -318,7 +317,7 @@ def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window,
         # the split-KV kernel copies the new row as cache rows are copied
         raise ValueError("flash_decode kernel needs 16-byte aligned new rows at this head count")
     out = torch.empty((b, hkv, rep, d), dtype=torch.bfloat16, device=dev)
-    sc = _scratch(q_hm, s_len, quant, window, splits, kps)
+    sc = _scratch(q_hm, s_len, quant, window, splits)
     lib, _ = _build.library()
     rc = lib.flash_decode_write_launch(
         q_hm.data_ptr(), nk.data_ptr(), nv.data_ptr(),
@@ -432,9 +431,9 @@ def _b6_span(s_len, window):
     return max(window, n_tiles * ts)
 
 
-def launch_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window, splits=None, kps=None):
+def launch_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window, splits=None):
     """B6 on one layer's cache (same arguments as ``plain_attend``;
-    ``splits`` and ``kps`` as for ``launch``). The cache is only read;
+    ``splits`` and streams as for ``launch``). The cache is only read;
     lengths are not read back to the host."""
     b, hkv, rep, d = q_hm.shape
     s_len = k_c.shape[2]
@@ -442,7 +441,7 @@ def launch_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window, splits=Non
     quant = _check(q_hm, k_c, v_c, ks_c, vs_c, lengths)
     ts, _, n_tiles = tiles(s_len, window)
     out = torch.empty((b, hkv, rep, d), dtype=torch.bfloat16, device=dev)
-    sc = _scratch(q_hm, s_len, quant, _b6_span(s_len, window), splits, kps)
+    sc = _scratch(q_hm, s_len, quant, _b6_span(s_len, window), splits)
     lib, _ = _build.library()
     rc = lib.flash_decode_launch(
         q_hm.data_ptr(), k_c.data_ptr(), v_c.data_ptr(),

@@ -28,6 +28,8 @@ first ``IN`` columns of x, so activations are never padded.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from aqlm_tpu_torch.ops import _build
@@ -47,6 +49,7 @@ __all__ = [
     "int4_moe_matmul",
     "int4_moe_matmul_indexed",
     "Plan",
+    "GemvPlan",
     "plan",
     "gemv_layout",
     "gemm_smem",
@@ -186,6 +189,18 @@ def gemv_layout(T: int, in_features: int, tiles: int, blocks: int) -> tuple[int,
         chunks += 1
 
 
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """One launch of the GEMV (<= 8 rows): ``blocks`` blocks, each walking a
+    contiguous run of 16-row tiles over the whole contraction, the
+    activations staged in shared memory in ``runs`` runs, and the dynamic
+    shared memory (``gemv_layout``), which the kernel checks."""
+
+    blocks: int
+    runs: int
+    smem: int
+
+
 def gemm_smem(bm: int, stages: int) -> int:
     """The GEMM's dynamic shared memory (the kernel's ``QLayout``): the x
     ring (bm rows a stage), two packed slabs and their two groups' scales,
@@ -198,15 +213,14 @@ def gemm_smem(bm: int, stages: int) -> int:
 
 
 def plan(T: int, out_features: int, in_features: int, ldb: int, experts: int = 1,
-         sm_count: int = 132) -> Plan:
-    """Path, tile, stages, split and grid of one launch, a pure function of
-    the shapes. At <= 8 rows the GEMV: one block an SM (or one a 16-row
-    tile, where there are fewer tiles) walking a contiguous run of tiles,
-    each over the whole contraction (no split over blocks), the activations
-    staged in shared memory in ``stages`` runs (``gemv_layout``). Past 8 rows
+         sm_count: int = 132) -> Plan | GemvPlan:
+    """One launch, a pure function of the shapes. At <= 8 rows the GEMV's
+    ``GemvPlan``: one block an SM (or one a 16-row tile, where there are
+    fewer tiles) walking a contiguous run of tiles, each over the whole
+    contraction (no split over blocks). Past 8 rows
     the GEMM: 128 rows a block (64 a consumer warpgroup) past 64 rows, else
     64 rows with the groups of the contraction taken in turn by the two
-    consumer warpgroups; the contraction split over blocks in whole packing
+    consumer warpgroups (a ``Plan``); the contraction split over blocks in whole packing
     blocks only where the output tiles leave SMs idle and the time model
     (waves x packing blocks a block, plus the partial sums' bytes) says it
     pays."""
@@ -219,8 +233,7 @@ def plan(T: int, out_features: int, in_features: int, ldb: int, experts: int = 1
     if T <= INT4_GEMV_MAX_ROWS:
         tiles = experts * -(-out_features // _GEMV_ROWS)
         blocks = min(tiles, sm_count)
-        chunks, smem = gemv_layout(T, in_features, tiles, blocks)
-        return Plan("gemv", 0, chunks, 1, n_units * _PACK, (blocks, 1, 1), smem)
+        return GemvPlan(blocks, *gemv_layout(T, in_features, tiles, blocks))
     bm = 64 if T <= 64 else 128
     col_tiles, row_tiles = -(-out_features // _GEMM_BN), -(-T // bm)
     tiles = experts * col_tiles * row_tiles
@@ -270,21 +283,28 @@ def _run(xb, w4, gscale, name, x_per_expert):
     if rows == 0:
         return out
     p = plan(rows, out_features, in_features, ldb, experts, _build.sm_count(dev.index))
-    partials = tickets = None
-    if p.splits > 1:
-        # each expert's splits' f32 partial sums meet here; the last block of
-        # each output tile to finish adds them in a fixed order
-        partials = torch.empty(p.partials_shape(rows, out_features, experts),
-                               dtype=torch.float32, device=dev)
-        tickets = torch.zeros(p.n_tickets(experts), dtype=torch.int32, device=dev)
     lib, _ = _build.library()
-    rc = lib.int4_matmul_launch(
-        xb.data_ptr(), w4.data_ptr(), gscale.data_ptr(), out.data_ptr(),
-        None if partials is None else partials.data_ptr(),
-        None if tickets is None else tickets.data_ptr(),
-        experts, int(x_per_expert), rows, p.splits, p.per_split, out_features, in_features, ldb,
-        p.bm, p.stages, p.smem, p.grid[0], _build.stream_ptr(dev),
-    )
+    if isinstance(p, GemvPlan):
+        rc = lib.int4_gemv_launch(
+            xb.data_ptr(), w4.data_ptr(), gscale.data_ptr(), out.data_ptr(), experts,
+            int(x_per_expert), rows, out_features, in_features, ldb, p.blocks, p.runs, p.smem,
+            _build.stream_ptr(dev),
+        )
+    else:
+        partials = tickets = None
+        if p.splits > 1:
+            # each expert's splits' f32 partial sums meet here; the last block of
+            # each output tile to finish adds them in a fixed order
+            partials = torch.empty(p.partials_shape(rows, out_features, experts),
+                                   dtype=torch.float32, device=dev)
+            tickets = torch.zeros(p.n_tickets(experts), dtype=torch.int32, device=dev)
+        rc = lib.int4_matmul_launch(
+            xb.data_ptr(), w4.data_ptr(), gscale.data_ptr(), out.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            experts, int(x_per_expert), rows, p.splits, p.per_split, out_features, in_features,
+            ldb, p.bm, p.stages, p.smem, _build.stream_ptr(dev),
+        )
     _build.check(rc, name)
     _build.KERNELS[name].launches += 1
     return out

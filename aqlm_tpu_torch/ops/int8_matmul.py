@@ -107,10 +107,9 @@ def moe_plain(xb, w8, w_scale):
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One launch of the forward (int8, and int4's ``plan``): the path
+    """One launch of the forward (int8, and the int4 GEMM's ``plan``): the path
     (``gemv`` at <= 8 rows, else ``gemm``), the GEMM's rows a block (``bm``;
-    0 for the GEMV) and ring stages (the int4 GEMV's: the runs in which its
-    activations are staged), the contraction split over ``splits``
+    0 for the GEMV) and ring stages, the contraction split over ``splits``
     runs of ``per_split`` columns (whole units of the kernel's contraction:
     int8 GEMV 1024, GEMM 64; int4 256), the grid and the dynamic shared
     memory, which the kernel checks against its own layout."""

@@ -1636,7 +1636,7 @@ GEMV4_OUT = [4096, 200]
 
 
 def test_int4_gemv_cases_cover_both_plan_branches(dev):
-    runs = {i4.plan(rows, o, i, i4.pad_in_features_int4(i) // 2).stages
+    runs = {i4.plan(rows, o, i, i4.pad_in_features_int4(i) // 2).runs
             for rows in range(1, 9) for o in GEMV4_OUT for i in GEMV4_IN}
     assert runs == {1, 2}
 
@@ -1689,31 +1689,75 @@ def _k3_inputs(gen, dev, quantized, L, B, H, rep, S, d):
     return q, kv, sc, new, nsc
 
 
-@pytest.mark.parametrize("kps", [None, 64, 256])
+# K3's row kernel: (B, Hkv, S) grids whose plans take 64-, 128- and 256-key
+# splits, several merged by a row's last, and with a window one split a row
+K3_ROW_GRIDS = {"small": (4, 2, 512), "mid": (4, 8, 2048), "large": (4, 32, 2048)}
+K3_ROW_HEADS = [(1, 128), (2, 128), (4, 128), (8, 128), (1, 64), (8, 64)]
+
+
+def test_flash_decode_row_cases_cover_every_plan_branch(dev):
+    sms = _build.sm_count(dev.index)
+    plans = {(p.kps, p.splits > 1) for b, h, s in K3_ROW_GRIDS.values() for rep, d in K3_ROW_HEADS
+             for quant in (True, False) for window in (None, 256)
+             for p in [fd.row_plan(b, h, rep, d, s, quant, window, sms)]}
+    assert plans >= {(64, True), (128, True), (256, True), (256, False)}
+
+
+@pytest.mark.parametrize("grid", K3_ROW_GRIDS)
 @pytest.mark.parametrize("window", [None, 256])
 @pytest.mark.parametrize("quantized", [True, False])
-@pytest.mark.parametrize("rep,d", [(1, 128), (2, 128), (4, 128), (8, 128), (1, 64), (8, 64)])
-def test_flash_decode_row_kernel_matches_plain(dev, rep, d, quantized, window, kps):
+@pytest.mark.parametrize("rep,d", K3_ROW_HEADS)
+def test_flash_decode_row_kernel_matches_plain(dev, rep, d, quantized, window, grid):
     """K3's row kernel at 1/2/4/8 query heads per kv head, offsets 0, 63, 64
-    and S - 1 of a 512-row cache, its plan's split (None) and 64- and
-    256-key splits (one split a row, or several merged by the row's last):
-    one bf16 step of the plain version, the written rows and scales equal
-    to the plain version's, the output bit-identical over two runs."""
+    and S - 1, at grids whose plans take 64-, 128- or 256-key splits (one
+    split a row, or several merged by the row's last): one bf16 step of the
+    plain version, the written rows and scales equal to the plain version's,
+    the output bit-identical over two runs."""
     gen = torch.Generator(device=dev).manual_seed(rep + d + (window or 0))
-    L, B, H, S = 2, 4, 2, 512
+    B, H, S = K3_ROW_GRIDS[grid]
+    L = 2
     offsets = torch.tensor([0, 63, 64, S - 1], dtype=torch.int32, device=dev)
     q, kv, sc, new, nsc = _k3_inputs(gen, dev, quantized, L, B, H, rep, S, d)
     ref = [None if t is None else t[1].clone() for t in kv + sc]
     layer = lambda t: None if t is None else t[1]
     args = (q, new[0], new[1], nsc[0], nsc[1], *[layer(t) for t in kv + sc], offsets, d ** -0.5,
             window)
-    got = fd.launch(*args, kps=kps)
+    got = fd.launch(*args)
     want = fd.plain(q, new[0], new[1], nsc[0], nsc[1], *ref, offsets, d ** -0.5, window)
     _close(got, want)
     for t, r in zip(kv + sc, ref):
         if r is not None:
             assert torch.equal(t[1], r)
-    assert torch.equal(got, fd.launch(*args, kps=kps))
+    assert torch.equal(got, fd.launch(*args))
+
+
+def test_flash_decode_row_kernel_on_two_streams(dev):
+    """K3 launches on two streams at once, every row merging several splits:
+    each stream keeps its own tickets, so each launch equals the plain
+    version and every rerun is bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    L, B, H, rep, S, d = 2, 4, 8, 1, 2048, 128
+    offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)
+    assert fd.row_plan(B, H, rep, d, S, True, None, _build.sm_count(dev.index)).splits > 1
+    args, wants = [], []
+    for _ in range(2):
+        q, kv, sc, new, nsc = _k3_inputs(gen, dev, True, L, B, H, rep, S, d)
+        ref = [t[1].clone() for t in kv + sc]
+        wants.append(fd.plain(q, new[0], new[1], nsc[0], nsc[1], *ref, offsets, d ** -0.5, None))
+        args.append((q, new[0], new[1], nsc[0], nsc[1], *[t[1] for t in kv + sc], offsets,
+                     d ** -0.5, None))
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    for _ in range(16):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(fd.launch(*args[i]))
+    torch.cuda.synchronize(dev)
+    for got, want in zip(outs, wants):
+        _close(got[0], want)
+        assert all(torch.equal(g, got[0]) for g in got)
 
 
 def test_flash_decode_row_kernel_makes_no_sync(dev):

@@ -47,9 +47,9 @@ def test_int4_gemv_plan_covers_every_tile_and_packing_block_once(shape, T):
     p = i4.plan(T, out_f, in_f, i4.pad_in_features_int4(in_f) // 2, experts, SMS)
     tiles = experts * -(-out_f // 16)
     n_pb = -(-in_f // 256)
-    assert p.path == "gemv" and p.splits == 1 and p.grid == (min(SMS, tiles), 1, 1)
-    assert p.per_split == n_pb * 256 and (n_pb - 1) * 256 < in_f
-    blocks, chunks = p.grid[0], p.stages
+    assert isinstance(p, i4.GemvPlan) and p.blocks == min(SMS, tiles)
+    assert (n_pb - 1) * 256 < in_f <= n_pb * 256
+    blocks, chunks = p.blocks, p.runs
     run = -(-tiles // blocks)
 
     def smem(n):  # the layout at n runs: sums, kept sums, each warp's barrier and columns
@@ -253,7 +253,7 @@ def test_row_plan_plain_matches_jax(kind, rep, quant, window):
     q_hm = q.reshape(b, hkv, rep, D_SMALL)
     span = window if kind == "write" else fd._b6_span(S_SMALL, window)
     plan = fd.row_plan(b, hkv, rep, D_SMALL, S_SMALL, quant, span)
-    assert fd.row_plan(b, hkv, rep, D_SMALL, S_SMALL, quant, span, kps=64).splits > 1
+    assert fd.row_splits(S_SMALL, 64, span) > 1
     pick = lambda a: None if a is None else a[1]
 
     def run(kps):

@@ -45,13 +45,9 @@ def _check_cover(p, T, out_f, in_f, experts, unit):
         assert z == experts * p.splits
         assert (col_tiles - 1) * 128 < out_f <= col_tiles * 128
         assert (row_tiles - 1) * p.bm < T <= row_tiles * p.bm
-    elif unit == 1024:  # int8: (16-row blocks, splits, experts)
+    else:  # (16-row blocks, splits, experts)
         blocks, splits, z = p.grid
         assert (blocks - 1) * 16 < out_f <= blocks * 16 and (splits, z) == (p.splits, experts)
-    else:  # int4: one block an SM (at most one a 16-row tile), each a run of whole tiles
-        blocks, y, z = p.grid
-        assert (y, z, p.splits) == (1, 1, 1)
-        assert blocks == min(132, experts * -(-out_f // 16))
     shape = p.partials_shape(T, out_f, experts)
     assert (shape is None) == (p.splits == 1)
     if shape is not None:
@@ -85,13 +81,15 @@ def test_int4_plan_fits_and_covers(shape, T):
     _, out_f, in_f, experts = shape
     ldb = i4.pad_in_features_int4(in_f) // 2
     p = i4.plan(T, out_f, in_f, ldb, experts, 132)
-    _check_cover(p, T, out_f, in_f, experts, 256)
-    if T <= 8:  # stages: the activations' staged runs, one where the whole contraction fits
-        assert p.path == "gemv" and p.bm == 0
+    if T <= 8:  # one block an SM (at most one a 16-row tile), each a run of whole tiles, the
+        # activations staged in one run where the whole contraction fits
+        tiles = experts * -(-out_f // 16)
+        assert isinstance(p, i4.GemvPlan) and p.blocks == min(132, tiles)
         whole = 16384 + 16 * (8 + -(-in_f // 4096) * T * 528)  # each warp's barrier and columns
-        assert p.smem <= im.T_SMEM_LIMIT and (p.stages == 1) == (whole <= im.T_SMEM_LIMIT)
-        assert (p.stages, p.smem) == i4.gemv_layout(T, in_f, experts * -(-out_f // 16), p.grid[0])
+        assert p.smem <= im.T_SMEM_LIMIT and (p.runs == 1) == (whole <= im.T_SMEM_LIMIT)
+        assert (p.runs, p.smem) == i4.gemv_layout(T, in_f, tiles, p.blocks)
         return
+    _check_cover(p, T, out_f, in_f, experts, 256)
     assert p.path == "gemm" and p.bm == (64 if T <= 64 else 128) and 4 <= p.stages <= 8
     assert p.smem == i4.gemm_smem(p.bm, p.stages) <= im.T_SMEM_LIMIT
     if p.splits > 1:
@@ -118,11 +116,11 @@ def test_plans_keep_the_decode_split():
     per-expert down at 7-8 rows, staged in two runs."""
     assert im.plan(4, 4096, 4096, 4096).grid == (256, 2, 1)
     assert im.plan(4, 4096, 11008, 11264).splits == 2
-    assert i4.plan(4, 4096, 11008, 5632).grid == (132, 1, 1)
-    assert i4.plan(4, 4096, 11008, 5632).splits == 1
-    assert i4.plan(1, 14336, 4096, 2048, 8).splits == 1
-    assert i4.plan(8, 4096, 11008, 5632).stages == 1
-    assert i4.plan(8, 4096, 14336, 7168, 8).stages == 2
+    p = i4.plan(4, 4096, 11008, 5632)
+    assert isinstance(p, i4.GemvPlan) and (p.blocks, p.runs) == (132, 1)
+    assert isinstance(i4.plan(1, 14336, 4096, 2048, 8), i4.GemvPlan)
+    assert i4.plan(8, 4096, 11008, 5632).runs == 1
+    assert i4.plan(8, 4096, 14336, 7168, 8).runs == 2
 
 
 @pytest.mark.parametrize("bad", [dict(T=0), dict(in_features=1000), dict(ld=1032),
