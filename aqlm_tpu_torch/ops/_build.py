@@ -8,7 +8,8 @@ lands in ``build/kernels/`` at the root of the checkout (listed in
 
 Each kernel also carries a plain launch counter: its wrapper adds one where
 it launches the kernel and nowhere else, so a run can show that its main
-path went through the kernel.
+path went through the kernel. The split kernels' tickets (``tickets``) are
+kept here, per device and stream, for every kernel that zeroes its own.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 __all__ = [
     "BUILD_DIR", "KERNELS", "KernelInfo", "library", "check", "reset_launch_counts", "stream_ptr",
-    "sm_count",
+    "sm_count", "tickets",
 ]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -225,6 +226,7 @@ def _declare(lib) -> None:
     lib.int8_matmul_launch.argtypes = [P] * 6 + [I] * 11 + [P]
     lib.int4_matmul_launch.argtypes = [P] * 6 + [I] * 11 + [P]
     lib.int4_gemv_launch.argtypes = [P] * 4 + [I] * 9 + [P]
+    lib.int8_gemv_launch.argtypes = [P] * 4 + [I] * 9 + [P]
     lib.onehot_matmul_launch.argtypes = [P] * 7 + [I] * 12 + [P]
     lib.calib_dequant_launch.argtypes = [P] * 4 + [L] + [I] * 5 + [P]
     lib.cb_grad_launch.argtypes = [P] * 3 + [L] + [I] * 4 + [P]
@@ -237,7 +239,8 @@ def _declare(lib) -> None:
     for fn in (lib.lut_gemv_launch, lib.gather_prefill_launch,
                lib.gather16_gemv_launch, lib.gather16_wt_launch, lib.gather16_gemm_launch,
                lib.flash_decode_write_launch,
-               lib.int8_matmul_launch, lib.int4_matmul_launch, lib.int4_gemv_launch,
+               lib.int8_matmul_launch, lib.int8_gemv_launch, lib.int4_matmul_launch,
+               lib.int4_gemv_launch,
                lib.onehot_matmul_launch,
                lib.calib_dequant_launch, lib.cb_grad_launch, lib.gather_dequant_wt_launch,
                lib.int8_matmul_t_launch, lib.flash_decode_launch, lib.kv_write_launch,
@@ -259,3 +262,20 @@ def stream_ptr(device: torch.device) -> int:
 def sm_count(index) -> int:
     """Streaming multiprocessors of CUDA device ``index`` (sizes split grids)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_TICKETS: dict = {}
+
+
+def tickets(dev, n: int) -> torch.Tensor:
+    """Split kernels' tickets, int32 zeros kept per (device, stream): every
+    launch of a kernel that takes them leaves them zero (the last block of
+    each tile or row zeroes its own), so they are zeroed once, and launches
+    on one stream run in order, so no two of them share a ticket at once.
+    Launches on two streams take two buffers (a captured CUDA graph keeps
+    its capture stream's). A larger need allocates anew and keeps the old
+    buffer alive (a captured graph may hold it)."""
+    bufs = _TICKETS.setdefault((dev.index, stream_ptr(dev)), [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=dev))
+    return bufs[-1]

@@ -17,21 +17,51 @@
 //
 // Two paths, chosen by the row count:
 //
-// - Decode, T <= 8: bound by bytes. Each weight byte is used T times, far
-//   below the ~295 operations per byte where the tensor cores would bound it
-//   (Llama-2-7B fused gate_up at T = 4: 90 MB, ~27 us at 3.35 TB/s). A warp
-//   owns 2 output rows (4 were slower at T <= 4, faster only at T = 8); each
-//   lane reads 16 weights of a row with one 16-byte load, neighbouring lanes
-//   neighbouring bytes, and the next 1024-column chunk's loads are issued
-//   before the current chunk computes. The weights are widened to f32
-//   exactly (a byte-permute into a float's mantissa and one subtraction) and
-//   multiplied against the activation rows, staged in shared memory as f32
-//   in 1024-column chunks (swizzled so that the lanes' 16-byte reads do not
-//   collide on banks).
-//   Narrow projections (OUT = 4096) cannot fill 132 SMs by rows alone, so the
-//   columns are split over blocks: each split writes f32 partial sums and the
-//   last block of a row group to finish (an atomic ticket) adds them in a
-//   fixed order, so the result does not change from run to run.
+// - Decode, T <= 8: bound by bytes (Llama-2-7B fused gate_up at T = 4:
+//   90 MB, ~27 us at 3.35 TB/s), laid out by the wrapper's planning function
+//   (int8_matmul.plan, a GemvPlan), split over no blocks: no partials, no
+//   tickets, no second launch, and the result does not change from run to
+//   run. Two kernels, by the row count:
+//     - 1-2 rows, the row kernel on the CUDA cores: a block of 8 warps owns
+//       a 16-row tile, a warp 2 rows; 32 lanes read 512 contiguous bytes of
+//       a row an instruction, the next 1024-column chunk in flight, widen
+//       them to f32 exactly and multiply them against the activation rows,
+//       staged as f32 in 1024-column chunks. At 1-2 rows its T FMAs a weight
+//       keep up with the bytes, and its reads are the most efficient the
+//       card serves here (many warps an SM, whole rows in 512-byte runs):
+//       the tensor-core GEMV below was 3.5-9% slower at 1 row of Llama's
+//       qkv, gate/up and lm_head and Mixtral's all-expert shapes (PERF.md).
+//       It splits nothing over blocks: at OUT = 4096 a split's partial sums,
+//       fix-up and ticket fill cost more than the blocks it added bought.
+//     - 3-8 rows, the tensor-core GEMV, transposed, as the int4 GEMV's is
+//       (int4_matmul.cu): past 2 rows the row kernel's f32 activation reads
+//       (T x 64 bytes a lane for every 32 weight bytes) and T FMAs a weight
+//       pace it, not the bytes. W is the 16-row A operand of mma.sync
+//       m16n8k16 and the activation rows, padded to 8, the 8-column B
+//       operand, with f32 sums. A warp copies each 16-row x 256-column item
+//       of W into its ring in shared memory by cp.async, two rows' 256
+//       contiguous bytes an instruction (loaded straight into the
+//       fragments' registers, eight rows' 64-byte halves an instruction,
+//       the same bytes came slower from device memory, and more of them in
+//       flight slower still); a thread reads back 16 bytes at 64 seg + 16
+//       tig of rows gid and gid + 8, and each 4-byte word widens exactly to
+//       bf16 (|w8| <= 127, s8x4_to_bf16x2) straight into one k16 step's A
+//       fragment: its columns j0 .. j0 + 3 stand for mma k 2 tig,
+//       2 tig + 1, 2 tig + 8, 2 tig + 9. That permutation of the
+//       contraction inside each step is undone on the B side by reading the
+//       activations at the same columns (x[gid][j0 .. j0 + 3] are the
+//       thread's own B values), so x is staged in its natural order. One
+//       block of 16 warps an SM walks a contiguous run of 16-row tiles (the
+//       expert a tile coordinate); the warps of a block take a tile's
+//       contraction in 16 contiguous pieces of whole 64-column units and
+//       add their sums in shared memory in warp order. Each warp stages its
+//       own piece's activations once by bulk copies (the whole contraction
+//       where it fits beside the rings; else in the fewest runs of the
+//       contraction that fit, each tile's sums kept in shared memory between
+//       them: Llama's down at 4-8 rows, Mixtral's per-expert down at 3-8), so
+//       no warp waits for another's, and keeps its next item in flight
+//       across tile boundaries.
+//   Both apply the scale and the bf16 cast in the epilogue.
 // - Prefill, T > 8: bound by operations (2*T*OUT*IN on the bf16 tensor cores;
 //   Llama-2-7B's fused qkv at T = 1024: 103 GFLOP, 0.104 ms at 989
 //   TFLOP/s), laid out by the wrapper's planning function
@@ -61,23 +91,26 @@
 //   ~2.5x its operation bound, ~0.76x that without the widening and ~0.59x
 //   without the products (experiments/torch_int8_int4_ablate.py), so both
 //   contend for shared memory and neither alone bounds it. Where the output
-//   tiles would leave
-//   the card idle (short prompts, narrow projections), the contraction is
-//   split over blocks: each writes f32 partial sums and the last block of an
-//   output tile to finish (an atomic ticket) adds them in a fixed order.
+//   tiles would leave the card idle (short prompts, narrow projections), the
+//   contraction is split over blocks: each writes f32 partial sums and the
+//   last block of an output tile to finish (an atomic ticket, which it zeroes
+//   again for the next launch) adds them in a fixed order.
 //
 // All experts (MoE): w8 [E, OUT, ld], w_scale [E, OUT], out [E, T, OUT]; x is
 // [T, in_features] shared by every expert (gate and up) or [E, T,
 // in_features], one slab per expert (down). One launch covers every expert:
-// the expert is the decode grid's z axis and is folded with the splits into
-// the prefill grid's z axis; each block offsets its pointers (decode) or its
-// tensor-map coordinates (prefill) by its expert, and split partial sums and
-// tickets are per expert, so the last-block reduction never mixes experts.
-// Mixtral-8x7B decode at T = 4 reads 470 MB of gate weights (0.14 ms at 3.35
-// TB/s): the same byte-bound GEMV, with E times the blocks. The expert axis is a template flag (MOE): a single
-// matrix runs the kernels compiled without it, so its registers and code stay
-// those of the one-matrix kernel (compiled in, the offsets took the T = 1
-// GEMV from 64 registers to 94 and its split-K launches 11-13% slower).
+// the expert is the row kernel's grid y axis and the tensor-core GEMV's
+// tiles' leading coordinate (a block whose run of tiles crosses an expert
+// boundary stages that expert's x anew, where x is per expert), and is
+// folded with the splits into the prefill grid's z axis;
+// each tile or block offsets its pointers (decode) or its tensor-map
+// coordinates (prefill) by its expert, and the prefill's split partial sums
+// and tickets are per expert, so the last-block reduction never mixes
+// experts. Mixtral-8x7B decode at T = 4 reads 470 MB of gate weights (0.14
+// ms at 3.35 TB/s): the same byte-bound GEMV with E times the tiles. The
+// expert axis is a template flag (MOE): a single matrix runs the kernels
+// compiled without it, so its registers and code stay those of the
+// one-matrix kernel.
 //
 // The activation backward (B10, int8_matmul_transposed: _call_t, pallas_call
 // at :153; the backward of every int8 projection, aqlm_tpu/ops/runtime.py:305)
@@ -102,93 +135,83 @@ __device__ __forceinline__ void s8x4_to_float(uint32_t w, float* f) {
   f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
 }
 
-__device__ __forceinline__ void s8x16_to_float(const uint4& v, float* f) {
-  s8x4_to_float(v.x, f);
-  s8x4_to_float(v.y, f + 4);
-  s8x4_to_float(v.z, f + 8);
-  s8x4_to_float(v.w, f + 12);
-}
-
 // ---------------------------------------------------------------------------
-// decode: T <= 8
+// decode at 1-2 rows: the CUDA-core row kernel
 // ---------------------------------------------------------------------------
 
-constexpr int GV_WARPS = 8;
-constexpr int GV_THREADS = GV_WARPS * 32;
-constexpr int GV_R = 2;                    // output rows per warp
-constexpr int GV_ROWS = GV_WARPS * GV_R;   // output rows per block
-constexpr int GV_CHUNK = 1024;             // columns of x staged per pass
-constexpr int GV_STEP = 512;               // columns one warp load covers: 32 lanes x 16
-constexpr int GV_STEPS = GV_CHUNK / GV_STEP;
+constexpr int RV_MAX_T = 2;                // rows (of x) this kernel takes
+constexpr int RV_WARPS = 8;
+constexpr int RV_THREADS = RV_WARPS * 32;
+constexpr int RV_R = 2;                    // output rows per warp
+constexpr int RV_ROWS = RV_WARPS * RV_R;   // output rows per block: one 16-row tile
+constexpr int RV_CHUNK = 1024;             // columns of x staged per pass
+constexpr int RV_STEP = 512;               // columns one warp load covers: 32 lanes x 16
+constexpr int RV_STEPS = RV_CHUNK / RV_STEP;
 
 // float4 q of a staged x row lives at q ^ ((q >> 3) & 3): the eight lanes of
 // a 16-byte shared-memory phase then fall on eight different bank groups
 __device__ __forceinline__ int swz(int q) { return q ^ ((q >> 3) & 3); }
 
+// A block of 8 warps owns one 16-row tile (of one expert: blockIdx.y) over
+// the whole contraction; a warp owns 2 rows, each lane reads 16 weights of
+// a row with one 16-byte load, 32 lanes 512 contiguous bytes, and the next
+// 1024-column chunk's loads are issued before the current chunk computes.
+// The weights are widened to f32 exactly and multiplied against the
+// activation rows, staged as f32 in 1024-column chunks; the warp's lanes'
+// sums meet by shuffles in a fixed order.
 template <int B, bool MOE>
-__global__ void __launch_bounds__(GV_THREADS)
-int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,  // [B, in_features], or [E, B, ...]
-                 const int8_t* __restrict__ w8,         // [E, OUT, ld] of one layer
-                 const float* __restrict__ w_scale,     // [E, OUT]
-                 __nv_bfloat16* __restrict__ out,       // [E, B, OUT]
-                 float* __restrict__ partials,          // [E, splits, B, OUT] when split
-                 int* __restrict__ tickets,             // [E, gridDim.x] zeroed, when split
-                 int out_features, int in_features, int ld, int cols_per_split,
-                 int x_per_expert) {
-  __shared__ __align__(16) float s_x[B][GV_CHUNK];
-  __shared__ int s_last;
+__global__ void __launch_bounds__(RV_THREADS)
+int8_gemv_rows_kernel(const __nv_bfloat16* __restrict__ x,  // [B, in_features], or [E, B, ...]
+                      const int8_t* __restrict__ w8,         // [E, OUT, ld] of one layer
+                      const float* __restrict__ w_scale,     // [E, OUT]
+                      __nv_bfloat16* __restrict__ out,       // [E, B, OUT]
+                      int out_features, int in_features, int ld, int x_per_expert) {
+  __shared__ __align__(16) float s_x[B][RV_CHUNK];
 
-  if (MOE) {  // the expert (blockIdx.z) is a pointer offset
-    const size_t ex = blockIdx.z;
+  if (MOE) {  // the expert (blockIdx.y) is a pointer offset
+    const size_t ex = blockIdx.y;
     x += x_per_expert ? ex * B * in_features : 0;
     w8 += ex * out_features * ld;
     w_scale += ex * out_features;
     out += ex * B * out_features;
-    if (gridDim.y > 1) {
-      partials += ex * gridDim.y * B * out_features;
-      tickets += ex * gridDim.x;
-    }
   }
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int row0 = blockIdx.x * GV_ROWS + warp * GV_R;
-  const int k_begin = blockIdx.y * cols_per_split;
-  const int k_end = min(in_features, k_begin + cols_per_split);
-
-  const int8_t* wrow[GV_R];
-  bool rvalid[GV_R];
+  const int row0 = blockIdx.x * RV_ROWS + warp * RV_R;
+  const int8_t* wrow[RV_R];
+  bool rvalid[RV_R];
 #pragma unroll
-  for (int r = 0; r < GV_R; ++r) {
+  for (int r = 0; r < RV_R; ++r) {
     rvalid[r] = row0 + r < out_features;
     wrow[r] = w8 + (size_t)(rvalid[r] ? row0 + r : 0) * ld;
   }
-  float acc[B][GV_R];
+  float acc[B][RV_R];
 #pragma unroll
   for (int b = 0; b < B; ++b)
 #pragma unroll
-    for (int r = 0; r < GV_R; ++r) acc[b][r] = 0.f;
+    for (int r = 0; r < RV_R; ++r) acc[b][r] = 0.f;
 
   // a lane's 16 weights of each row and step of the chunk at c0 (zeros past the end)
-  auto load_w = [&](uint4 (&dst)[GV_STEPS][GV_R], int c0) {
-    const int n = k_end - c0;
+  auto load_w = [&](uint4 (&dst)[RV_STEPS][RV_R], int c0) {
+    const int n = in_features - c0;
 #pragma unroll
-    for (int s = 0; s < GV_STEPS; ++s) {
-      const int c = s * GV_STEP + lane * 16;
+    for (int s = 0; s < RV_STEPS; ++s) {
+      const int c = s * RV_STEP + lane * 16;
 #pragma unroll
-      for (int r = 0; r < GV_R; ++r)
+      for (int r = 0; r < RV_R; ++r)
         dst[s][r] = (c < n && rvalid[r])
                         ? __ldcs(reinterpret_cast<const uint4*>(wrow[r] + c0 + c))
                         : make_uint4(0, 0, 0, 0);
     }
   };
 
-  uint4 wv[GV_STEPS][GV_R];
-  load_w(wv, k_begin);
-  for (int c0 = k_begin; c0 < k_end; c0 += GV_CHUNK) {
-    const int n = min(GV_CHUNK, k_end - c0);  // a multiple of 16
+  uint4 wv[RV_STEPS][RV_R];
+  load_w(wv, 0);
+  for (int c0 = 0; c0 < in_features; c0 += RV_CHUNK) {
+    const int n = min(RV_CHUNK, in_features - c0);  // a multiple of 16
     __syncthreads();  // the previous chunk's readers are done with s_x
-    for (int i = tid; i < B * (GV_CHUNK / 8); i += GV_THREADS) {
-      const int b = i / (GV_CHUNK / 8), c8 = i % (GV_CHUNK / 8);
+    for (int i = tid; i < B * (RV_CHUNK / 8); i += RV_THREADS) {
+      const int b = i / (RV_CHUNK / 8), c8 = i % (RV_CHUNK / 8);
       float f[8];
       if (c8 * 8 < n) {
         aqlm::load8(x + (size_t)b * in_features + c0 + c8 * 8, f);
@@ -202,15 +225,20 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,  // [B, in_features], or [
     }
     __syncthreads();
     // the next chunk's weights are in flight while this one computes
-    uint4 wnext[GV_STEPS][GV_R];
-    load_w(wnext, c0 + GV_CHUNK);
+    uint4 wnext[RV_STEPS][RV_R];
+    load_w(wnext, c0 + RV_CHUNK);
 #pragma unroll
-    for (int s = 0; s < GV_STEPS; ++s) {
-      const int c = s * GV_STEP + lane * 16;
+    for (int s = 0; s < RV_STEPS; ++s) {
+      const int c = s * RV_STEP + lane * 16;
       if (c >= n) break;
-      float wf[GV_R][16];
+      float wf[RV_R][16];
 #pragma unroll
-      for (int r = 0; r < GV_R; ++r) s8x16_to_float(wv[s][r], wf[r]);
+      for (int r = 0; r < RV_R; ++r) {
+        s8x4_to_float(wv[s][r].x, wf[r]);
+        s8x4_to_float(wv[s][r].y, wf[r] + 4);
+        s8x4_to_float(wv[s][r].z, wf[r] + 8);
+        s8x4_to_float(wv[s][r].w, wf[r] + 12);
+      }
 #pragma unroll
       for (int b = 0; b < B; ++b) {
         const float4* row = reinterpret_cast<const float4*>(s_x[b]);
@@ -224,71 +252,341 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,  // [B, in_features], or [
           xv[4 * j + 3] = v.w;
         }
 #pragma unroll
-        for (int r = 0; r < GV_R; ++r)
+        for (int r = 0; r < RV_R; ++r)
 #pragma unroll
           for (int e = 0; e < 16; ++e) acc[b][r] = fmaf(xv[e], wf[r][e], acc[b][r]);
       }
     }
 #pragma unroll
-    for (int s = 0; s < GV_STEPS; ++s)
+    for (int s = 0; s < RV_STEPS; ++s)
 #pragma unroll
-      for (int r = 0; r < GV_R; ++r) wv[s][r] = wnext[s][r];
+      for (int r = 0; r < RV_R; ++r) wv[s][r] = wnext[s][r];
   }
 
-  // every lane ends with the warp's full sums; lane b * GV_R + r owns (b, r)
+  // every lane ends with the warp's full sums; lane b * RV_R + r writes (b, r)
 #pragma unroll
   for (int b = 0; b < B; ++b)
 #pragma unroll
-    for (int r = 0; r < GV_R; ++r) {
+    for (int r = 0; r < RV_R; ++r) {
       float v = acc[b][r];
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-      acc[b][r] = v;
+      if (lane == b * RV_R + r && rvalid[r])
+        out[(size_t)b * out_features + row0 + r] = __float2bfloat16(v * w_scale[row0 + r]);
     }
-
-  if (gridDim.y == 1) {
-#pragma unroll
-    for (int b = 0; b < B; ++b)
-#pragma unroll
-      for (int r = 0; r < GV_R; ++r)
-        if (lane == b * GV_R + r && rvalid[r])
-          out[(size_t)b * out_features + row0 + r] =
-              __float2bfloat16(acc[b][r] * w_scale[row0 + r]);
-    return;
-  }
-
-#pragma unroll
-  for (int b = 0; b < B; ++b)
-#pragma unroll
-    for (int r = 0; r < GV_R; ++r)
-      if (lane == b * GV_R + r && rvalid[r])
-        partials[((size_t)blockIdx.y * B + b) * out_features + row0 + r] = acc[b][r];
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(tickets + blockIdx.x, 1) == (int)gridDim.y - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int i = tid; i < B * GV_ROWS; i += GV_THREADS) {
-    const int b = i / GV_ROWS, row = blockIdx.x * GV_ROWS + i % GV_ROWS;
-    if (row >= out_features) continue;
-    float s = 0.f;
-    for (int sp = 0; sp < (int)gridDim.y; ++sp)
-      s += __ldcg(partials + ((size_t)sp * B + b) * out_features + row);
-    out[(size_t)b * out_features + row] = __float2bfloat16(s * w_scale[row]);
-  }
 }
 
-template <int B, bool MOE>
-cudaError_t gemv_launch(const void* x, const void* w8, const void* w_scale, void* out,
-                        void* partials, void* tickets, int experts, int x_per_expert, int splits,
-                        int cols_per_split, int out_features, int in_features, int ld,
-                        cudaStream_t stream) {
-  const dim3 grid((out_features + GV_ROWS - 1) / GV_ROWS, splits, experts);
-  int8_gemv_kernel<B, MOE><<<grid, GV_THREADS, 0, stream>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w8, (const float*)w_scale, (__nv_bfloat16*)out,
-      (float*)partials, (int*)tickets, out_features, in_features, ld, cols_per_split,
-      x_per_expert);
+// ---------------------------------------------------------------------------
+// decode at 3-8 rows: the tensor-core GEMV
+// ---------------------------------------------------------------------------
+
+constexpr int GV_WARPS = 16;
+constexpr int GV_THREADS = GV_WARPS * 32;
+constexpr int GV_ROWS = 16;                         // output rows of a tile: one m16 tile
+constexpr int GV_RED = GV_WARPS * GV_ROWS * 8 * 4;  // one tile's warp sums, f32; two alternate
+constexpr int GV_TILE = GV_ROWS * 8 * 4;            // one tile's f32 sums, kept between runs
+constexpr int GV_UNIT = 64;    // columns: a warp's piece is whole units (64-byte aligned reads)
+constexpr int GV_ITEM = 256;   // columns a warp takes at once: 16 rows x 256 bytes of weights
+constexpr int GV_STAGES = 2;   // a warp's ring of items: the one it computes, the next in flight
+constexpr int GV_STAGE = GV_ROWS * GV_ITEM;  // bytes of an item
+constexpr int GV_CPR = GV_ITEM / 16;         // 16-byte chunks of an item's row
+constexpr int GV_RPI = 32 / GV_CPR;          // rows a warp's copy instruction covers
+
+// 16 weight bytes into shared memory by cp.async (L2 only), zeros where !ok
+__device__ __forceinline__ void cp_w16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Where 16-byte chunk c of row r of a staged item lies: chunk c ^ gv_swz(r)
+// of the row (the xor keeps a chunk in its aligned group of 8). The copies'
+// phases (8 lanes, 8 chunks of a group of one row) and the fragment reads'
+// phases (rows 2p and 2p + 1, chunks 4 seg .. 4 seg + 3: the first row's
+// land in one half of the group, the second's in the other) each meet eight
+// bank groups.
+__device__ __forceinline__ int gv_swz(int r) { return ((r & 1) << 2) | ((r >> 1) & 3); }
+
+// The GEMV's shared memory for T rows, `tiles` 16-row tiles over `blocks`
+// blocks: two alternating buffers of the warps' sums; (where the contraction
+// takes several runs, each tile's sums kept between them, `park`;) each
+// warp's barrier for its activation copies; each warp's ring of GV_STAGES
+// weight items; then each warp's own activation columns: T rows of `piece`
+// columns (the largest piece a warp takes in a run: the contraction's
+// 64-column units dealt into 16 x `chunks` contiguous pieces) and 16 bytes
+// more, so that the rows of a phase's reads start 16 bytes apart from bank
+// to bank. One run where the whole contraction fits, else the fewest runs
+// that fit. int8_matmul.gemv_layout computes the same, and a launch whose
+// runs or total differ is refused.
+struct GemvLayout {
+  int chunks, piece, total_;
+  __host__ __device__ GemvLayout(int T, int in_features, int tiles, int blocks) {
+    const int n_units = (in_features + GV_UNIT - 1) / GV_UNIT;
+    const int run = (tiles + blocks - 1) / blocks;  // the most tiles a block walks
+    for (chunks = 1;; ++chunks) {
+      const int pieces = GV_WARPS * chunks;
+      piece = (n_units + pieces - 1) / pieces * GV_UNIT;
+      total_ = 2 * GV_RED + (chunks > 1 ? run * GV_TILE : 0) + GV_WARPS * 8 +
+               GV_WARPS * GV_STAGES * GV_STAGE + GV_WARPS * T * (2 * piece + 16);
+      if (total_ <= T_SMEM_LIMIT || n_units <= pieces) break;
+    }
+  }
+  __host__ __device__ int total() const { return total_; }
+};
+
+// y^T = W x^T on the tensor cores: W is the 16-row A operand, the (at most 8)
+// activation rows the 8-column B operand. One block of 16 warps an SM walks
+// a contiguous run of 16-row tiles (tile t: expert t / row_tiles); in run c
+// warp w takes the contraction's piece q = 16 c + w (columns [k0, k1), whole
+// 64-column units, the last piece ending at in_features) of every tile, in
+// items of GV_ITEM columns, and the warps' sums meet in shared memory,
+// added in warp order. A warp copies each item into its ring in shared
+// memory by cp.async, a lane 16 bytes, two rows' 256 contiguous bytes an
+// instruction (whole cache lines in long runs: the fragments' own layout
+// would read eight rows' 64-byte halves an instruction, which device memory
+// serves more slowly), zeros past OUT and past the piece, and keeps the
+// next GV_STAGES - 1 items (across tiles and runs) in flight while one
+// computes. A thread then reads chunk 4 seg + tig (segment seg) of rows gid
+// and gid + 8 of the item; word s of a segment's chunk gives its A values of
+// one k16 step (its columns j0 .. j0 + 3 stand for mma k 2 tig, 2 tig + 1,
+// 2 tig + 8, 2 tig + 9) and its B values are x[gid][j0 .. j0 + 3], read
+// from the warp's own staged activation columns (each warp takes the same
+// piece in every tile, so it stages it once, and waits for no other
+// warp's). The sums' two buffers let a tile end at one barrier.
+template <bool MOE>
+__global__ void __launch_bounds__(GV_THREADS, 1)
+int8_gemv_kernel(const __nv_bfloat16* __restrict__ x,  // [T, in_features], or [E, T, ...]
+                 const int8_t* __restrict__ w8,         // [E, OUT, ld] of one layer
+                 const float* __restrict__ w_scale,     // [E, OUT]
+                 __nv_bfloat16* __restrict__ out,       // [E, T, OUT]
+                 int T, int out_features, int in_features, int ld, int experts,
+                 int x_per_expert, int chunks, int piece) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row_tiles = (out_features + GV_ROWS - 1) / GV_ROWS;
+  const int tiles = (MOE ? experts : 1) * row_tiles;
+  const int n_units = (in_features + GV_UNIT - 1) / GV_UNIT, pieces = GV_WARPS * chunks;
+  const int run = (tiles + gridDim.x - 1) / gridDim.x;
+  const int xs = 2 * piece + 16;  // bytes of a staged activation row
+  float* park = reinterpret_cast<float*>(smem + 2 * GV_RED);  // [run][16][8]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  // this warp's barrier, item ring [GV_STAGES][16][128] and staged columns [T][xs bytes]
+  uint64_t* xbar =
+      reinterpret_cast<uint64_t*>(smem + 2 * GV_RED + (chunks > 1 ? run * GV_TILE : 0)) + warp;
+  unsigned char* ring =
+      reinterpret_cast<unsigned char*>(xbar - warp + GV_WARPS) + warp * GV_STAGES * GV_STAGE;
+  unsigned char* xw = ring + (GV_WARPS - warp) * GV_STAGES * GV_STAGE + (size_t)warp * T * xs;
+  const int t_begin = blockIdx.x * tiles / gridDim.x;
+  const int t_end = (blockIdx.x + 1) * tiles / gridDim.x;
+  const size_t w_expert = (size_t)out_features * ld;
+  // this warp's piece of run c: columns [k0, k1), possibly empty
+  auto piece_of = [&](int c, int& k0, int& k1) {
+    const int q = c * GV_WARPS + warp;
+    k0 = GV_UNIT * (q * n_units / pieces);
+    k1 = min(in_features, GV_UNIT * ((q + 1) * n_units / pieces));
+  };
+
+  // the copy cursor (run lc, tile lt, item lj; lc's piece [lk0, lk1) of ln
+  // items) walks the warp's items in compute order; lc == chunks past the last
+  int lc = 0, lt = t_begin, lj = 0, lk0 = 0, lk1 = 0, ln = 0;
+  auto next_run = [&]() {
+    for (; lc < chunks; ++lc) {
+      piece_of(lc, lk0, lk1);
+      ln = (lk1 - lk0 + GV_ITEM - 1) / GV_ITEM;
+      if (ln > 0) return;
+    }
+  };
+  next_run();
+  // the item at the cursor into ring slot `st`: lane l copies chunk l %
+  // GV_CPR of rows GV_RPI i + l / GV_CPR (zeros past the piece and past OUT),
+  // one commit group an item (an empty one past the last); then advance
+  auto copy_w = [&](int st) {
+    if (lc < chunks) {
+      const int e = MOE ? lt / row_tiles : 0;
+      const int col = lk0 + GV_ITEM * lj + 16 * (lane % GV_CPR);
+      const int8_t* w = w8 + (MOE ? e * w_expert : 0) + col;
+      const int row0 = (lt - e * row_tiles) * GV_ROWS;
+      unsigned char* d = ring + st * GV_STAGE;
+#pragma unroll
+      for (int i = 0; i < GV_ROWS / GV_RPI; ++i) {
+        const int r = GV_RPI * i + lane / GV_CPR;
+        const bool ok = row0 + r < out_features && col < lk1;
+        cp_w16(d + r * GV_ITEM + 16 * ((lane % GV_CPR) ^ gv_swz(r)),
+               ok ? w + (size_t)(row0 + r) * ld : w8, ok);
+      }
+      if (++lj == ln) {
+        lj = 0;
+        if (++lt == t_end) {
+          lt = t_begin;
+          ++lc;
+          next_run();
+        }
+      }
+    }
+    aqlm::cp_async_commit();
+  };
+
+  // the warp's piece [k0, k1) of expert e's activations into its rows: lane
+  // 0 bulk-copies each row, completing on the warp's barrier, which it waits
+  // on (wait_x) only before their first use
+  int x_phase = 0;
+  if (lane == 0) {
+    aqlm::mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  auto issue_x = [&](int k0, int k1, int e) {
+    const __nv_bfloat16* xe = x + (MOE && x_per_expert ? (size_t)e * T * in_features : 0) + k0;
+    const int bytes = 2 * (k1 - k0);
+    __syncwarp();  // the lanes' reads of the columns staged before come first
+    if (lane == 0) {
+      aqlm::fence_proxy_async();
+      aqlm::mbar_arrive_expect_tx(xbar, T * bytes);
+      for (int r = 0; r < T; ++r)
+        aqlm::bulk_copy(xw + (size_t)r * xs, xe + (size_t)r * in_features, bytes, xbar);
+    }
+  };
+  auto wait_x = [&]() {
+    aqlm::mbar_wait(xbar, x_phase);
+    x_phase ^= 1;
+    __syncwarp();
+  };
+
+  // one item's products: the thread's chunks of ring slot `st` against its
+  // staged activation columns; len: the piece's columns from the item's start
+  auto item = [&](int st, int j, int len, float (&acc)[4]) {
+    const unsigned char* sw = ring + st * GV_STAGE;
+#pragma unroll
+    for (int seg = 0; seg < GV_ITEM / 64; ++seg) {
+      if (64 * seg >= len) break;  // a segment wholly past the piece meets zeros
+      const int ch = 4 * seg + tig;
+      const uint4 w0 = *reinterpret_cast<const uint4*>(sw + gid * GV_ITEM + 16 * (ch ^ gv_swz(gid)));
+      const uint4 w1 =
+          *reinterpret_cast<const uint4*>(sw + (gid + 8) * GV_ITEM + 16 * (ch ^ gv_swz(gid + 8)));
+      // x[gid][j0 .. j0 + 15] of the segment: the B values of this thread's four steps
+      uint4 xv[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+      if (gid < T && 64 * seg + 16 * tig < len) {
+        const unsigned char* xp = xw + (size_t)gid * xs + 2 * (GV_ITEM * j + 64 * seg + 16 * tig);
+        xv[0] = *reinterpret_cast<const uint4*>(xp);
+        xv[1] = *reinterpret_cast<const uint4*>(xp + 16);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        uint32_t a[4];
+        s8x4_to_bf16x2(word_of(w0, s), a[0], a[2]);
+        s8x4_to_bf16x2(word_of(w1, s), a[1], a[3]);
+        mma_bf16_16816(acc, a, word_of(xv[s >> 1], 2 * (s & 1)),
+                       word_of(xv[s >> 1], 2 * (s & 1) + 1));
+      }
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st + 1 < GV_STAGES; ++st) copy_w(st);
+  int slot = 0;  // the ring slot of the next item to compute
+  int x_c = -1, x_e = -1;  // the run and expert whose activations are staged
+  bool x_wait = false;
+  int k = 0;  // tiles ended so far: their parity picks the sums' buffer
+  for (int c = 0; c < chunks; ++c) {
+    int k0, k1;
+    piece_of(c, k0, k1);
+    const int pt = (k1 - k0 + GV_ITEM - 1) / GV_ITEM;  // items of this warp's piece
+    for (int t = t_begin; t < t_end; ++t, ++k) {
+      const int e = MOE ? t / row_tiles : 0;
+      if (pt > 0 && (x_c != c || (MOE && x_per_expert && e != x_e))) {
+        issue_x(k0, k1, e);
+        x_c = c;
+        x_e = e;
+        x_wait = true;
+      }
+      // element q: row gid + 8 (q >> 1), activation row 2 tig + (q & 1)
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int j = 0; j < pt; ++j) {
+        // the item GV_STAGES - 1 ahead goes into the slot the last item left
+        // (every lane is done reading it), then this one's copies are awaited
+        __syncwarp();
+        copy_w(slot == 0 ? GV_STAGES - 1 : slot - 1);
+        aqlm::cp_async_wait<GV_STAGES - 1>();
+        __syncwarp();
+        if (x_wait) {
+          wait_x();
+          x_wait = false;
+        }
+        item(slot, j, k1 - k0 - GV_ITEM * j, acc);
+        slot = slot + 1 == GV_STAGES ? 0 : slot + 1;
+      }
+
+      // the warps' sums meet in shared memory and are added in warp order
+      // (then to the earlier runs' sum of the tile, kept in `park`). The
+      // warps of a block keep to one tile: letting warps run ahead to the
+      // next tile (split barriers) spread their reads over more rows and was
+      // slower.
+      float* red = reinterpret_cast<float*>(smem) + (k & 1) * (GV_RED / 4);  // [GV_WARPS][16][8]
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        red[(warp * GV_ROWS + gid + 8 * (q >> 1)) * 8 + 2 * tig + (q & 1)] = acc[q];
+      __syncthreads();
+      if (tid < GV_ROWS * 8) {
+        const int rr = tid / 8, bb = tid % 8, row = (t - e * row_tiles) * GV_ROWS + rr;
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < GV_WARPS; ++w) v += red[(w * GV_ROWS + rr) * 8 + bb];
+        float* pk = park + (t - t_begin) * (GV_TILE / 4) + tid;
+        if (c > 0) v = *pk + v;
+        if (c + 1 < chunks) *pk = v;
+        else if (bb < T && row < out_features)
+          out[((size_t)e * T + bb) * out_features + row] =
+              __float2bfloat16(v * __ldg(w_scale + (size_t)e * out_features + row));
+      }
+    }
+  }
+  aqlm::cp_async_wait<0>();  // the empty groups past the last item
+}
+
+template <bool MOE>
+int gemv_dispatch(const void* x, const void* w8, const void* w_scale, void* out, int experts,
+                  int x_per_expert, int T, int out_features, int in_features, int ld, int blocks,
+                  int runs, int smem, cudaStream_t st) {
+  const int tiles = experts * ((out_features + GV_ROWS - 1) / GV_ROWS);
+  if (T <= RV_MAX_T) {  // the row kernel: a block a tile, static shared memory
+    if (blocks != tiles || runs != 0 || smem != 0) return cudaErrorInvalidValue;
+    const dim3 grid((out_features + RV_ROWS - 1) / RV_ROWS, experts);
+    if (T == 1)
+      int8_gemv_rows_kernel<1, MOE><<<grid, RV_THREADS, 0, st>>>(
+          (const __nv_bfloat16*)x, (const int8_t*)w8, (const float*)w_scale, (__nv_bfloat16*)out,
+          out_features, in_features, ld, x_per_expert);
+    else
+      int8_gemv_rows_kernel<2, MOE><<<grid, RV_THREADS, 0, st>>>(
+          (const __nv_bfloat16*)x, (const int8_t*)w8, (const float*)w_scale, (__nv_bfloat16*)out,
+          out_features, in_features, ld, x_per_expert);
+    return cudaGetLastError();
+  }
+  if (blocks < 1 || blocks > tiles) return cudaErrorInvalidValue;
+  const GemvLayout lo(T, in_features, tiles, blocks);
+  if (runs != lo.chunks || smem != lo.total() || smem > T_SMEM_LIMIT) return cudaErrorInvalidValue;
+  static bool attr_set = false;  // one per instantiation
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int8_gemv_kernel<MOE>, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM_LIMIT);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  int8_gemv_kernel<MOE><<<blocks, GV_THREADS, smem, st>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)w8, (const float*)w_scale, (__nv_bfloat16*)out, T,
+      out_features, in_features, ld, experts, x_per_expert, lo.chunks, lo.piece);
   return cudaGetLastError();
 }
 
@@ -308,11 +606,12 @@ cudaError_t gemv_launch(const void* x, const void* w8, const void* w_scale, void
 //   4-row run of OUT: a lane loads VW consecutive bytes of a w8 row (16 at
 //   T <= 4, 8 past it, so that the lane's VW x T sums stay in 64 registers),
 //   neighbouring lanes neighbouring bytes, four rows in flight; the int8 is
-//   widened exactly (the forward GEMV's byte-permute) and multiplied into the
-//   f32 sums. The eight warps' sums meet in shared memory in warp order; the
-//   splits (enough to fill the card twice) meet in the forward GEMV's
-//   fixed-order last-block reduction (an atomic ticket per column block), so
-//   the result does not depend on block timing.
+//   widened exactly (a byte-permute into a float's mantissa, s8x4_to_float)
+//   and multiplied into the f32 sums. The eight warps' sums meet in shared
+//   memory in warp order; the splits (enough to fill the card twice) meet in
+//   a fixed-order last-block reduction (an atomic ticket per column block,
+//   zeroed again by that block), so the result does not depend on block
+//   timing.
 // - T > 8, a warp-specialised GEMM, bound by operations (2 * T * OUT * ld on
 //   the bf16 tensor cores; gate at T = 1024: 92 GFLOP, 0.093 ms at 989
 //   TFLOP/s), in K2's shape (gather_prefill.cu). First a small kernel writes
@@ -362,7 +661,7 @@ int8_gemv_t_kernel(const void* __restrict__ g,           // [T, OUT] bf16, or f3
                    const float* __restrict__ w_scale,    // [OUT]
                    __nv_bfloat16* __restrict__ out,      // [T, ld]
                    float* __restrict__ partials,         // [splits, T, ld] when split
-                   int* __restrict__ tickets,            // [column blocks] zeroed, when split
+                   int* __restrict__ tickets,            // [column blocks], zero, when split
                    int g_f32, int out_features, int ld, int rows_per_split) {
   using S = GemvT<T>;
   constexpr int VW = S::VW, CW = S::CW, TP = S::TP;
@@ -465,7 +764,10 @@ int8_gemv_t_kernel(const void* __restrict__ g,           // [T, OUT] bf16, or f3
   if (gridDim.y == 1) return;
   __threadfence();
   __syncthreads();
-  if (tid == 0) s_last = atomicAdd(tickets + blockIdx.x, 1) == (int)gridDim.y - 1;
+  if (tid == 0) {  // every split has taken its ticket once the last has: zero it for the next launch
+    s_last = atomicAdd(tickets + blockIdx.x, 1) == (int)gridDim.y - 1;
+    if (s_last) tickets[blockIdx.x] = 0;
+  }
   __syncthreads();
   if (!s_last) return;
   __threadfence();
@@ -555,7 +857,7 @@ int8_gemm_t_kernel(const __grid_constant__ CUtensorMap a_map,  // bf16(g * scale
                    const __grid_constant__ CUtensorMap w_map,  // w8 [OUT, ld] int8
                    __nv_bfloat16* __restrict__ out,            // [T, ld]
                    float* __restrict__ partials,               // [splits, Tpad, ld] when split
-                   int* __restrict__ tickets,                  // [row tiles, col tiles] zeroed
+                   int* __restrict__ tickets,                  // [row tiles, col tiles], zero
                    int T, int out_features, int ld, int splits, int slabs_per_split,
                    int stages) {
   constexpr int BM = 128 * MT;
@@ -717,8 +1019,11 @@ int8_gemm_t_kernel(const __grid_constant__ CUtensorMap a_map,  // bf16(g * scale
         }
     __threadfence();
     asm volatile("bar.sync 1, %0;\n" ::"n"(TG_CONSUMERS * 32) : "memory");
-    if (tid == 0)
-      s_last = atomicAdd(tickets + blockIdx.y * gridDim.x + blockIdx.x, 1) == splits - 1;
+    if (tid == 0) {  // the last split zeroes the tile's ticket for the next launch
+      int* tk = tickets + blockIdx.y * gridDim.x + blockIdx.x;
+      s_last = atomicAdd(tk, 1) == splits - 1;
+      if (s_last) *tk = 0;
+    }
     asm volatile("bar.sync 1, %0;\n" ::"n"(TG_CONSUMERS * 32) : "memory");
     if (!s_last) return;
     __threadfence();
@@ -861,7 +1166,7 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,  // x [E or 1, T, in
                  const float* __restrict__ w_scale,          // [E, OUT]
                  __nv_bfloat16* __restrict__ out,            // [E, T, OUT]
                  float* __restrict__ partials,               // [E, splits, Tpad, OUT] when split
-                 int* __restrict__ tickets,                  // [E, row tiles, col tiles] zeroed
+                 int* __restrict__ tickets,                  // [E, row tiles, col tiles], zero
                  int T, int out_features, int in_features, int splits, int slabs_per_split,
                  int stages, int x_per_expert) {
   constexpr int BM = 64 * MT * NWG;
@@ -1019,9 +1324,11 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,  // x [E or 1, T, in
         }
     __threadfence();
     bar_sync(1, CONSUMERS * 32);
-    if (tid == 0)
-      s_last = atomicAdd(tickets + ((size_t)e * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x,
-                         1) == splits - 1;
+    if (tid == 0) {  // the last split zeroes the tile's ticket for the next launch
+      int* tk = tickets + ((size_t)e * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+      s_last = atomicAdd(tk, 1) == splits - 1;
+      if (s_last) *tk = 0;
+    }
     bar_sync(1, CONSUMERS * 32);
     if (!s_last) return;
     __threadfence();
@@ -1075,35 +1382,28 @@ cudaError_t gemm_launch(const void* x, const void* w8, const void* w_scale, void
 }
 
 template <bool MOE>
-int dispatch(const void* x, const void* w8, const void* w_scale, void* out, void* partials,
-             void* tickets, int experts, int x_per_expert, int T, int splits, int cols_per_split,
-             int out_features, int in_features, int ld, int bm, int stages, int smem,
-             cudaStream_t st) {
-  if (T > 8) {
-    if (stages < 2 || stages > FG_MAX_STAGES || smem > T_SMEM_LIMIT || cols_per_split < FG_BK ||
-        cols_per_split % FG_BK || (long long)(splits - 1) * cols_per_split >= in_features ||
-        (bm != 64 && bm != 128 && bm != 256) || smem != TLayout(bm, stages).total())
-      return cudaErrorInvalidValue;
+int gemm_dispatch(const void* x, const void* w8, const void* w_scale, void* out, void* partials,
+                  void* tickets, int experts, int x_per_expert, int T, int splits,
+                  int cols_per_split, int out_features, int in_features, int ld, int bm,
+                  int stages, int smem, cudaStream_t st) {
+  if (stages < 2 || stages > FG_MAX_STAGES || smem > T_SMEM_LIMIT || cols_per_split < FG_BK ||
+      cols_per_split % FG_BK || (long long)(splits - 1) * cols_per_split >= in_features ||
+      (bm != 64 && bm != 128 && bm != 256) || smem != TLayout(bm, stages).total() ||
+      (splits > 1 && (!partials || !tickets)))
+    return cudaErrorInvalidValue;
 #define AQLM_INT8_GEMM(MT, NWG)                                                               \
   return gemm_launch<MT, NWG, MOE>(x, w8, w_scale, out, partials, tickets, experts,           \
                                    x_per_expert, T, splits, cols_per_split / FG_BK, stages,    \
                                    smem, out_features, in_features, ld, st)
-    if (bm == 256) AQLM_INT8_GEMM(2, 2);
-    if (bm == 128) AQLM_INT8_GEMM(1, 2);
-    AQLM_INT8_GEMM(1, 1);
+  if (bm == 256) AQLM_INT8_GEMM(2, 2);
+  if (bm == 128) AQLM_INT8_GEMM(1, 2);
+  AQLM_INT8_GEMM(1, 1);
 #undef AQLM_INT8_GEMM
-  }
-  if (bm != 0) return cudaErrorInvalidValue;
-#define AQLM_INT8_CASE(NB)                                                                    \
-  case NB:                                                                                    \
-    return gemv_launch<NB, MOE>(x, w8, w_scale, out, partials, tickets, experts, x_per_expert, \
-                                splits, cols_per_split, out_features, in_features, ld, st);
-  switch (T) {
-    AQLM_INT8_CASE(1) AQLM_INT8_CASE(2) AQLM_INT8_CASE(3) AQLM_INT8_CASE(4)
-    AQLM_INT8_CASE(5) AQLM_INT8_CASE(6) AQLM_INT8_CASE(7) AQLM_INT8_CASE(8)
-    default: return cudaErrorInvalidValue;
-  }
-#undef AQLM_INT8_CASE
+}
+
+bool shapes_ok(int experts, int T, int out_features, int in_features, int ld) {
+  return experts >= 1 && T >= 1 && out_features >= 1 && in_features >= 16 &&
+         in_features % 16 == 0 && ld % 16 == 0 && in_features <= ld;
 }
 
 }  // namespace
@@ -1111,31 +1411,47 @@ int dispatch(const void* x, const void* w8, const void* w_scale, void* out, void
 // The forward, as int8_matmul.plan lays it out. w8 [E, OUT, ld], w_scale
 // [E, OUT], out [E, T, OUT]; x [T, in_features] shared by the experts
 // (x_per_expert = 0) or [E, T, in_features]; E = 1 for one matrix;
-// in_features and ld multiples of 16. T <= 8 runs the decode path (bm = 0,
-// static shared memory), more rows the prefill GEMM (bm 64, 128 or 256 rows
-// a block, `stages` ring stages, `smem` dynamic bytes, checked against the
-// kernel's own layout). splits > 1 splits the contraction into runs of
-// cols_per_split columns (a multiple of 1024 on the decode path, of 64 on
-// the prefill path); partials and tickets are then required: decode
-// [E, splits, T, OUT] f32 and [E, ceil(OUT/16)] int32, prefill
-// [E, splits, ceil(T/bm)*bm, OUT] f32 and [E, ceil(T/bm), ceil(OUT/128)]
-// int32, tickets zeroed.
+// in_features and ld multiples of 16. One matrix (or one expert) needs no
+// offsets: it runs the kernels compiled without them.
+//
+// The prefill GEMM, T > 8: bm 64, 128 or 256 rows a block, `stages` ring
+// stages, `smem` dynamic bytes, checked against the kernel's own layout.
+// splits > 1 splits the contraction into runs of cols_per_split columns (a
+// multiple of 64); partials [E, splits, ceil(T/bm)*bm, OUT] f32 and tickets
+// [E, ceil(T/bm), ceil(OUT/128)] int32 are then required, the tickets zero
+// before the first launch: the last block of each output tile zeroes its
+// ticket again, so launches on one stream share one buffer.
 extern "C" int int8_matmul_launch(const void* x, const void* w8, const void* w_scale, void* out,
                                   void* partials, void* tickets, int experts, int x_per_expert,
                                   int T, int splits, int cols_per_split, int out_features,
                                   int in_features, int ld, int bm, int stages, int smem,
                                   void* stream) {
-  if (experts < 1 || splits < 1 || T < 1 || out_features < 1 || in_features < 16 ||
-      in_features % 16 || ld % 16 || in_features > ld)
+  if (!shapes_ok(experts, T, out_features, in_features, ld) || T <= 8 || splits < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (experts > 1)
-    return dispatch<true>(x, w8, w_scale, out, partials, tickets, experts, x_per_expert, T,
-                          splits, cols_per_split, out_features, in_features, ld, bm, stages, smem,
-                          st);
-  // one matrix (or one expert) needs no offsets: the kernels compiled without them
-  return dispatch<false>(x, w8, w_scale, out, partials, tickets, 1, 0, T, splits, cols_per_split,
-                         out_features, in_features, ld, bm, stages, smem, st);
+    return gemm_dispatch<true>(x, w8, w_scale, out, partials, tickets, experts, x_per_expert, T,
+                               splits, cols_per_split, out_features, in_features, ld, bm, stages,
+                               smem, st);
+  return gemm_dispatch<false>(x, w8, w_scale, out, partials, tickets, 1, 0, T, splits,
+                              cols_per_split, out_features, in_features, ld, bm, stages, smem,
+                              st);
+}
+
+// The decode GEMV, T <= 8: `blocks` blocks, `runs` the activations' staged
+// runs and `smem` the dynamic bytes, the last two as GemvLayout computes them.
+extern "C" int int8_gemv_launch(const void* x, const void* w8, const void* w_scale, void* out,
+                                int experts, int x_per_expert, int T, int out_features,
+                                int in_features, int ld, int blocks, int runs, int smem,
+                                void* stream) {
+  if (!shapes_ok(experts, T, out_features, in_features, ld) || T > 8)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (experts > 1)
+    return gemv_dispatch<true>(x, w8, w_scale, out, experts, x_per_expert, T, out_features,
+                               in_features, ld, blocks, runs, smem, st);
+  return gemv_dispatch<false>(x, w8, w_scale, out, 1, 0, T, out_features, in_features, ld, blocks,
+                              runs, smem, st);
 }
 
 // The activation backward, as int8_matmul.plan_t lays it out: g [T, OUT]
@@ -1145,9 +1461,10 @@ extern "C" int int8_matmul_launch(const void* x, const void* w8, const void* w_s
 // the GEMM (`per_split` 64-row slabs a split, `stages` ring stages; `gs`, a
 // [T, OUT] bf16 scratch, receives bf16(g * scale) first). `smem`
 // is checked against the kernel's own layout. With splits > 1, partials (GEMV
-// [splits, T, ld], GEMM [splits, ceil(T / bm) * bm, ld] f32) and zeroed tickets
-// (GEMV [ceil(ld / column block)], GEMM [ceil(T / bm), ceil(ld / 128)] int32)
-// are required.
+// [splits, T, ld], GEMM [splits, ceil(T / bm) * bm, ld] f32) and tickets (GEMV
+// [ceil(ld / column block)], GEMM [ceil(T / bm), ceil(ld / 128)] int32, zero
+// before the first launch; the last block of each column block or tile
+// zeroes its ticket again) are required.
 extern "C" int int8_matmul_t_launch(const void* g, const void* w8, const void* w_scale, void* out,
                                     void* partials, void* tickets, void* gs, int g_f32, int T,
                                     int out_features, int ld, int bm, int splits, int per_split,

@@ -259,22 +259,6 @@ class _Scratch:
     tickets: torch.Tensor | None = None
 
 
-_TICKETS: dict = {}
-
-
-def _tickets(dev, n: int) -> torch.Tensor:
-    """The row kernels' tickets, int32 zeros kept per (device, stream): every
-    launch leaves them zero, so they are zeroed once, and launches on one
-    stream run in order, so no two of them share a ticket at once. Launches
-    on two streams take two buffers (a captured CUDA graph keeps its capture
-    stream's). A larger need allocates anew and keeps the old buffer alive
-    (a captured graph may hold it)."""
-    bufs = _TICKETS.setdefault((dev.index, _build.stream_ptr(dev)), [])
-    if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=dev))
-    return bufs[-1]
-
-
 def _scratch(q_hm, s_len, quant, span, splits) -> _Scratch:
     """The launch's ``_Scratch``, allocated on torch's current stream (no
     memset): the row kernel at 1/2/4/8 heads per kv head (``row_plan``), else
@@ -287,7 +271,7 @@ def _scratch(q_hm, s_len, quant, span, splits) -> _Scratch:
         sc = _Scratch(p.kps, p.splits, p.smem)
         if p.splits == 1:
             return sc
-        sc.tickets = _tickets(dev, b * hkv)
+        sc.tickets = _build.tickets(dev, b * hkv)
     else:
         kps, z = split_plan(b, hkv, rep, s_len, splits, sms)
         sc = _Scratch(kps, z, 0)
@@ -307,7 +291,7 @@ def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window,
     [0, S), as the caller (the Engine) guarantees; the kernel does not read
     offsets back to the host, so a row whose offset lies outside writes
     nothing and returns NaN instead of raising. Launches on two streams may
-    overlap: each stream has its own tickets (``_tickets``)."""
+    overlap: each stream has its own tickets (``_build.tickets``)."""
     b, hkv, rep, d = q_hm.shape
     s_len = k_c.shape[2]
     dev = q_hm.device

@@ -28,13 +28,11 @@ first ``IN`` columns of x, so activations are never padded.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from aqlm_tpu_torch.ops import _build
-from aqlm_tpu_torch.ops.int8_matmul import (_BYTES_PER_US, INT8_GEMV_MAX_ROWS, T_SMEM_LIMIT, Plan,
-                                            pad_in_features)
+from aqlm_tpu_torch.ops.int8_matmul import (_BYTES_PER_US, INT8_GEMV_MAX_ROWS, T_SMEM_LIMIT,
+                                            GemvPlan, Plan, pad_in_features)
 
 __all__ = [
     "GROUP",
@@ -189,18 +187,6 @@ def gemv_layout(T: int, in_features: int, tiles: int, blocks: int) -> tuple[int,
         chunks += 1
 
 
-@dataclasses.dataclass(frozen=True)
-class GemvPlan:
-    """One launch of the GEMV (<= 8 rows): ``blocks`` blocks, each walking a
-    contiguous run of 16-row tiles over the whole contraction, the
-    activations staged in shared memory in ``runs`` runs, and the dynamic
-    shared memory (``gemv_layout``), which the kernel checks."""
-
-    blocks: int
-    runs: int
-    smem: int
-
-
 def gemm_smem(bm: int, stages: int) -> int:
     """The GEMM's dynamic shared memory (the kernel's ``QLayout``): the x
     ring (bm rows a stage), two packed slabs and their two groups' scales,
@@ -250,7 +236,7 @@ def plan(T: int, out_features: int, in_features: int, ldb: int, experts: int = 1
     splits = -(-n_units // per_split)  # no empty split
     smem = gemm_smem(bm, _GEMM_STAGES)
     assert smem <= T_SMEM_LIMIT
-    return Plan("gemm", bm, _GEMM_STAGES, splits, per_split * _PACK,
+    return Plan(bm, _GEMM_STAGES, splits, per_split * _PACK,
                 (col_tiles, row_tiles, experts * splits), smem)
 
 

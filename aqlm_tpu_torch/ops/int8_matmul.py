@@ -7,9 +7,11 @@ PyTorch counterpart of ``aqlm_tpu.ops.int8_matmul`` (``int8_matmul``,
 kernel of ``csrc/int8_matmul.cu``; on a CPU tensor it runs the plain version
 of the same function. The layer-indexed variants are the same kernel with a
 layer pointer offset; the MoE forms run every expert in one launch, the
-expert being one more grid axis of the same kernel. The pure ``plan`` lays
-each launch out: a GEMV at <= 8 rows, and past them a warp-specialised
-TMA + wgmma GEMM. The backward (the contraction runs over w8's rows) has
+expert being one more tile coordinate (GEMV) or grid axis (GEMM) of the
+same kernel. The pure ``plan`` lays each launch out: at <= 8 rows a GEMV
+split over no blocks (a ``GemvPlan``: a CUDA-core row kernel at 1-2 rows, a
+tensor-core GEMV at 3-8), and past them a warp-specialised TMA + wgmma GEMM
+(a ``Plan``). The backward (the contraction runs over w8's rows) has
 kernels of its own, laid out by the pure ``plan_t``: a column GEMV at <= 8
 rows, and past them a bf16(g * scale) pass followed by a GEMM of the same
 shape.
@@ -32,6 +34,7 @@ from aqlm_tpu_torch.ops import _build
 __all__ = [
     "IN_PAD_MULTIPLE",
     "INT8_GEMV_MAX_ROWS",
+    "GEMV_ROWS_MAX_ROWS",
     "pad_in_features",
     "quantize_int8",
     "int8_matmul",
@@ -40,18 +43,25 @@ __all__ = [
     "int8_moe_matmul_indexed",
     "int8_matmul_transposed",
     "Plan",
+    "GemvPlan",
     "plan",
+    "gemv_layout",
     "PlanT",
     "plan_t",
 ]
 
 IN_PAD_MULTIPLE = 1024  # weight rows padded so large contraction tiles divide evenly
 INT8_GEMV_MAX_ROWS = 8  # up to this many rows take the kernel's decode path
-# the forward's shapes (csrc/int8_matmul.cu): the GEMV's rows a block and
-# columns a chunk; the GEMM's 128-channel tile, 64-column slabs and ring depth
-# at each block height, and the planner's time model of one block-slab (us;
-# at 64 rows two blocks share an SM)
-_GEMV_ROWS, _GEMV_CHUNK = 16, 1024
+GEMV_ROWS_MAX_ROWS = 2  # up to this many the decode path is the CUDA-core row kernel
+# the forward's shapes (csrc/int8_matmul.cu): the GEMV's rows a tile, its
+# warps a block and their sums' shared memory, the contraction unit its
+# warps' pieces are made of, and each warp's ring of 16 x 128-byte weight
+# items; the GEMM's 128-channel tile, 64-column slabs and ring depth at each
+# block height, and the planner's time model of one block-slab (us; at 64
+# rows two blocks share an SM)
+_GEMV_ROWS, _GEMV_WARPS, _GEMV_UNIT, _GEMV_STAGES, _GEMV_ITEM = 16, 16, 64, 2, 256
+_GEMV_RED = _GEMV_WARPS * _GEMV_ROWS * 8 * 4
+_GEMV_RING = _GEMV_WARPS * _GEMV_STAGES * _GEMV_ROWS * _GEMV_ITEM
 _GEMM_BN, _GEMM_BK = 128, 64
 _GEMM_STAGES = {64: 4, 128: 6, 256: 4}
 _GEMM_SLAB_US = {64: 0.35, 128: 0.35, 256: 0.55}
@@ -88,13 +98,6 @@ def plain(xb, w8, w_scale):
     return y.to(xb.dtype)
 
 
-def _splits(blocks: int, n_units: int, sms: int, most: int) -> int:
-    """Contraction splits that bring ``blocks`` to twice the card's SMs,
-    at most ``most``, with no empty split."""
-    splits = max(1, min(-(-2 * sms // blocks), most))
-    return -(-n_units // -(-n_units // splits))
-
-
 def moe_plain(xb, w8, w_scale):
     """The MoE kernel's plain version (same arguments as ``moe_launch``): per
     expert, the f32 product of its activations (xb [rows, IN] shared, or xb
@@ -107,14 +110,12 @@ def moe_plain(xb, w8, w_scale):
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One launch of the forward (int8, and the int4 GEMM's ``plan``): the path
-    (``gemv`` at <= 8 rows, else ``gemm``), the GEMM's rows a block (``bm``;
-    0 for the GEMV) and ring stages, the contraction split over ``splits``
-    runs of ``per_split`` columns (whole units of the kernel's contraction:
-    int8 GEMV 1024, GEMM 64; int4 256), the grid and the dynamic shared
-    memory, which the kernel checks against its own layout."""
+    """One launch of a prefill GEMM (int8's, and int4's ``plan`` past 8
+    rows): the rows a block (``bm``) and ring stages, the contraction split
+    over ``splits`` runs of ``per_split`` columns (whole units of the
+    kernel's contraction: int8 64, int4 256), the grid and the dynamic
+    shared memory, which the kernel checks against its own layout."""
 
-    path: str
     bm: int
     stages: int
     splits: int
@@ -126,33 +127,73 @@ class Plan:
         """The f32 split partial sums' shape, None when unsplit."""
         if self.splits == 1:
             return None
-        rows = T if self.path == "gemv" else self.grid[1] * self.bm
-        return (experts, self.splits, rows, out_features)
+        return (experts, self.splits, self.grid[1] * self.bm, out_features)
 
     def n_tickets(self, experts: int = 1) -> int:
-        """The split path's tickets: one per output tile (GEMV: row block)."""
-        return experts * self.grid[0] * (1 if self.path == "gemv" else self.grid[1])
+        """The split path's tickets: one per output tile."""
+        return experts * self.grid[0] * self.grid[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """One launch of a decode GEMV (int8's and int4's, <= 8 rows), split
+    over no blocks. ``form`` ``mma``, the tensor-core GEMV: ``blocks``
+    blocks, each walking a contiguous run of 16-row tiles over the whole
+    contraction, the activations staged in shared memory in ``runs`` runs,
+    and the dynamic shared memory (``gemv_layout`` of the kernel's module),
+    which the kernel checks. ``form`` ``rows`` (int8 at 1-2 rows), the
+    CUDA-core row kernel: a block a 16-row tile (``blocks`` = tiles), static
+    shared memory (``runs`` and ``smem`` 0)."""
+
+    blocks: int
+    runs: int
+    smem: int
+    form: str = "mma"
+
+
+def gemv_layout(T: int, in_features: int, tiles: int, blocks: int) -> tuple[int, int]:
+    """(runs, shared memory) of the GEMV (the kernel's ``GemvLayout``): two
+    buffers of the warps' sums of a tile; each tile's sums kept between runs
+    where there are several; each warp's barrier; each warp's ring of weight
+    items; then each warp's own activation columns, T rows of its largest
+    piece (the contraction's 64-column units dealt into 16 x runs contiguous
+    pieces) and 16 bytes, so that a phase's rows start 16 bytes apart from
+    bank to bank. One run where the whole contraction fits, else the fewest
+    that fit."""
+    n_units = -(-in_features // _GEMV_UNIT)
+    run = -(-tiles // blocks)  # the most tiles a block walks
+    chunks = 1
+    while True:
+        pieces = _GEMV_WARPS * chunks
+        piece = -(-n_units // pieces) * _GEMV_UNIT
+        park = run * _GEMV_ROWS * 8 * 4 if chunks > 1 else 0
+        total = 2 * _GEMV_RED + park + _GEMV_RING + _GEMV_WARPS * (8 + T * (2 * piece + 16))
+        if total <= T_SMEM_LIMIT or n_units <= pieces:
+            return chunks, total
+        chunks += 1
 
 
 def plan(T: int, out_features: int, in_features: int, ld: int, experts: int = 1,
-         sm_count: int = 132) -> Plan:
-    """Path, tile, stages, split and grid of one forward launch, a pure
-    function of the shapes. At <= 8 rows the GEMV (16 output rows a block,
-    the contraction split in 1024-column chunks to fill the card twice).
-    Past 8 rows the GEMM: 256 rows a block past 256 rows, 128 past 64, else
-    64 (two blocks an SM); the contraction split only where the output tiles
-    leave SMs idle and the time model (waves x slabs a block, plus the
-    partial sums' bytes) says it pays."""
+         sm_count: int = 132) -> Plan | GemvPlan:
+    """One forward launch, a pure function of the shapes. At 1-2 rows the
+    row kernel's ``GemvPlan`` (a block a 16-row tile); at 3-8 the
+    tensor-core GEMV's: one block an SM (or one a 16-row tile, where there
+    are fewer tiles) walking a contiguous run of tiles, each over the whole
+    contraction (no split over blocks). Past 8 rows the GEMM's ``Plan``: 256
+    rows a block past 256 rows, 128 past 64, else 64 (two blocks an SM); the
+    contraction split only where the output tiles leave SMs idle and the
+    time model (waves x slabs a block, plus the partial sums' bytes) says it
+    pays."""
     if (T < 1 or experts < 1 or out_features < 1 or in_features < 16 or in_features % 16
             or ld % 16 or in_features > ld):
         raise ValueError(f"int8_matmul kernel: no plan for T={T} OUT={out_features} "
                          f"IN={in_features} ld={ld} E={experts} (IN <= ld, both multiples of 16)")
+    if T <= GEMV_ROWS_MAX_ROWS:
+        return GemvPlan(experts * -(-out_features // _GEMV_ROWS), 0, 0, "rows")
     if T <= INT8_GEMV_MAX_ROWS:
-        blocks = -(-out_features // _GEMV_ROWS)
-        n_chunks = -(-in_features // _GEMV_CHUNK)
-        splits = _splits(experts * blocks, n_chunks, sm_count, n_chunks)
-        per_split = -(-n_chunks // splits) * _GEMV_CHUNK
-        return Plan("gemv", 0, 0, splits, per_split, (blocks, splits, experts), 0)
+        tiles = experts * -(-out_features // _GEMV_ROWS)
+        blocks = min(tiles, sm_count)
+        return GemvPlan(blocks, *gemv_layout(T, in_features, tiles, blocks))
     bm = 64 if T <= 64 else 128 if T <= 256 else 256
     stages = _GEMM_STAGES[bm]
     col_tiles, row_tiles = -(-out_features // _GEMM_BN), -(-T // bm)
@@ -170,7 +211,7 @@ def plan(T: int, out_features: int, in_features: int, ld: int, experts: int = 1,
         splits = min(range(1, max(1, min(16, n_slabs // 4)) + 1), key=cost)
     per_split = -(-n_slabs // splits)
     splits = -(-n_slabs // per_split)  # no empty split
-    return Plan("gemm", bm, stages, splits, per_split * _GEMM_BK,
+    return Plan(bm, stages, splits, per_split * _GEMM_BK,
                 (col_tiles, row_tiles, experts * splits), gemm_t_smem(bm, stages))
 
 
@@ -202,21 +243,29 @@ def _run(xb, w8, w_scale, name, x_per_expert):
     if rows == 0:
         return out
     p = plan(rows, out_features, in_features, ld, experts, _build.sm_count(dev.index))
-    partials = tickets = None
-    if p.splits > 1:
-        # each expert's splits' f32 partial sums meet here; the last block of
-        # each output tile to finish adds them in a fixed order
-        partials = torch.empty(p.partials_shape(rows, out_features, experts),
-                               dtype=torch.float32, device=dev)
-        tickets = torch.zeros(p.n_tickets(experts), dtype=torch.int32, device=dev)
     lib, _ = _build.library()
-    rc = lib.int8_matmul_launch(
-        xb.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-        None if partials is None else partials.data_ptr(),
-        None if tickets is None else tickets.data_ptr(),
-        experts, int(x_per_expert), rows, p.splits, p.per_split, out_features, in_features, ld,
-        p.bm, p.stages, p.smem, _build.stream_ptr(dev),
-    )
+    if isinstance(p, GemvPlan):
+        rc = lib.int8_gemv_launch(
+            xb.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), out.data_ptr(), experts,
+            int(x_per_expert), rows, out_features, in_features, ld, p.blocks, p.runs, p.smem,
+            _build.stream_ptr(dev),
+        )
+    else:
+        partials = tickets = None
+        if p.splits > 1:
+            # each expert's splits' f32 partial sums meet here; the last block of
+            # each output tile to finish adds them in a fixed order and zeroes
+            # its ticket again
+            partials = torch.empty(p.partials_shape(rows, out_features, experts),
+                                   dtype=torch.float32, device=dev)
+            tickets = _build.tickets(dev, p.n_tickets(experts))
+        rc = lib.int8_matmul_launch(
+            xb.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            experts, int(x_per_expert), rows, p.splits, p.per_split, out_features, in_features,
+            ld, p.bm, p.stages, p.smem, _build.stream_ptr(dev),
+        )
     _build.check(rc, name)
     _build.KERNELS[name].launches += 1
     return out
@@ -439,11 +488,11 @@ def launch_t(gb, w8, w_scale):
     partials = tickets = None
     if p.splits > 1:
         # the splits' f32 partial sums meet here; the last block of each
-        # output tile to finish adds them in a fixed order
+        # output tile to finish adds them in a fixed order and zeroes its
+        # ticket again
         t_pad = rows if p.path == "gemv" else p.grid[1] * p.tile
         partials = torch.empty((p.splits, t_pad, in_pad), dtype=torch.float32, device=dev)
-        n_tickets = p.grid[0] if p.path == "gemv" else p.grid[0] * p.grid[1]
-        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+        tickets = _build.tickets(dev, p.grid[0] if p.path == "gemv" else p.grid[0] * p.grid[1])
     lib, _ = _build.library()
     rc = lib.int8_matmul_t_launch(
         gb.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), out.data_ptr(),

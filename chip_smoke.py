@@ -14,12 +14,13 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    segment sum) against its plain PyTorch version on the card, at the shapes
    of the serving and calibration paths, K1's and B10's records with the
    launch their planning functions chose (K1: columns a block, code reads,
-   tables, ring stages, splits, blocks; B10, and the int8 and int4
-   kernels and their all-expert forms: GEMV or GEMM, rows a block, stages,
-   splits, grid; at T=1024 the last four also time ``torch.matmul`` on the
-   weight widened to bf16 beforehand, an aside the port never calls) (K1 at
-   every decode batch bucket of
-   phase 4's ServeConfig, K2 at every prefill bucket, both also at
+   tables, ring stages, splits, blocks; B10: GEMV or GEMM, rows a block,
+   stages, splits, grid; the int8 and int4 kernels and their all-expert
+   forms: the GEMV's blocks, staged runs and shared memory, or the GEMM's
+   rows a block, stages, splits and grid; at T=1024 the last four also time
+   ``torch.matmul`` on the weight widened to bf16 beforehand, an aside the
+   port never calls) (K1 at every decode batch bucket of phase 4's
+   ServeConfig, K2 at every prefill bucket, both also at
    Falcon-7B's fc1, the int8 kernel at both for Llama-2-7B's four
    projections and the lm_head, the int4 kernel at both for the four
    projections, each MoE kernel at both for Mixtral-8x7B's gate/up, shared

@@ -1,7 +1,7 @@
-"""Time the int8, int4, all-expert int4 or flash-decode (K3) kernel of one
-copy of aqlm_tpu_torch, for A/B comparisons.
+"""Time the int8, int4, all-expert int8 or int4, or flash-decode (K3) kernel
+of one copy of aqlm_tpu_torch, for A/B comparisons.
 
-    python3 experiments/torch_ab.py ROOT TAG {int8,int4,int4_moe,k3} [check]
+    python3 experiments/torch_ab.py ROOT TAG {int8,int4,int8_moe,int4_moe,k3} [check]
 
 ROOT is a directory holding an ``aqlm_tpu_torch`` package (``.`` for the
 checkout; copies of the package in other directories build their kernels
@@ -13,10 +13,11 @@ shapes. Then it prints one JSON line of device times in ms (CUDA-graph
 replays of 50 calls, 10 above 8 rows, cycling 8 stacked copies, median of
 5) of the kernel's ``launch`` at Llama-2-7B's four fused projections (and
 the lm_head for int8) at rows 1, 2, 4, 8, 64, 256 and 1024, each shape
-checked once against the plain version. ``int4_moe`` runs the all-expert
-int4 kernel (``moe_launch``, a package that has it) instead: ``check`` at
-rows 1-9 and 64 of split-K (E=2, OUT=128) and ragged, padded (E=3, 520 x
-1040) shapes with shared and per-expert x, then times at Mixtral-8x7B's
+checked once against the plain version. ``int8_moe`` and ``int4_moe`` run
+the all-expert kernel (``moe_launch``, a package that has it) instead:
+``check`` at rows 1-9 and 64 of few-tile (E=2, OUT=128) and ragged, padded
+(E=3, 520 x 1040) shapes with shared and per-expert x, then times at
+Mixtral-8x7B's
 gate/up (shared x) and down (per-expert x), cycling 2 stacked layers. ``k3``
 times the fused KV write + flash decode at B=4, 32 query heads over 32, 16,
 8 and 4 kv heads (1, 2, 4 and 8 per kv head), D=128 and 64, int8 and bf16
@@ -41,8 +42,8 @@ from aqlm_tpu_torch.ops import flash_decode as fd  # noqa: E402
 from aqlm_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from aqlm_tpu_torch.ops import int8_matmul as i8  # noqa: E402
 
-m = i8 if kernel == "int8" else i4
-moe = kernel == "int4_moe"
+m = i8 if kernel in ("int8", "int8_moe") else i4
+moe = kernel.endswith("_moe")
 assert m.__file__.startswith(os.path.abspath(root)), m.__file__
 _build.library()
 dev = torch.device("cuda")
@@ -94,11 +95,12 @@ if kernel == "k3":
 def weights(out_f, in_f, n, experts=None):
     """``n`` stacked copies of one projection's weights in the kernel's layout
     (with ``experts``, [n, E, ...])."""
-    if kernel == "int8":
-        w8 = torch.randint(-127, 128, (n, out_f, i8.pad_in_features(in_f)), generator=g,
+    if m is i8:
+        lead = (n, experts) if experts else (n,)
+        w8 = torch.randint(-127, 128, (*lead, out_f, i8.pad_in_features(in_f)), generator=g,
                            device=dev, dtype=torch.int32).to(torch.int8)
         w8[..., in_f:] = 0
-        return w8, torch.rand((n, out_f), generator=g, device=dev) / (127 * in_f ** 0.5)
+        return w8, torch.rand((*lead, out_f), generator=g, device=dev) / (127 * in_f ** 0.5)
     e = experts or 1
     packs = [i4.quantize_int4(torch.randn((out_f, in_f), generator=g, device=dev) / in_f ** 0.5)
              for _ in range(n * e)]

@@ -1675,6 +1675,160 @@ def test_int4_moe_gemv_plan_branches_match_plain(dev, shape, rows, per_expert):
     assert torch.equal(got, i4.int4_moe_matmul_indexed(x, w4, gs, 1))
 
 
+# The int8 GEMV (<= 8 rows) over its plan's branches: one block an SM (OUT
+# 4096: 256 tiles), one block a tile where there are fewer tiles than SMs
+# (OUT 64 and the ragged OUT 520), the contraction staged whole or in runs
+# (Llama's down at 4-8 rows; Mixtral's per-expert down below); every row
+# count.
+GEMV8_SHAPES = [(4096, 4096), (4096, 11008), (64, 4544), (520, 1040)]
+
+
+def test_int8_gemv_cases_cover_every_plan_branch(dev):
+    sms = _build.sm_count(dev.index)
+    blocks = {(p.form, p.blocks == sms, p.runs > 1) for rows in range(1, 9)
+              for o, i in GEMV8_SHAPES for p in [im.plan(rows, o, i, im.pad_in_features(i), 1, sms)]}
+    assert blocks == {("rows", False, False), ("mma", True, False), ("mma", True, True),
+                      ("mma", False, False)}
+    assert im.plan(8, 4096, 14336, 14336, 8, sms).runs == 4
+
+
+@pytest.mark.parametrize("rows", range(1, 9))
+@pytest.mark.parametrize("out_f,in_f", GEMV8_SHAPES)
+def test_int8_gemv_plan_branches_match_plain(dev, out_f, in_f, rows):
+    """Within one bf16 step of the plain version, and bit-identical over two
+    runs (the warps' sums meet in a fixed order)."""
+    gen = torch.Generator(device=dev).manual_seed(rows + out_f + in_f)
+    w8, scale, _ = _int8(gen, dev, 1, out_f=out_f, in_f=in_f)
+    x = torch.randn((rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+    before = _build.KERNELS["int8_matmul"].launches
+    got = im.int8_matmul(x, w8[0], scale[0])
+    assert _build.KERNELS["int8_matmul"].launches == before + 1
+    _close(got, im.plain(x, w8[0], scale[0]))
+    assert torch.equal(got, im.int8_matmul(x, w8[0], scale[0]))
+
+
+@pytest.mark.parametrize("per_expert", [False, True])
+@pytest.mark.parametrize("rows,runs", [(2, 0), (3, 2), (8, 4)])
+def test_int8_moe_gemv_two_runs_match_plain(dev, rows, runs, per_expert):
+    """Mixtral-8x7B's all-expert down shape at 2 rows (the row kernel), 3
+    (the tensor-core GEMV in two runs, each tile's sums kept between them)
+    and 8 (in four), shared and per-expert x (staged anew where a block's
+    tiles change expert); bit-identical over two runs."""
+    E, out_f, in_f = 8, 4096, 14336
+    gen = torch.Generator(device=dev).manual_seed(rows + per_expert)
+    w8, scale = _moe(gen, dev, E, out_f, in_f, L=1)
+    assert im.plan(rows, out_f, in_f, w8.shape[-1], E, _build.sm_count(dev.index)).runs == runs
+    x = torch.randn((E, rows, in_f) if per_expert else (rows, in_f), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    got = im.int8_moe_matmul(x, w8[0], scale[0])
+    _close(got, im.moe_plain(x, w8[0], scale[0]))
+    assert torch.equal(got, im.int8_moe_matmul(x, w8[0], scale[0]))
+
+
+def test_int8_gemv_on_two_streams(dev):
+    """GEMV launches on two streams at once (dense and all-expert): each
+    equals its plain version and every rerun is bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    w8, scale, _ = _int8(gen, dev, 1, out_f=4096, in_f=11008)
+    mw, ms = _moe(gen, dev, 3, 520, 1040, L=1)
+    xs = [torch.randn((4, 11008), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2)]
+    mx = [torch.randn((3, 5, 1040), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2)]
+    runs = [lambda i=i: (im.int8_matmul(xs[i], w8[0], scale[0]),
+                         im.int8_moe_matmul(mx[i], mw[0], ms[0])) for i in range(2)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(runs[i]())
+    torch.cuda.synchronize(dev)
+    for i, got in enumerate(outs):
+        _close(got[0][0], im.plain(xs[i], w8[0], scale[0]))
+        _close(got[0][1], im.moe_plain(mx[i], mw[0], ms[0]))
+        assert all(torch.equal(g[0], got[0][0]) and torch.equal(g[1], got[0][1]) for g in got)
+
+
+def test_int8_gemv_allocates_only_its_output_and_makes_no_sync(dev):
+    """A decode launch (dense and all-expert) allocates its output and
+    nothing else (no partials, no tickets) and issues no synchronising call."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    w8, scale, _ = _int8(gen, dev, 1, out_f=4096, in_f=4096)
+    mw, ms = _moe(gen, dev, 2, 128, 4096, L=1)
+    x = torch.randn((4, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    for run in (lambda: im.int8_matmul(x, w8[0], scale[0]),
+                lambda: im.int8_moe_matmul(x, mw[0], ms[0])):
+        first = run()
+        torch.cuda.synchronize(dev)
+        allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            second = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs + 1
+        assert torch.equal(first, second)
+
+
+# The int8 split paths that remain (the forward GEMM at short prompts over
+# narrow projections, B10's GEMV and GEMM): each launch's last blocks zero
+# their tickets again, so launches back to back, and on two streams, share
+# their stream's buffer without a memset.
+SPLIT8_CASES = [("gemm", 64, 4096, 11008), ("t_gemv", 4, 4096, 4096), ("t_gemm", 200, 4096, 4096)]
+
+
+def _split8_run(gen, dev, kind, rows, out_f, in_f):
+    w8, scale, _ = _int8(gen, dev, 1, out_f=out_f, in_f=in_f)
+    sms = _build.sm_count(dev.index)
+    if kind == "gemm":
+        assert im.plan(rows, out_f, in_f, w8.shape[-1], 1, sms).splits > 1
+        x = torch.randn((rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+        return (lambda: im.int8_matmul(x, w8[0], scale[0])), im.plain(x, w8[0], scale[0])
+    p = im.plan_t(rows, out_f, w8.shape[-1], sms)
+    assert p.splits > 1 and p.path == kind[2:]
+    g = torch.randn((rows, out_f), generator=gen, device=dev).to(torch.bfloat16)
+    return (lambda: im.int8_matmul_transposed(g, w8[0], scale[0])), im.plain_t(g, w8[0], scale[0])
+
+
+@pytest.mark.parametrize("case", SPLIT8_CASES, ids=lambda c: c[0])
+def test_int8_split_tickets_reset_themselves(dev, case):
+    """Ten launches back to back: every one within a bf16 step of the plain
+    version and bit-identical to the first; the stream's tickets are zero
+    after each, and no launch issues a synchronising call."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    run, want = _split8_run(gen, dev, *case)
+    first = run()
+    _close(first, want)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [run() for _ in range(10)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.equal(o, first) for o in outs)
+    assert not _build.tickets(dev, 1).any()
+
+
+@pytest.mark.parametrize("case", SPLIT8_CASES, ids=lambda c: c[0])
+def test_int8_split_tickets_on_two_streams(dev, case):
+    """Launches on two streams at once keep their own tickets: each launch
+    equals its stream's first and the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    pairs = [_split8_run(gen, dev, *case) for _ in range(2)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(pairs[i][0]())
+    torch.cuda.synchronize(dev)
+    for (_, want), got in zip(pairs, outs):
+        _close(got[0], want)
+        assert all(torch.equal(g, got[0]) for g in got)
+
+
 def _k3_inputs(gen, dev, quantized, L, B, H, rep, S, d):
     q = torch.randn((B, H, rep, d), generator=gen, device=dev).to(torch.bfloat16)
     kv, sc = _decode_cache(gen, dev, quantized, L, B, H, S, d)

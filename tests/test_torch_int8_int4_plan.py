@@ -40,14 +40,11 @@ def _check_cover(p, T, out_f, in_f, experts, unit):
     """The blocks cover every output tile and every contraction column once."""
     assert (p.splits - 1) * p.per_split < in_f <= p.splits * p.per_split  # no empty split
     assert p.per_split % unit == 0
-    if p.path == "gemm":  # (column tiles, row tiles, experts x splits)
-        col_tiles, row_tiles, z = p.grid
-        assert z == experts * p.splits
-        assert (col_tiles - 1) * 128 < out_f <= col_tiles * 128
-        assert (row_tiles - 1) * p.bm < T <= row_tiles * p.bm
-    else:  # (16-row blocks, splits, experts)
-        blocks, splits, z = p.grid
-        assert (blocks - 1) * 16 < out_f <= blocks * 16 and (splits, z) == (p.splits, experts)
+    assert isinstance(p, im.Plan)  # (column tiles, row tiles, experts x splits)
+    col_tiles, row_tiles, z = p.grid
+    assert z == experts * p.splits
+    assert (col_tiles - 1) * 128 < out_f <= col_tiles * 128
+    assert (row_tiles - 1) * p.bm < T <= row_tiles * p.bm
     shape = p.partials_shape(T, out_f, experts)
     assert (shape is None) == (p.splits == 1)
     if shape is not None:
@@ -59,11 +56,18 @@ def _check_cover(p, T, out_f, in_f, experts, unit):
 def test_int8_plan_fits_and_covers(shape, T):
     _, out_f, in_f, experts = shape
     p = im.plan(T, out_f, in_f, im.pad_in_features(in_f), experts, 132)
-    if T <= 8:
-        assert p.path == "gemv" and p.bm == p.stages == p.smem == 0
-        _check_cover(p, T, out_f, in_f, experts, 1024)
+    if T <= 8:  # at 1-2 rows a block a 16-row tile, else one block an SM (at most one a
+        # tile), each a run of whole tiles over the whole contraction
+        # (tests/test_torch_int8_gemv_plan.py models the rest)
+        tiles = experts * -(-out_f // 16)
+        if T <= 2:
+            assert p == im.GemvPlan(tiles, 0, 0, "rows")
+            return
+        assert isinstance(p, im.GemvPlan) and p.blocks == min(132, tiles)
+        assert p.smem <= im.T_SMEM_LIMIT and p.runs >= 1
+        assert (p.runs, p.smem) == im.gemv_layout(T, in_f, tiles, p.blocks)
         return
-    assert p.path == "gemm"
+    assert isinstance(p, im.Plan)
     assert p.bm == (64 if T <= 64 else 128 if T <= 256 else 256)
     assert 2 <= p.stages <= 8
     assert p.smem == im.gemm_t_smem(p.bm, p.stages) <= im.T_SMEM_LIMIT
@@ -90,7 +94,7 @@ def test_int4_plan_fits_and_covers(shape, T):
         assert (p.runs, p.smem) == i4.gemv_layout(T, in_f, tiles, p.blocks)
         return
     _check_cover(p, T, out_f, in_f, experts, 256)
-    assert p.path == "gemm" and p.bm == (64 if T <= 64 else 128) and 4 <= p.stages <= 8
+    assert isinstance(p, im.Plan) and p.bm == (64 if T <= 64 else 128) and 4 <= p.stages <= 8
     assert p.smem == i4.gemm_smem(p.bm, p.stages) <= im.T_SMEM_LIMIT
     if p.splits > 1:
         assert experts * p.grid[0] * p.grid[1] < 132
@@ -109,13 +113,17 @@ def test_plans_split_short_prompts_not_long_ones():
 
 
 def test_plans_keep_the_decode_split():
-    """The int8 decode path's split count is the one its GEMV always had:
-    enough 1024-column runs to fill the card twice. The int4 GEMV never
-    splits the contraction over blocks: one block an SM walks whole tiles,
-    its activations staged in shared memory whole, but for Mixtral's
-    per-expert down at 7-8 rows, staged in two runs."""
-    assert im.plan(4, 4096, 4096, 4096).grid == (256, 2, 1)
-    assert im.plan(4, 4096, 11008, 11264).splits == 2
+    """Neither decode GEMV splits the contraction over blocks. int8 at 1-2
+    rows: a block a 16-row tile; past them, and int4, one block an SM walks
+    whole tiles, its activations staged in shared memory whole, but where
+    they do not fit beside the int8 GEMV's weight rings (Llama's down at 4-8
+    rows, Mixtral's per-expert down at 3-8) or alone (int4: Mixtral's down
+    at 7-8 rows), staged in runs."""
+    p = im.plan(4, 4096, 4096, 4096)
+    assert isinstance(p, im.GemvPlan) and (p.blocks, p.runs) == (132, 1)
+    assert (im.plan(3, 4096, 11008, 11264).runs, im.plan(8, 4096, 11008, 11264).runs) == (1, 3)
+    assert im.plan(1, 14336, 4096, 4096, 8) == im.GemvPlan(8 * 896, 0, 0, "rows")
+    assert (im.plan(3, 4096, 14336, 14336, 8).runs, im.plan(8, 4096, 14336, 14336, 8).runs) == (2, 4)
     p = i4.plan(4, 4096, 11008, 5632)
     assert isinstance(p, i4.GemvPlan) and (p.blocks, p.runs) == (132, 1)
     assert isinstance(i4.plan(1, 14336, 4096, 2048, 8), i4.GemvPlan)
