@@ -9,7 +9,9 @@ lands in ``build/kernels/`` at the root of the checkout (listed in
 Each kernel also carries a plain launch counter: its wrapper adds one where
 it launches the kernel and nowhere else, so a run can show that its main
 path went through the kernel. The split kernels' tickets (``tickets``) are
-kept here, per device and stream, for every kernel that zeroes its own.
+kept here, per device and stream, for every kernel that zeroes its own, and
+so is the f32 scratch of kernels that merge partial sums in a second pass
+(``scratch``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 __all__ = [
     "BUILD_DIR", "KERNELS", "KernelInfo", "library", "check", "reset_launch_counts", "stream_ptr",
-    "sm_count", "tickets",
+    "sm_count", "tickets", "scratch",
 ]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -229,7 +231,7 @@ def _declare(lib) -> None:
     lib.int8_gemv_launch.argtypes = [P] * 4 + [I] * 9 + [P]
     lib.onehot_matmul_launch.argtypes = [P] * 7 + [I] * 12 + [P]
     lib.calib_dequant_launch.argtypes = [P] * 4 + [L] + [I] * 5 + [P]
-    lib.cb_grad_launch.argtypes = [P] * 3 + [L] + [I] * 4 + [P]
+    lib.cb_grad_launch.argtypes = [P] * 4 + [L] + [I] * 7 + [P]
     lib.gather_dequant_wt_launch.argtypes = [P] * 4 + [I] * 6 + [P]
     lib.int8_matmul_t_launch.argtypes = [P] * 7 + [I] * 9 + [P]
     lib.flash_decode_launch.argtypes = [P] * 10 + [I] * 12 + [ctypes.c_float, P]
@@ -278,4 +280,19 @@ def tickets(dev, n: int) -> torch.Tensor:
     bufs = _TICKETS.setdefault((dev.index, stream_ptr(dev)), [])
     if not bufs or bufs[-1].numel() < n:
         bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=dev))
+    return bufs[-1]
+
+
+_SCRATCH: dict = {}
+
+
+def scratch(dev, n: int) -> torch.Tensor:
+    """f32 scratch of at least ``n`` elements kept per (device, stream), for
+    a kernel whose launch writes it and reads it back before it ends (B14's
+    partial sums): launches on one stream run in order, so they share one
+    buffer, and launches on two streams take two. A larger need allocates
+    anew and keeps the old buffer alive (a captured graph may hold it)."""
+    bufs = _SCRATCH.setdefault((dev.index, stream_ptr(dev)), [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.empty(n, dtype=torch.float32, device=dev))
     return bufs[-1]

@@ -90,7 +90,8 @@
 //   ceil(T / 128) times (ceil(T / 64) at T <= 64). Where the output tiles
 //   would leave the card idle, the contraction is split over blocks (in
 //   whole packing blocks): each writes f32 partial sums and the last block of
-//   an output tile to finish (an atomic ticket) adds them in a fixed order.
+//   an output tile to finish (an atomic ticket, which it zeroes again for the
+//   next launch) adds them in a fixed order.
 //
 // All experts (MoE): w4 [E, OUT, ldb], gscale [E, 2 * ldb / 128, OUT], out
 // [E, T, OUT]; x is [T, in_features] shared by every expert (gate and up)
@@ -472,7 +473,7 @@ int4_gemm_kernel(const __grid_constant__ CUtensorMap x_map,  // x [E or 1, T, in
                  const float* __restrict__ gscale,           // [E, n_groups, OUT]
                  __nv_bfloat16* __restrict__ out,            // [E, T, OUT]
                  float* __restrict__ partials,               // [E, splits, Tpad, OUT] when split
-                 int* __restrict__ tickets,                  // [E, row tiles, col tiles] zeroed
+                 int* __restrict__ tickets,                  // [E, row tiles, col tiles], zero
                  int T, int out_features, int in_features, int n_groups, int splits,
                  int blocks_per_split, int stages, int x_per_expert) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -690,9 +691,11 @@ int4_gemm_kernel(const __grid_constant__ CUtensorMap x_map,  // x [E or 1, T, in
       }
     __threadfence();
     bar_sync(1, Q_CONSUMERS * 32);
-    if (tid == 0)
-      s_last = atomicAdd(tickets + ((size_t)e * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x,
-                         1) == splits - 1;
+    if (tid == 0) {  // the last split zeroes the tile's ticket for the next launch
+      int* tk = tickets + ((size_t)e * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+      s_last = atomicAdd(tk, 1) == splits - 1;
+      if (s_last) *tk = 0;
+    }
     bar_sync(1, Q_CONSUMERS * 32);
     if (!s_last) return;
     __threadfence();
@@ -803,7 +806,9 @@ bool shapes_ok(int experts, int T, int out_features, int in_features, int ldb) {
 // dynamic bytes, checked against the kernel's own layout; splits > 1 splits
 // its contraction into runs of cols_per_split columns (a multiple of 256),
 // and partials [E, splits, ceil(T/bm)*bm, OUT] f32 and tickets [E,
-// ceil(T/bm), ceil(OUT/128)] int32, zeroed, are then required.
+// ceil(T/bm), ceil(OUT/128)] int32 are then required, the tickets zero
+// before the first launch: the last block of each output tile zeroes its
+// ticket again, so launches on one stream share one buffer.
 extern "C" int int4_matmul_launch(const void* x, const void* w4, const void* gscale, void* out,
                                   void* partials, void* tickets, int experts, int x_per_expert,
                                   int T, int splits, int cols_per_split, int out_features,

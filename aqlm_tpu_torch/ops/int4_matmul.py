@@ -283,7 +283,7 @@ def _run(xb, w4, gscale, name, x_per_expert):
             # each output tile to finish adds them in a fixed order
             partials = torch.empty(p.partials_shape(rows, out_features, experts),
                                    dtype=torch.float32, device=dev)
-            tickets = torch.zeros(p.n_tickets(experts), dtype=torch.int32, device=dev)
+            tickets = _build.tickets(dev, p.n_tickets(experts))
         rc = lib.int4_matmul_launch(
             xb.data_ptr(), w4.data_ptr(), gscale.data_ptr(), out.data_ptr(),
             None if partials is None else partials.data_ptr(),

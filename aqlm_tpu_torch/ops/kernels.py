@@ -23,7 +23,9 @@ calibration path and every reference-mode matmul on the card):
   from Kx8 codes, ``csrc/calib_dequant.cu``;
 - B14 ``cb_grad_segment``: the codebook gradient, a segment sum of the
   weight gradient's groups by code, S <= ``CB_GRAD_MAX_SEGMENTS``, in the
-  same source.
+  same source, laid out by the pure ``cb_grad_plan`` (one block an SM, a
+  float2 a thread added into bank-interleaved shared copies, the partial
+  sums merged in block order by a second short kernel).
 
 and B16 ``gather_wraps``, the lane-gather wrap probe (``csrc/gather_wraps.cu``),
 which no kernel of the port consults.
@@ -41,6 +43,7 @@ from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.ops import _build
 
 __all__ = ["ONEHOT_GEMV_MAX_ROWS", "CB_GRAD_MAX_SEGMENTS", "OnehotPlan", "onehot_plan",
+           "CbGradPlan", "cb_grad_plan",
            "fused_onehot_matmul",
            "fused_onehot_matmul_indexed", "dequantize_groups", "dequantize_onehot",
            "cb_grad_segment", "gather_wraps"]
@@ -353,9 +356,57 @@ def cb_grad_plain(codes, data, num_segments: int, *, precise: bool = True):
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class CbGradPlan:
+    """One launch of B14: ``blocks`` blocks of ``CB_GRAD_THREADS`` threads
+    (one an SM at most), block b taking the groups [b * groups_per_block,
+    (b + 1) * groups_per_block); a thread owns ``vec`` neighbouring columns
+    (2: one float2 load), thread rows of ``cols`` lanes, ``rows`` groups a
+    block step; the adds go into ``slots`` shared [K, S, g] copies (a
+    warp's i-th group row into copy i: 32 / cols bank-interleaved copies
+    where cols divides 32 and they fit), ``smem`` bytes. With more than one
+    block, each writes the sum of its copies to a slice of the f32 partials
+    (``partials`` elements) and a merge kernel adds the slices in block
+    order. The kernel works out the same geometry from ``blocks``, ``slots``
+    and ``vec``."""
+
+    blocks: int
+    vec: int
+    groups_per_block: int
+    cols: int
+    rows: int
+    slots: int
+    smem: int
+    partials: int
+
+
+CB_GRAD_THREADS = 1024  # the kernel's block (CG_THREADS)
+_CB_GRAD_MIN_ELEMS = CB_GRAD_THREADS * 8 * 4  # data elements below which a block more is not worth it
+_CB_GRAD_MAX_BLOCKS = 256  # the merge kernel's limit (16 chunks of 16 slices)
+
+
+def cb_grad_plan(G: int, K: int, S: int, g: int, sms: int, pairs: bool = True) -> CbGradPlan:
+    """B14's launch geometry for ``G`` groups of ``g`` floats, K codebooks of
+    S segments, on a card of ``sms`` SMs: one block an SM, fewer where the
+    data is small (a block per 32K elements), one block (no merge) for the
+    smallest, and only as many blocks as runs of ceil(G / blocks) groups
+    fill; a float2 a thread where g is even and ``pairs`` (the data 8-byte
+    aligned)."""
+    blocks = max(1, min(sms, _CB_GRAD_MAX_BLOCKS, -(-G * g // _CB_GRAD_MIN_ELEMS)))
+    if G:  # no empty block
+        blocks = -(-G // -(-G // blocks))
+    vec = 2 if pairs and g % 2 == 0 else 1
+    cols = min(g // vec, CB_GRAD_THREADS)
+    slots = 32 // cols if 32 % cols == 0 and K * S * 32 * vec * 4 <= SMEM_LIMIT else 1
+    n_acc = K * S * g
+    return CbGradPlan(blocks, vec, -(-G // blocks), cols, CB_GRAD_THREADS // cols, slots,
+                      n_acc * slots * 4, blocks * n_acc if blocks > 1 else 0)
+
+
 def cb_grad_launch(codes, data, num_segments: int, *, precise: bool = True):
     """B14 on the card (same arguments as ``cb_grad_plain``): uint8 codes, f32
-    data, K * S * g * 4 bytes within a block's shared memory."""
+    data, K * S * g * 4 bytes within a block's shared memory. Allocates its
+    output; the partial sums live in the stream's ``_build.scratch``."""
     G, K = codes.shape
     g = data.shape[1]
     dev = codes.device
@@ -369,9 +420,12 @@ def cb_grad_launch(codes, data, num_segments: int, *, precise: bool = True):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("cb_grad kernel operands must be contiguous on one CUDA device")
     out = torch.empty((K, num_segments, g), dtype=torch.float32, device=dev)
+    p = cb_grad_plan(G, K, num_segments, g, _build.sm_count(dev.index), data.data_ptr() % 8 == 0)
+    partials = _build.scratch(dev, p.partials) if p.partials else None
     lib, _ = _build.library()
-    rc = lib.cb_grad_launch(codes.data_ptr(), data.data_ptr(), out.data_ptr(), G, K,
-                            num_segments, g, int(precise),
+    rc = lib.cb_grad_launch(codes.data_ptr(), data.data_ptr(), out.data_ptr(),
+                            None if partials is None else partials.data_ptr(), G, K,
+                            num_segments, g, p.blocks, p.slots, p.vec, int(precise),
                             _build.stream_ptr(dev))
     _build.check(rc, "cb_grad_segment")
     _build.KERNELS["cb_grad_segment"].launches += 1

@@ -824,12 +824,14 @@ def _f32_bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 def check_calib(gen, dev, failures):
     """B13 (the calibration dequant) at q, gate and down, unit scales, as the
     differentiable dequant calls it: precise bit-identical to its plain
-    version, bf16-selecting (precise=False) within one bf16 step. B14 (the
-    codebook gradient) at the groups of q and gate, K 2, S 256, g 8, both
-    modes: each segment within 1e-5 of its sum of |data| of a float64 plain
-    sum (of the bf16-rounded data when not precise). Library calls: B13's
-    function is ``embedding_bag(mode="sum")`` over codes offset by k*S into
-    the flattened codebooks (the reference's own dequant); B14's one
+    version, bf16-selecting (precise=False) within one bf16 step; and precise
+    with per-row scales (as ``dequantize_onehot`` calls it), bit-identical.
+    B14 (the codebook gradient) at the groups of q and gate, K 2, S 256, g 8,
+    both modes: each segment within 1e-5 of its sum of |data| of a float64
+    plain sum (of the bf16-rounded data when not precise); whether a second
+    run is bitwise the first is recorded. Library calls: B13's function is
+    ``embedding_bag(mode="sum")`` over codes offset by k*S into the
+    flattened codebooks (the reference's own dequant); B14's one
     ``index_add_`` over the flat index k*S + code with the data expanded per
     codebook (indices and expansion made before the timed call)."""
     import torch.nn.functional as F
@@ -843,9 +845,11 @@ def check_calib(gen, dev, failures):
         codes = torch.randint(0, S, (N_CALIB_COPIES, out_f, ig, K), generator=gen, device=dev,
                               dtype=torch.int32).to(torch.uint8)
         cb = torch.randn((K, S, g), generator=gen, device=dev) / 4
-        for precise in (True, False):
-            got = kn.dequant_launch(codes[0], cb, precise=precise)
-            want = kn.dequant_plain(codes[0], cb, precise=precise)
+        row_scales = torch.rand(out_f, generator=gen, device=dev) + 0.5
+        for precise, scaled in ((True, False), (False, False), (True, True)):
+            sc = row_scales if scaled else None
+            got = kn.dequant_launch(codes[0], cb, sc, precise=precise)
+            want = kn.dequant_plain(codes[0], cb, sc, precise=precise)
             if precise:
                 err = float((got - want).abs().max())
                 cmp = {"max_abs_err": err, "bit_identical": bool(torch.equal(got, want)),
@@ -853,12 +857,12 @@ def check_calib(gen, dev, failures):
             else:
                 cmp = compare(got, want)
             del got, want
-            run = lambda i=0: kn.dequant_launch(codes[i % N_CALIB_COPIES], cb, precise=precise)
-            plain = lambda i=0: kn.dequant_plain(codes[0], cb, precise=precise)
+            run = lambda i=0: kn.dequant_launch(codes[i % N_CALIB_COPIES], cb, sc, precise=precise)
+            plain = lambda i=0: kn.dequant_plain(codes[0], cb, sc, precise=precise)
             ms = time_ms(run, 20)
             plain_ms = time_ms(plain, 3)
             library_ms = None
-            if precise:
+            if precise and not scaled:
                 idx = codes[0].reshape(-1, K).long() + torch.arange(K, device=dev) * S
                 table = cb.reshape(K * S, g)
                 library = lambda i=0: F.embedding_bag(idx, table, mode="sum")
@@ -867,16 +871,19 @@ def check_calib(gen, dev, failures):
                 library_ms = time_ms(library, 20)
                 del idx
             G = out_f * ig
-            b_ms, b_by = _f32_bound(G * K + K * S * g * 4 + out_f * in_f * 4, G * g * K)
+            b_ms, b_by = _f32_bound(  # codes, codebooks, W (and the scales, their products)
+                G * K + K * S * g * 4 + out_f * in_f * 4 + (out_f * 4 if scaled else 0),
+                G * g * K + (out_f * in_f if scaled else 0))
             rec = {"phase": "check", "kernel": "dequantize_onehot", "proj": name,
                    "out_features": out_f, "in_features": in_f, "K": K, "S": S, "precise": precise,
-                   **cmp, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "library": "F.embedding_bag(mode='sum')", "library_ms": library_ms,
-                   "host_ms": host_ms(run)}
+                   "scales": scaled, **cmp, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by,
+                   "library": None if scaled else "F.embedding_bag(mode='sum')",
+                   "library_ms": library_ms, "host_ms": host_ms(run)}
             emit(rec)
             if not cmp["ok"]:
                 failures.append(rec)
-            if name == "gate" and precise:
+            if name == "gate" and precise and not scaled:
                 reps["dequantize_onehot"] = rec
             torch.cuda.empty_cache()
         if name != "down":  # B14 at the groups of q and of gate
@@ -893,7 +900,8 @@ def check_calib(gen, dev, failures):
                     mass[k].index_add_(0, flat[:, k].long(), d64.abs())
                 err = (got.double() - want).abs()
                 ok = bool(torch.isfinite(got).all()) and bool((err <= 1e-5 * mass).all())
-                cmp = {"max_abs_err": float(err.max()),
+                rerun = bool(torch.equal(got, kn.cb_grad_launch(flat, data, S, precise=precise)))
+                cmp = {"max_abs_err": float(err.max()), "rerun_bitwise": rerun,
                        "max_err_over_mass": float((err / mass.clamp(min=1e-30)).max()),
                        "tol": "1e-5 * segment sum of |data| (float64 plain sum)", "ok": ok}
                 del got, want, mass, d64, err

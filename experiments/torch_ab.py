@@ -1,7 +1,7 @@
-"""Time the int8, int4, all-expert int8 or int4, or flash-decode (K3) kernel
-of one copy of aqlm_tpu_torch, for A/B comparisons.
+"""Time the int8, int4, all-expert int8 or int4, flash-decode (K3), B13 or
+B14 kernel of one copy of aqlm_tpu_torch, for A/B comparisons.
 
-    python3 experiments/torch_ab.py ROOT TAG {int8,int4,int8_moe,int4_moe,k3} [check]
+    python3 experiments/torch_ab.py ROOT TAG {int8,int4,int8_moe,int4_moe,k3,b13,b14} [check]
 
 ROOT is a directory holding an ``aqlm_tpu_torch`` package (``.`` for the
 checkout; copies of the package in other directories build their kernels
@@ -22,9 +22,17 @@ gate/up (shared x) and down (per-expert x), cycling 2 stacked layers. ``k3``
 times the fused KV write + flash decode at B=4, 32 query heads over 32, 16,
 8 and 4 kv heads (1, 2, 4 and 8 per kv head), D=128 and 64, int8 and bf16
 caches of 2048 rows at offsets 0/511/512/1999, cycling 4 layers, each shape
-checked once against the plain version (output and written cache). Compare
-two copies within one call on one card, in turns (A, B, B, A). Exits
-non-zero on any mismatch.
+checked once against the plain version (output and written cache). ``b13``
+times the calibration dequant (``kernels.dequant_launch``) at Llama-2-7B's
+q, gate and down (2x8 g8, unit scales, cycling 4 copies of the codes), both
+modes, each held bit-identical to ``dequant_plain``; its ``check`` first
+runs K 1-8, g 3/4/8/12/16, S 16-256, with and without scales, against the
+plain version. ``b14`` times the codebook gradient (``kernels.cb_grad_launch``)
+at the groups of q, gate and down, K 2, S 256, g 8, both modes, each within
+1e-5 of each segment's sum of |data| of a float64 sum; its ``check`` first
+runs K 1-8, S 16-512, g 3/4/8/16 and G from 1 to 300000 the same way, and
+reports whether two runs agree bitwise. Compare two copies within one call
+on one card, in turns (A, B, B, A). Exits non-zero on any mismatch.
 """
 import json
 import os
@@ -41,6 +49,93 @@ from aqlm_tpu_torch.ops import _build  # noqa: E402
 from aqlm_tpu_torch.ops import flash_decode as fd  # noqa: E402
 from aqlm_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from aqlm_tpu_torch.ops import int8_matmul as i8  # noqa: E402
+
+
+
+def calib(kernel, check):
+    """The b13 / b14 modes (see the docstring)."""
+    from chip_smoke import CALIB_PROJS
+    from aqlm_tpu_torch.ops import kernels as kn
+
+    assert kn.__file__.startswith(os.path.abspath(root)), kn.__file__
+    bad, res = 0, {}
+
+    def b14_ok(codes, data, S, precise):
+        got = kn.cb_grad_launch(codes, data, S, precise=precise)
+        d64 = (data if precise else data.to(torch.bfloat16).float()).double()
+        want = torch.zeros((codes.shape[1], S, data.shape[1]), dtype=torch.float64, device=dev)
+        mass = torch.zeros_like(want)
+        for k in range(codes.shape[1]):
+            want[k].index_add_(0, codes[:, k].long(), d64)
+            mass[k].index_add_(0, codes[:, k].long(), d64.abs())
+        ok = bool(torch.isfinite(got).all()) and bool(((got.double() - want).abs() <= 1e-5 * mass).all())
+        return ok, got
+
+    if kernel == "b13":
+        if check:
+            for K, og, ig, g_, S in [(1, 129, 16, 8, 256), (2, 333, 37, 8, 256), (4, 65, 9, 16, 256),
+                                     (8, 65, 9, 8, 256), (2, 31, 5, 4, 16), (2, 17, 6, 3, 256),
+                                     (3, 40, 7, 8, 256), (2, 50, 4, 12, 64), (5, 7, 3, 5, 32)]:
+                codes = torch.randint(0, S, (og, ig, K), generator=g, device=dev,
+                                      dtype=torch.int32).to(torch.uint8)
+                cb = torch.randn((K, S, g_), generator=g, device=dev)
+                sc = torch.rand(og, generator=g, device=dev) + 0.5
+                for scales in (None, sc):
+                    for precise in (True, False):
+                        ok = torch.equal(kn.dequant_launch(codes, cb, scales, precise=precise),
+                                         kn.dequant_plain(codes, cb, scales, precise=precise))
+                        bad += not ok
+                        if not ok:
+                            print("FAIL", K, og, ig, g_, S, scales is None, precise, flush=True)
+            print(tag, "check bad", bad, flush=True)
+        for name, out_f, in_f in CALIB_PROJS:
+            ig = in_f // 8
+            codes = torch.randint(0, 256, (4, out_f, ig, 2), generator=g, device=dev,
+                                  dtype=torch.int32).to(torch.uint8)
+            cb = torch.randn((2, 256, 8), generator=g, device=dev) / 4
+            for precise in (True, False):
+                bad += not torch.equal(kn.dequant_launch(codes[0], cb, precise=precise),
+                                       kn.dequant_plain(codes[0], cb, precise=precise))
+                res[f"{name}/{'precise' if precise else 'bf16'}"] = round(time_ms(
+                    lambda i=0: kn.dequant_launch(codes[i % 4], cb, precise=precise), 20, 5), 5)
+            del codes
+            torch.cuda.empty_cache()
+    else:
+        if check:
+            same = True
+            for K, S, G, g_ in [(1, 16, 1001, 8), (2, 256, 77777, 8), (8, 256, 4099, 8),
+                                (2, 512, 30001, 8), (3, 16, 513, 4), (2, 256, 300000, 16),
+                                (5, 64, 20000, 3), (4, 256, 1, 8), (2, 256, 0, 8)]:
+                codes = torch.randint(0, min(S, 256), (G, K), generator=g, device=dev,
+                                      dtype=torch.int32).to(torch.uint8)
+                data = torch.randn((G, g_), generator=g, device=dev)
+                for precise in (True, False):
+                    ok, got = b14_ok(codes, data, S, precise)
+                    same = same and torch.equal(got, kn.cb_grad_launch(codes, data, S, precise=precise))
+                    bad += not ok
+                    if not ok:
+                        print("FAIL", K, S, G, g_, precise, flush=True)
+            print(tag, "check bad", bad, "reruns bitwise equal", same, flush=True)
+        for name, out_f, in_f in CALIB_PROJS:
+            G = out_f * in_f // 8
+            codes = torch.randint(0, 256, (G, 2), generator=g, device=dev,
+                                  dtype=torch.int32).to(torch.uint8)
+            data = torch.randn((G, 8), generator=g, device=dev)
+            for precise in (True, False):
+                bad += not b14_ok(codes, data, 256, precise)[0]
+                res[f"{name}/{'precise' if precise else 'bf16'}"] = round(time_ms(
+                    lambda i=0: kn.cb_grad_launch(codes, data, 256, precise=precise), 20, 5), 5)
+            del codes, data
+            torch.cuda.empty_cache()
+    print(tag, kernel, "bad", bad, json.dumps(res), flush=True)
+    sys.exit(1 if bad else 0)
+
+
+if kernel in ("b13", "b14"):
+    _build.library()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    calib(kernel, len(sys.argv) > 4)
 
 m = i8 if kernel in ("int8", "int8_moe") else i4
 moe = kernel.endswith("_moe")

@@ -16,6 +16,7 @@ f32 output (the weight rounded to bf16, as K2 rounds it), within one step."""
 import dataclasses
 import functools
 import math
+import re
 
 import numpy as np
 import pytest
@@ -1018,48 +1019,192 @@ def test_1x16_engine_on_the_card_launches_its_kernels(dev):
 # --- B13 / B14: the differentiable dequant of calibration ----------------------------------
 
 
+def _unaligned(t):
+    """A contiguous copy of uint8 ``t`` whose data starts one byte past an
+    aligned address (the kernels then read each group's codes byte by byte)."""
+    buf = torch.empty(t.numel() + 1, dtype=torch.uint8, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# B13: K 1/2/4/8 (one vector load of a group's codes) and 3 (byte loads); g 8
+# and 16 (float4 lanes, two or four a group), 4, 12, 3 and 5 (g % 4 != 0:
+# float lanes); S 16 and 256; odd group counts
+B13_SHAPES = [(1, 129, 16, 8, 256), (2, 333, 37, 8, 256), (8, 65, 9, 8, 256), (2, 31, 5, 4, 256),
+              (2, 17, 6, 3, 256), (4, 65, 9, 16, 256), (2, 77, 13, 16, 16), (3, 40, 7, 8, 256),
+              (2, 50, 4, 12, 64), (5, 7, 3, 5, 32), (1, 3, 1, 8, 16)]
+
+
 @pytest.mark.parametrize("precise", [True, False])
-@pytest.mark.parametrize("K,og,ig,g", [(1, 129, 16, 8), (2, 333, 37, 8), (8, 65, 9, 8),
-                                       (2, 31, 5, 4), (2, 17, 6, 3)])
-def test_dequantize_kernel_matches_plain(dev, K, og, ig, g, precise):
+@pytest.mark.parametrize("K,og,ig,g,S", B13_SHAPES)
+def test_dequantize_kernel_matches_plain(dev, K, og, ig, g, S, precise):
     """B13 against its plain version: bit-identical (the same f32 adds in
-    codebook order from zero), with and without scales; odd group counts,
-    g 8 (16-byte stores), 4 and 3 (one float at a time)."""
-    gen = torch.Generator(device=dev).manual_seed(K * og)
+    codebook order from zero), with and without scales, with codes aligned
+    for one load a group and one byte past it."""
+    gen = torch.Generator(device=dev).manual_seed(K * og + S)
+    codes = torch.randint(0, S, (og, ig, K), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    cb = torch.randn((K, S, g), generator=gen, device=dev)
+    scales = torch.rand(og, generator=gen, device=dev) + 0.5
+    before = _build.KERNELS["dequantize_onehot"].launches
+    for c in (codes, _unaligned(codes)):
+        for sc in (None, scales):
+            got = k15.dequant_launch(c, cb, sc, precise=precise)
+            assert torch.equal(got, k15.dequant_plain(codes, cb, sc, precise=precise))
+    assert _build.KERNELS["dequantize_onehot"].launches == before + 4
+
+
+def test_dequantize_kernel_cuts_runs_of_2g_floats(dev):
+    """A W of more than 2^31 - 1 floats (8.6 GB) runs in two runs of whole
+    rows, each indexed in 32 bits: the rows either side of the cut, the
+    first and the last agree with the plain version bit for bit (scaled,
+    so each run's scales pointer is checked too)."""
+    ig, K, g = 512, 2, 8
+    rows_per_run = (2 ** 31 - 1) // (ig * g)  # the kernel's run of whole rows
+    og = rows_per_run + 2
+    gen = torch.Generator(device=dev).manual_seed(9)
     codes = torch.randint(0, 256, (og, ig, K), generator=gen, device=dev,
                           dtype=torch.int32).to(torch.uint8)
     cb = torch.randn((K, 256, g), generator=gen, device=dev)
     scales = torch.rand(og, generator=gen, device=dev) + 0.5
-    before = _build.KERNELS["dequantize_onehot"].launches
-    for sc in (None, scales):
-        got = k15.dequant_launch(codes, cb, sc, precise=precise)
-        assert torch.equal(got, k15.dequant_plain(codes, cb, sc, precise=precise))
-    assert _build.KERNELS["dequantize_onehot"].launches == before + 2
+    got = k15.dequant_launch(codes, cb, scales)
+    for r in (0, rows_per_run - 1, rows_per_run, og - 1):
+        want = k15.dequant_plain(codes[r:r + 1], cb, scales[r:r + 1])
+        assert torch.equal(got[r:r + 1], want), r
+    del got, codes
+    torch.cuda.empty_cache()
 
 
+# B14: K 1/2/3/4/5/8; S 16, 64, 256 and 512 (uint8 codes fill the first 256
+# segments, the rest must come out 0); g 1, 2, 3, 4, 8, 16, 32 and 1500
+# (a float2 a thread at even g, a float at odd; bank-interleaved copies and
+# one shared copy; a thread's columns wrapping past 2 x 1024); G 0 and 1,
+# below one block's share (one block, written straight to the output), a few
+# blocks (one merge chunk), more than 16 blocks (several chunks) and one
+# block an SM
 CB_GRAD_SHAPES = [(1, 16, 1001, 8), (2, 256, 77777, 8), (8, 256, 4099, 8), (2, 512, 30001, 8),
-                  (3, 16, 513, 4)]
+                  (3, 16, 513, 4), (4, 256, 600001, 16), (5, 64, 50000, 3), (2, 256, 0, 8),
+                  (1, 256, 1, 8), (2, 256, 2000003, 8), (3, 64, 200000, 8), (2, 256, 100000, 32),
+                  (2, 256, 1048576, 1), (2, 256, 300007, 2), (1, 4, 3001, 1500)]
+
+
+def _cb_grad_check(got, codes, data, precise):
+    """Within 1e-5 of each segment's sum of |data| of a float64 sum (of the
+    bf16-rounded data when not precise)."""
+    K, S, g = got.shape
+    d64 = (data if precise else data.to(torch.bfloat16).float()).double()
+    want = torch.zeros((K, S, g), dtype=torch.float64, device=data.device)
+    mass = torch.zeros_like(want)
+    for k in range(K):
+        want[k].index_add_(0, codes[:, k].long(), d64)
+        mass[k].index_add_(0, codes[:, k].long(), d64.abs())
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got.double() - want).abs() <= 1e-5 * mass).all())
 
 
 @pytest.mark.parametrize("precise", [True, False])
 @pytest.mark.parametrize("K,S,G,g", CB_GRAD_SHAPES)
 def test_cb_grad_kernel_matches_float64(dev, K, S, G, g, precise):
-    """B14 within 1e-5 of each segment's sum of |data| of a float64 sum (of
-    the bf16-rounded data when not precise); odd group counts, S up to 512
-    (uint8 codes fill the first 256 segments; the rest must come out 0)."""
-    gen = torch.Generator(device=dev).manual_seed(G)
-    codes = torch.randint(0, min(S, 256), (G, K), generator=gen, device=dev, dtype=torch.int32)
+    """B14 within 1e-5 of each segment's sum of |data| of a float64 sum, with
+    codes aligned for one load a group and one byte past it, and data
+    aligned for float2 lanes and one float past it (float lanes)."""
+    gen = torch.Generator(device=dev).manual_seed(G + K)
+    codes = torch.randint(0, min(S, 256), (G, K), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
     data = torch.randn((G, g), generator=gen, device=dev)
+    shifted = torch.empty(G * g + 1, device=dev)[1:].view(G, g)
+    shifted.copy_(data)
     before = _build.KERNELS["cb_grad_segment"].launches
-    got = k15.cb_grad_segment(codes.to(torch.uint8), data, S, precise=precise)
-    assert _build.KERNELS["cb_grad_segment"].launches == before + 1
-    d64 = (data if precise else data.to(torch.bfloat16).float()).double()
-    want = torch.zeros((K, S, g), dtype=torch.float64, device=dev)
-    mass = torch.zeros_like(want)
-    for k in range(K):
-        want[k].index_add_(0, codes[:, k].long(), d64)
-        mass[k].index_add_(0, codes[:, k].long(), d64.abs())
-    assert bool(((got.double() - want).abs() <= 1e-5 * mass).all())
+    for c, d in ((codes, data), (_unaligned(codes), shifted)):
+        _cb_grad_check(k15.cb_grad_segment(c, d, S, precise=precise), codes, data, precise)
+    assert _build.KERNELS["cb_grad_segment"].launches == before + 2
+
+
+def test_cb_grad_cases_cover_every_plan_branch(dev):
+    """The shapes above reach one block and several, one merge chunk,
+    several and a block an SM, float2 and float lanes, bank-interleaved
+    copies and one shared copy."""
+    sms = _build.sm_count(dev.index)
+    plans = [k15.cb_grad_plan(G, K, S, g, sms, pairs)
+             for K, S, G, g in CB_GRAD_SHAPES for pairs in (True, False)]
+    assert {p.blocks == 1 for p in plans} == {True, False}
+    chunks = {-(-p.blocks // 16) for p in plans if p.blocks > 1}  # the merge's chunks of 16 slices
+    assert chunks >= {1, 2, -(-sms // 16)}
+    assert max(p.blocks for p in plans) == min(sms, 256)
+    assert {(p.vec, p.slots > 1) for p in plans} == {(v, i) for v in (1, 2) for i in (False, True)}
+
+
+def test_cb_grad_back_to_back_and_on_two_streams(dev):
+    """Launches back to back on one stream share its partial sums, and
+    launches on two streams at once keep their own: every result holds
+    against its own float64 sum."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = []
+    for G in (600001, 300007):
+        codes = torch.randint(0, 256, (G, 2), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+        cases.append((codes, torch.randn((G, 8), generator=gen, device=dev)))
+    outs = [k15.cb_grad_segment(c, d, 256) for c, d in cases for _ in range(2)]
+    for i, got in enumerate(outs):
+        _cb_grad_check(got, *cases[i // 2], True)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    for _ in range(6):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(k15.cb_grad_segment(*cases[i], 256))
+    torch.cuda.synchronize(dev)
+    for case, got in zip(cases, outs):
+        for o in got:
+            _cb_grad_check(o, *case, True)
+
+
+def _kernel_names(fn):
+    """The names of the device activities (kernels, memsets, copies) of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_calib_kernels_allocate_only_their_output_and_set_no_memory(dev):
+    """After a first launch, a B13 or B14 launch allocates its output and
+    nothing else, issues no synchronising call and no memset; B14 at a
+    shape of many blocks runs its kernel and the merge, at a small one its
+    kernel alone."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    codes = torch.randint(0, 256, (4096, 512, 2), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    cb = torch.randn((2, 256, 8), generator=gen, device=dev)
+    flat = codes.reshape(-1, 2)
+    data = torch.randn((flat.shape[0], 8), generator=gen, device=dev)
+    runs = {"b13": lambda: k15.dequant_launch(codes, cb),
+            "b14": lambda: k15.cb_grad_launch(flat, data, 256),
+            "b14_small": lambda: k15.cb_grad_launch(flat[:300], data[:300], 256)}
+    for name, run in runs.items():
+        run()
+        torch.cuda.synchronize(dev)
+        allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs + 1, name
+        names = _kernel_names(run)
+        assert not [n for n in names if "emset" in n or "emcpy" in n], (name, names)
+        kernels = sorted(k for n in names for k in ("dequant4_kernel", "dequant1_kernel",
+                                                    "cb_grad_kernel", "cb_grad_merge_kernel")
+                         if re.search(rf"\b{k}\b", n))
+        want = {"b13": ["dequant4_kernel"], "b14": ["cb_grad_kernel", "cb_grad_merge_kernel"],
+                "b14_small": ["cb_grad_kernel"]}[name]
+        assert kernels == want, (name, names)
 
 
 def test_dequant_wrappers_raise(dev):
@@ -1815,6 +1960,67 @@ def test_int8_split_tickets_on_two_streams(dev, case):
     equals its stream's first and the plain version."""
     gen = torch.Generator(device=dev).manual_seed(8)
     pairs = [_split8_run(gen, dev, *case) for _ in range(2)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(pairs[i][0]())
+    torch.cuda.synchronize(dev)
+    for (_, want), got in zip(pairs, outs):
+        _close(got[0], want)
+        assert all(torch.equal(g, got[0]) for g in got)
+
+
+# The int4 prefill GEMM's split path: its last blocks zero their tickets
+# again, as the int8 GEMM's do (dense at bm 64 and 128, and all-expert).
+SPLIT4_CASES = [("bm64", 64, 4096, 11008, 0), ("bm128", 200, 520, 11008, 0),
+                ("moe", 64, 520, 1040, 3)]
+
+
+def _split4_run(gen, dev, rows, out_f, in_f, experts):
+    sms = _build.sm_count(dev.index)
+    ldb = i4.pad_in_features_int4(in_f) // 2
+    assert i4.plan(rows, out_f, in_f, ldb, max(experts, 1), sms).splits > 1
+    x = torch.randn((rows, in_f), generator=gen, device=dev).to(torch.bfloat16)
+    if experts:
+        w4, gs = _int4_moe(experts, out_f, in_f, L=1)
+        return (lambda: i4.moe_launch(x, w4[0], gs[0])), i4.moe_plain(x, w4[0], gs[0])
+    w4, gs, _ = _int4(gen, dev, 1, out_f=out_f, in_f=in_f)
+    return (lambda: i4.launch(x, w4[0], gs[0])), i4.plain(x, w4[0], gs[0])
+
+
+@pytest.mark.parametrize("case", SPLIT4_CASES, ids=lambda c: c[0])
+def test_int4_split_tickets_reset_themselves(dev, case):
+    """Ten launches back to back: every one within a bf16 step of the plain
+    version and bit-identical to the first; the stream's tickets are zero
+    after each, and no launch allocates tickets or issues a synchronising
+    call."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    run, want = _split4_run(gen, dev, *case[1:])
+    first = run()
+    _close(first, want)
+    torch.cuda.synchronize(dev)
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [run() for _ in range(10)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # each launch: its output and its f32 partial sums, no tickets
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs + 20
+    assert all(torch.equal(o, first) for o in outs)
+    assert not _build.tickets(dev, 1).any()
+
+
+@pytest.mark.parametrize("case", SPLIT4_CASES, ids=lambda c: c[0])
+def test_int4_split_tickets_on_two_streams(dev, case):
+    """Launches on two streams at once keep their own tickets: each launch
+    equals its stream's first and the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    pairs = [_split4_run(gen, dev, *case[1:]) for _ in range(2)]
     streams = [torch.cuda.Stream(dev) for _ in range(2)]
     for st in streams:
         st.wait_stream(torch.cuda.current_stream(dev))
