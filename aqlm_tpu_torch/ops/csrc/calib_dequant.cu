@@ -33,9 +33,11 @@
 //   a thread a whole group, two float4 stores 16 bytes apart, each warp store
 //   spread over 1 KB: its stores alone ran at 26% of the byte bound); at
 //   other g a lane owns one float (128 contiguous bytes a warp store). A
-//   thread takes four such units a step and has the next step's code loads
-//   in flight while it sums and stores this step's: one load of K bytes where
-//   K is 1, 2, 4 or 8 and the codes are aligned for it, else K byte loads.
+//   thread takes four such units a step, their code loads issued before any
+//   sum: one load of K bytes where K is 1, 2, 4 or 8 and the codes are
+//   aligned for it, else K byte loads into a 64-bit word (3.6% slower at
+//   gate; the next step's loads in flight as well, or 2 or 8 units, gained
+//   nothing).
 //   The lanes of a group read neighbouring float4s of one codebook row, so
 //   the gathers cost nothing measurable. Indices are 32-bit (a launch of
 //   more than 2^31 - 1 floats is cut into runs of whole rows), and a unit's
@@ -62,8 +64,9 @@
 //   the wrapper), and a second short kernel adds the slices in block order
 //   into the output: no global atomics, no memset, a fixed merge order. The
 //   atomics' order within a block is not fixed, so sums may differ in the
-//   last bits from run to run. A launch that needs one block writes the
-//   output straight from shared memory. Odd g, unaligned data or copies
+//   last bits from run to run. A group's codes come in one load as in B13
+//   (two byte loads at K = 2 ran 15% slower at gate, the 64-bit byte-load
+//   path 1.9x: half the groups a batch). Odd g, unaligned data or copies
 //   that do not fit take a float a thread and fewer copies. What bounds it
 //   now: the loads (with no adds at all it runs 8-13% faster at gate, at
 //   68-73% of the byte bound with 64 KB in flight an SM); the merge takes
@@ -164,24 +167,14 @@ __global__ void __launch_bounds__(DQ_THREADS)
   __syncthreads();
   const uint32_t q = (uint32_t)g >> 2;
   const uint32_t step = gridDim.x * (DQ_THREADS * DQ_UNITS);
-  // the next step's codes are in flight while this step's units are summed and stored
-  uint32_t n[DQ_UNITS];
-  CodeWord<kCodeBytes> cw[DQ_UNITS];
-  uint32_t f0 = blockIdx.x * (DQ_THREADS * DQ_UNITS) + threadIdx.x;
-#pragma unroll
-  for (int u = 0; u < DQ_UNITS; ++u) {
-    const uint32_t f = f0 + u * DQ_THREADS;
-    n[u] = div_by(f, per_group);
-    cw[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)n[u] * K, K) : 0;
-  }
-  for (; f0 < n4; f0 += step) {
-    uint32_t n_next[DQ_UNITS];
-    CodeWord<kCodeBytes> cw_next[DQ_UNITS];
+  for (uint32_t f0 = blockIdx.x * (DQ_THREADS * DQ_UNITS) + threadIdx.x; f0 < n4; f0 += step) {
+    uint32_t n[DQ_UNITS];
+    CodeWord<kCodeBytes> cw[DQ_UNITS];
 #pragma unroll
     for (int u = 0; u < DQ_UNITS; ++u) {
-      const uint32_t f = f0 + step + u * DQ_THREADS;  // f0 < n4 < 2^31, step < 2^31: no wrap
-      n_next[u] = div_by(f, per_group);
-      cw_next[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)n_next[u] * K, K) : 0;
+      const uint32_t f = f0 + u * DQ_THREADS;
+      n[u] = div_by(f, per_group);
+      cw[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)n[u] * K, K) : 0;
     }
 #pragma unroll
     for (int u = 0; u < DQ_UNITS; ++u) {
@@ -207,11 +200,6 @@ __global__ void __launch_bounds__(DQ_THREADS)
         acc.w *= s;
       }
       out[f] = acc;
-    }
-#pragma unroll
-    for (int u = 0; u < DQ_UNITS; ++u) {
-      n[u] = n_next[u];
-      cw[u] = cw_next[u];
     }
   }
 }
@@ -500,11 +488,9 @@ template <bool kPrecise>
 cudaError_t launch_cb_grad(const uint8_t* codes, const float* data, float* out, float* partials,
                            long long n_groups, int K, int S, int g, int blocks, int slots, int vec,
                            cudaStream_t st) {
-  float* dst = blocks == 1 ? out : partials;
-  cudaError_t err =
-      vec == 2 ? cb_grad_codes<kPrecise, 2>(codes, data, dst, n_groups, K, S, g, blocks, slots, st)
-               : cb_grad_codes<kPrecise, 1>(codes, data, dst, n_groups, K, S, g, blocks, slots, st);
-  if (err != cudaSuccess || blocks == 1) return err;
+  auto run = vec == 2 ? cb_grad_codes<kPrecise, 2> : cb_grad_codes<kPrecise, 1>;
+  cudaError_t err = run(codes, data, partials, n_groups, K, S, g, blocks, slots, st);
+  if (err != cudaSuccess) return err;
   const int n_acc = K * S * g;
   const dim3 block(32, (blocks + MG_CHUNK - 1) / MG_CHUNK);
   cb_grad_merge_kernel<<<(n_acc + 31) / 32, block, 0, st>>>(partials, out, n_acc, blocks);
@@ -528,7 +514,7 @@ extern "C" int calib_dequant_launch(const void* codes, const void* cb, const voi
 }
 
 // codes [G, K] uint8; data [G, g] f32; out [K, S, g] f32, every element
-// written; partials [blocks, K, S, g] f32 scratch (unused when blocks == 1);
+// written; partials [blocks, K, S, g] f32 scratch;
 // blocks (1-256), slots (1, or 32 / cols, cols = g / vec: the shared
 // copies a block keeps) and vec (1, or 2: a thread a float2, for even g and
 // 8-byte aligned data) as kernels.cb_grad_plan gives them.
@@ -537,7 +523,7 @@ extern "C" int cb_grad_launch(const void* codes, const void* data, void* out, vo
                               int vec, int precise, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (K < 1 || K > 8 || g < 1 || blocks < 1 || blocks > MG_CHUNK * MG_MAX_CHUNKS ||
-      (blocks > 1 && !partials) || (vec != 1 && vec != 2) || g % vec ||
+      !partials || (vec != 1 && vec != 2) || g % vec ||
       (vec == 2 && reinterpret_cast<uintptr_t>(data) % 8) ||
       (slots != 1 && slots * (g / vec) != 32))
     return cudaErrorInvalidValue;

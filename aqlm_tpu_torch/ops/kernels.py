@@ -364,11 +364,10 @@ class CbGradPlan:
     (2: one float2 load), thread rows of ``cols`` lanes, ``rows`` groups a
     block step; the adds go into ``slots`` shared [K, S, g] copies (a
     warp's i-th group row into copy i: 32 / cols bank-interleaved copies
-    where cols divides 32 and they fit), ``smem`` bytes. With more than one
-    block, each writes the sum of its copies to a slice of the f32 partials
-    (``partials`` elements) and a merge kernel adds the slices in block
-    order. The kernel works out the same geometry from ``blocks``, ``slots``
-    and ``vec``."""
+    where cols divides 32 and they fit), ``smem`` bytes. Each block writes
+    the sum of its copies to a slice of the f32 partials (``partials``
+    elements) and a merge kernel adds the slices in block order. The kernel
+    works out the same geometry from ``blocks``, ``slots`` and ``vec``."""
 
     blocks: int
     vec: int
@@ -381,18 +380,15 @@ class CbGradPlan:
 
 
 CB_GRAD_THREADS = 1024  # the kernel's block (CG_THREADS)
-_CB_GRAD_MIN_ELEMS = CB_GRAD_THREADS * 8 * 4  # data elements below which a block more is not worth it
 _CB_GRAD_MAX_BLOCKS = 256  # the merge kernel's limit (16 chunks of 16 slices)
 
 
 def cb_grad_plan(G: int, K: int, S: int, g: int, sms: int, pairs: bool = True) -> CbGradPlan:
     """B14's launch geometry for ``G`` groups of ``g`` floats, K codebooks of
-    S segments, on a card of ``sms`` SMs: one block an SM, fewer where the
-    data is small (a block per 32K elements), one block (no merge) for the
-    smallest, and only as many blocks as runs of ceil(G / blocks) groups
-    fill; a float2 a thread where g is even and ``pairs`` (the data 8-byte
-    aligned)."""
-    blocks = max(1, min(sms, _CB_GRAD_MAX_BLOCKS, -(-G * g // _CB_GRAD_MIN_ELEMS)))
+    S segments, on a card of ``sms`` SMs: one block an SM, and only as many
+    blocks as runs of ceil(G / blocks) groups fill; a float2 a thread where
+    g is even and ``pairs`` (the data 8-byte aligned)."""
+    blocks = max(1, min(sms, _CB_GRAD_MAX_BLOCKS, G))
     if G:  # no empty block
         blocks = -(-G // -(-G // blocks))
     vec = 2 if pairs and g % 2 == 0 else 1
@@ -400,7 +396,7 @@ def cb_grad_plan(G: int, K: int, S: int, g: int, sms: int, pairs: bool = True) -
     slots = 32 // cols if 32 % cols == 0 and K * S * 32 * vec * 4 <= SMEM_LIMIT else 1
     n_acc = K * S * g
     return CbGradPlan(blocks, vec, -(-G // blocks), cols, CB_GRAD_THREADS // cols, slots,
-                      n_acc * slots * 4, blocks * n_acc if blocks > 1 else 0)
+                      n_acc * slots * 4, blocks * n_acc)
 
 
 def cb_grad_launch(codes, data, num_segments: int, *, precise: bool = True):
@@ -420,12 +416,13 @@ def cb_grad_launch(codes, data, num_segments: int, *, precise: bool = True):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("cb_grad kernel operands must be contiguous on one CUDA device")
     out = torch.empty((K, num_segments, g), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
     p = cb_grad_plan(G, K, num_segments, g, _build.sm_count(dev.index), data.data_ptr() % 8 == 0)
-    partials = _build.scratch(dev, p.partials) if p.partials else None
+    partials = _build.scratch(dev, p.partials)
     lib, _ = _build.library()
-    rc = lib.cb_grad_launch(codes.data_ptr(), data.data_ptr(), out.data_ptr(),
-                            None if partials is None else partials.data_ptr(), G, K,
-                            num_segments, g, p.blocks, p.slots, p.vec, int(precise),
+    rc = lib.cb_grad_launch(codes.data_ptr(), data.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                            G, K, num_segments, g, p.blocks, p.slots, p.vec, int(precise),
                             _build.stream_ptr(dev))
     _build.check(rc, "cb_grad_segment")
     _build.KERNELS["cb_grad_segment"].launches += 1

@@ -47,7 +47,12 @@ merged by a second kernel):
   float a thread, four bank-interleaved copies and 32-bit atomics: the
   plan for odd g), ``b14_one_copy`` (one shared copy a block),
   ``b14_no_merge`` (the merge kernel is not launched), ``b14_l2_prefetch``
-  (thread 0 of a block asks L2 for the block's data two batches ahead).
+  (thread 0 of a block asks L2 for the block's data two batches ahead);
+- ``b13_byte_codes`` / ``b14_byte_codes``: a group's codes read by K byte
+  loads into a 64-bit word (the path for unaligned codes or K of 3, 5-7:
+  in B14 two groups a batch, not four), not one load of K bytes;
+  ``b13_b14_byte_loads``: at K 2, two byte loads into the same 32-bit word
+  as the one 2-byte load (both kernels timed).
 
 ``full`` is the source as it is. Beside them: ``fill`` (one ``fill_`` of
 the f32 W: the card's write ceiling as PyTorch reaches it) and
@@ -120,6 +125,8 @@ ATOMIC = {
 
 _MERGE_GATHER = """        const float4 v =
             *reinterpret_cast<const float4*>(s_cb + (k * S + code_of(cw[u], k)) * g + col);"""
+_CODE_BYTES = """  const int code_bytes =
+      (K == 1 || K == 2 || K == 4 || K == 8) && reinterpret_cast<uintptr_t>(codes) % K == 0 ? K : 0;"""
 _MERGE_NO_GATHER = (_MERGE_GATHER, """        const float4 v = make_float4((float)code_of(cw[u], k), 0.f, 0.f, 0.f);""")
 _PAIR_ADD = """              atomicAdd(p + sw, kPrecise ? v[u].x : round_bf16(v[u].x));
               atomicAdd(p + (sw ^ 1), kPrecise ? v[u].y : round_bf16(v[u].y));"""
@@ -132,10 +139,8 @@ MERGE = {
     "full": [],
     "b13_no_gather": [_MERGE_NO_GATHER],
     "b13_stores_only": [_MERGE_NO_GATHER, (
-        "    cw[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)n[u] * K, K) : 0;",
-        "    cw[u] = f;"), (
-        "      cw_next[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)n_next[u] * K, K) : 0;",
-        "      cw_next[u] = f;")],
+        "      cw[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)n[u] * K, K) : 0;",
+        "      cw[u] = f;")],
     "b13_occupancy8": [("""template <bool kPrecise, int kCodeBytes>
 __global__ void __launch_bounds__(DQ_THREADS)
     dequant4_kernel(""", """template <bool kPrecise, int kCodeBytes>
@@ -143,10 +148,12 @@ __global__ void __launch_bounds__(DQ_THREADS, 8)
     dequant4_kernel(""")],
     "b13_units2": [("constexpr int DQ_UNITS = 4;", "constexpr int DQ_UNITS = 2;")],
     "b13_codes_l2": [(
-        "    cw[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)n[u] * K, K) : 0;",
-        "    cw[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)(n[u] & 0xffff) * K, K) : 0;"), (
-        "      cw_next[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)n_next[u] * K, K) : 0;",
-        "      cw_next[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)(n_next[u] & 0xffff) * K, K) : 0;")],
+        "      cw[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)n[u] * K, K) : 0;",
+        "      cw[u] = f < n4 ? load_codes<kCodeBytes>(codes + (size_t)(n[u] & 0xffff) * K, K) : 0;")],
+    "b13_byte_codes": [(_CODE_BYTES + "\n  const FastDiv per_group", "  const int code_bytes = 0;\n  const FastDiv per_group")],
+    "b14_byte_codes": [(_CODE_BYTES + "\n  switch", "  const int code_bytes = 0;\n  switch")],
+    "b13_b14_byte_loads": [("    return __ldg(reinterpret_cast<const unsigned short*>(p));",
+                            "    return (uint32_t)__ldg(p) | ((uint32_t)__ldg(p + 1) << 8);")],
     "b14_loads_only": [_SINK_DECL, _SINK_USE, (
         _PAIR_ADD, "              sink += (v[u].x + v[u].y) * (float)(code_of(cw[u], k) + 1) + (float)(p - s_acc);")],
     "b14_plain_adds": [(_PAIR_ADD, """              p[sw] += kPrecise ? v[u].x : round_bf16(v[u].x);
@@ -164,8 +171,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 8)
         "        }")],
     "b14_floats": [],  # runtime: a float a thread (4 bank-interleaved copies, 32-bit atomics)
     "b14_one_copy": [],  # runtime: one shared copy a block
-    "b14_no_merge": [("  if (err != cudaSuccess || blocks == 1) return err;",
-                      "  if (err != cudaSuccess || blocks >= 1) return err;")],
+    "b14_no_merge": [("  cb_grad_merge_kernel<<<", "  if (n_acc < 0) cb_grad_merge_kernel<<<")],
 }
 PATCHES = MERGE if DESIGN == "merge" else ATOMIC
 if len(sys.argv) > 3:
@@ -328,7 +334,7 @@ def main():
                           "precise": precise, "ms": ms, "tb_s": w_bytes / ms / 1e9,
                           "share_of_byte_bound": w_bytes / HBM_BYTES_PER_S * 1e3 / ms,
                           **({"ok": ok} if variant == "full" else {})})
-                if variant == "full" or variant.startswith("b14"):
+                if variant == "full" or variant.startswith(("b14", "b13_b14")):
                     run = b14(lib, name, precise, variant)
                     if variant == "full":
                         flat = codes[0].reshape(-1, K)

@@ -1,8 +1,7 @@
 """B13's and B14's launch geometry on the CPU (no card needed).
 
-- ``kernels.cb_grad_plan``: B14's blocks (one an SM at most, none empty,
-  one with no merge for the smallest), its float2 lanes (even g, aligned
-  data), thread rows, bank-interleaved copies (each of a warp's adds on 32
+- ``kernels.cb_grad_plan``: B14's blocks (one an SM at most, none empty),
+  its float2 lanes (even g, aligned data), thread rows, bank-interleaved copies (each of a warp's adds on 32
   distinct banks whatever the codes, the aliasing copies' column pairs
   swapped), shared memory within ``SMEM_LIMIT`` and the partial sums, at
   Llama-2-7B's, Mixtral-8x7B's and Falcon-7B's calibration shapes and at
@@ -50,7 +49,7 @@ def _check_plan(p, G, K, S, g, sms, pairs=True):
     assert p.groups_per_block == -(-G // p.blocks)  # as the kernel computes it
     if G:  # no empty block
         assert (p.blocks - 1) * p.groups_per_block < G
-    assert p.partials == (p.blocks * K * S * g if p.blocks > 1 else 0)
+    assert p.partials == p.blocks * K * S * g
 
 
 @pytest.mark.parametrize("K", [1, 2, 4, 8])
@@ -74,9 +73,8 @@ def test_cb_grad_plan_at_calibration_shapes(name, out_f, in_f, K):
 def test_cb_grad_plan_edges(G, K, S, g, pairs):
     p = kn.cb_grad_plan(G, K, S, g, SMS, pairs)
     _check_plan(p, G, K, S, g, SMS, pairs)
-    # a block per 32K elements of data, at least one (fewer where runs of
-    # whole groups fill fewer)
-    assert p.blocks <= max(1, min(SMS, -(-G * g // 32768)))
+    # one an SM, at most one a group (fewer where runs of whole groups fill fewer)
+    assert p.blocks <= max(1, min(SMS, G))
 
 
 @pytest.mark.parametrize("sms", [1, 16, 17, 114, 132, 300])
