@@ -88,23 +88,9 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// n / d for 0 <= n < 2^31 and d >= 1 by a multiply and a shift: with
-// l = ceil(log2 d) and m = floor(2^32 (2^l - d) / d) + 1, n / d = (mulhi(n, m) + n) >> l.
-struct FastDiv {
-  uint32_t m;
-  uint32_t l;
-};
-
-FastDiv fast_div(uint32_t d) {
-  uint32_t l = 0;
-  while ((1ull << l) < d) ++l;
-  const uint64_t m = ((1ull << 32) * ((1ull << l) - d)) / d + 1;
-  return {(uint32_t)m, l};
-}
-
-__device__ __forceinline__ uint32_t div_by(uint32_t n, FastDiv f) {
-  return (__umulhi(n, f.m) + n) >> f.l;
-}
+using aqlm::div_by;
+using aqlm::fast_div;
+using aqlm::FastDiv;
 
 // a group's K code bytes, byte k at bits 8k: one load of B bytes (B = K,
 // aligned for it), or K byte loads (B = 0)

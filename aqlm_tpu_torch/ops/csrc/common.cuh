@@ -32,6 +32,24 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
+// n / d for 0 <= n < 2^31 and d >= 1 by a multiply and a shift: with
+// l = ceil(log2 d) and m = floor(2^32 (2^l - d) / d) + 1, n / d = (mulhi(n, m) + n) >> l.
+struct FastDiv {
+  uint32_t m;
+  uint32_t l;
+};
+
+inline FastDiv fast_div(uint32_t d) {
+  uint32_t l = 0;
+  while ((1ull << l) < d) ++l;
+  const uint64_t m = ((1ull << 32) * ((1ull << l) - d)) / d + 1;
+  return {(uint32_t)m, l};
+}
+
+__device__ __forceinline__ uint32_t div_by(uint32_t n, FastDiv f) {
+  return (__umulhi(n, f.m) + n) >> f.l;
+}
+
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 

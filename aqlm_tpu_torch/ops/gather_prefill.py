@@ -25,7 +25,7 @@ __all__ = [
     "gather_prefill_matmul",
     "gather_prefill_matmul_indexed",
     "gather_prefill_matmul_grouped_indexed",
-    "gather_dequant_wt",
+    "gather_dequant_wt", "WtPlan", "dequant_wt_plan",
 ]
 
 _KERNEL_GROUP = 8
@@ -251,10 +251,44 @@ def dequant_wt_plain(codes_tl, codebooks, scales, dtype=torch.bfloat16):
     return (wt * scales.float()[None, :]).to(dtype)
 
 
+_WT_WARPS = 8  # warps of a B5 block (WT_THREADS / 32)
+_WT_BLOCKS_PER_SM = 2
+_WT_COLS = 256  # output columns of a unit: 8 a lane
+
+
+@dataclasses.dataclass(frozen=True)
+class WtPlan:
+    """One B5 launch: a unit is one input group by ``_WT_COLS`` output
+    columns, ``chunks`` of them across OUT; a lane takes ``runs`` runs of
+    ``run`` consecutive columns (one 16-byte store a row each), ``run``
+    x 32 columns apart; ``blocks`` of ``_WT_WARPS`` warps walk the ``units``
+    warp-strided, column chunk fastest."""
+
+    run: int
+    runs: int
+    chunks: int
+    units: int
+    blocks: int
+
+
+def dequant_wt_plan(out_features: int, in_groups: int, dtype=torch.bfloat16,
+                    sm_count: int = 132) -> WtPlan:
+    """B5's launch geometry, a pure function of the shapes (the kernel's
+    ``launch_typed`` computes the same): 8 bf16 or 4 f32 columns a run, two
+    blocks an SM at most, none empty."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gather_dequant_wt kernel writes bf16 or f32, got {dtype}")
+    run = 16 // (2 if dtype == torch.bfloat16 else 4)
+    chunks = -(-out_features // _WT_COLS)
+    units = chunks * in_groups
+    blocks = min(-(-units // _WT_WARPS), _WT_BLOCKS_PER_SM * sm_count)
+    return WtPlan(run, _KERNEL_GROUP // run, chunks, units, blocks)
+
+
 def dequant_wt_launch(codes_tl, codebooks, scales, dtype=torch.bfloat16):
-    """B5 on the card: codes_tl [NT, K*IG, tn] uint8 (ig-major rows);
-    codebooks [K, S<=256, 8] bf16; scales [OUT] f32; ``dtype`` bf16 or f32.
-    Returns W^T [IN, OUT] in ``dtype``."""
+    """B5 on the card: codes_tl [NT, K*IG, tn] uint8 (ig-major rows, tn a
+    multiple of 8); codebooks [K, S<=256, 8] bf16; scales [OUT] f32;
+    ``dtype`` bf16 or f32. Returns W^T [IN, OUT] in ``dtype``."""
     nt, kig, tn = codes_tl.shape
     K, S, g = codebooks.shape
     dev = codes_tl.device
@@ -265,7 +299,7 @@ def dequant_wt_launch(codes_tl, codebooks, scales, dtype=torch.bfloat16):
     if (codes_tl.dtype != torch.uint8 or codebooks.dtype != torch.bfloat16
             or scales.dtype != torch.float32):
         raise ValueError("gather_dequant_wt kernel takes uint8 codes, bf16 codebooks and f32 scales")
-    if K < 1 or K > 8 or S > 256 or kig % K:
+    if K < 1 or K > 8 or S > 256 or kig % K or tn % 8:
         raise ValueError(f"gather_dequant_wt kernel: bad shapes codes {tuple(codes_tl.shape)} "
                          f"codebooks {tuple(codebooks.shape)}")
     if scales.shape != (nt * tn,):

@@ -38,12 +38,14 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    a float64 sum), and the activation backward of the lora phase: B10
    (``int8_matmul_transposed``) at its q, gate and down at 1024 rows and at
    q at rows 1, 8 and 200 (one bf16 step), B5 (``gather_dequant_wt``) at
-   q, gate and down (bit-identical), B6 (``flash_decode``, K3 without the
+   q, gate and down (bit-identical; beside it a ``fill_`` of W^T, the
+   card's write ceiling), B6 (``flash_decode``, K3 without the
    row write) at K3's three shapes, int8 and bf16, lengths 1/512/513/2048,
    with and without a window of 256, and its unindexed form once (one bf16
    step, the cache unchanged), and B8 (``kv_write``) into the int8_short
    run's cache [32, 4, 32, 2048, 128], the one-array write of a bf16 cache
-   and the four-array write of the int8 one (bit-identical)), and B16
+   and the four-array write of the int8 one (bit-identical; beside it the
+   floor of one CUDA-graph kernel node, a one-element ``fill_``)), and B16
    (``gather_wraps``, the lane-gather wrap probe: bit-identical), with its
    time, the plain version's time, the least
    time the card could take (bound) and, where one PyTorch call computes
@@ -995,7 +997,10 @@ def check_b10(gen, dev, failures):
 
 def check_b5(gen, dev, failures):
     """B5 (``gather_dequant_wt``, bf16 W^T) at q, gate and down in 2x8,
-    bit-identical to its plain version. No one PyTorch call computes it."""
+    bit-identical to its plain version. No one PyTorch call computes it; the
+    yardstick is the card's write ceiling as PyTorch reaches it, one
+    ``fill_`` of W^T's bytes (``write_ceiling_ms``; ``share_of_ceiling`` is
+    its time over B5's)."""
     from aqlm_tpu_torch.ops import gather_prefill as gp
     from aqlm_tpu_torch.ops import lut_gemv as lg
 
@@ -1018,10 +1023,15 @@ def check_b5(gen, dev, failures):
         plain_ms = time_ms(plain, 3)
         b_ms, b_by = _f32_bound(in_f * out_f * 2 + out_f * in_f // 4 + 2 * 256 * 8 * 2 + out_f * 4,
                                 2.0 * out_f * in_f)  # an add and the scale product a weight
+        wt = torch.empty((in_f, out_f), dtype=torch.bfloat16, device=dev)
+        ceiling_ms = time_ms(lambda i=0: wt.fill_(1.0), 20)
+        del wt
+        p = gp.dequant_wt_plan(out_f, in_f // 8, torch.bfloat16, _sm_count())
         rec = {"phase": "check", "kernel": "gather_dequant_wt", "proj": name,
                "out_features": out_f, "in_features": in_f, "tn": tn, "K": 2, **cmp, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-               "host_ms": host_ms(run)}
+               "write_ceiling_ms": ceiling_ms, "share_of_ceiling": ceiling_ms / ms,
+               "host_ms": host_ms(run), "plan": dataclasses.asdict(p)}
         emit(rec)
         if not cmp["ok"]:
             failures.append(rec)
@@ -1201,13 +1211,17 @@ def check_b8(gen, dev, failures):
     int8 one (k, v and both f32 scale planes), bit-identical to the plain
     version (indexed assignment), into layer i % 32. The library time is one
     ``index_put_`` for the one-array write; the four-array write has no
-    single call (four ``index_put_`` calls, as an aside)."""
+    single call (four ``index_put_`` calls, as an aside). Beside the byte
+    bound: ``launch_floor_ms``, a one-element ``fill_`` in the same
+    CUDA-graph harness, the floor of one graph kernel node."""
     from aqlm_tpu_torch.ops import kv_write as kw
 
     L, B, H, S, D = 32, 4, 32, 2048, 128
     offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)
     rows, heads = torch.arange(B, device=dev)[:, None], torch.arange(H, device=dev)[None, :]
     off = offsets.long()[:, None]
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda i=0: one.fill_(1.0), 50)
     reps = {}
     for form in ("kv_write", "kv_write4"):
         if form == "kv_write":
@@ -1239,7 +1253,7 @@ def check_b8(gen, dev, failures):
                "kv": "bf16" if form == "kv_write" else "int8", "cache": [L, B, H, S, D],
                "offsets": offsets.tolist(), "max_abs_err": 0.0 if same else float("inf"),
                "tol": "bit-identical", "ok": same, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_ms": b_ms, "bound_by": b_by, "launch_floor_ms": floor_ms,
                "library_ms": put_ms if form == "kv_write" else None,
                "library": "index_put_" if form == "kv_write" else None,
                "library_aside_ms": None if form == "kv_write" else put_ms,

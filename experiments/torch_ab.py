@@ -1,7 +1,7 @@
-"""Time the int8, int4, all-expert int8 or int4, flash-decode (K3), B13 or
-B14 kernel of one copy of aqlm_tpu_torch, for A/B comparisons.
+"""Time the int8, int4, all-expert int8 or int4, flash-decode (K3), B13, B14,
+B5 or B8 kernel of one copy of aqlm_tpu_torch, for A/B comparisons.
 
-    python3 experiments/torch_ab.py ROOT TAG {int8,int4,int8_moe,int4_moe,k3,b13,b14} [check]
+    python3 experiments/torch_ab.py ROOT TAG {int8,int4,int8_moe,int4_moe,k3,b13,b14,b5,b8} [check]
 
 ROOT is a directory holding an ``aqlm_tpu_torch`` package (``.`` for the
 checkout; copies of the package in other directories build their kernels
@@ -31,15 +31,29 @@ plain version. ``b14`` times the codebook gradient (``kernels.cb_grad_launch``)
 at the groups of q, gate and down, K 2, S 256, g 8, both modes, each within
 1e-5 of each segment's sum of |data| of a float64 sum; its ``check`` first
 runs K 1-8, S 16-512, g 3/4/8/16 and G from 1 to 300000 the same way, and
-reports whether two runs agree bitwise. Compare two copies within one call
-on one card, in turns (A, B, B, A). Exits non-zero on any mismatch.
+reports whether two runs agree bitwise. ``b5`` times the dense W^T of the
+codes-mode backward (``gather_prefill.dequant_wt_launch``) at Llama-2-7B's q,
+gate and down (2x8, cycling 8 copies of the codes), bf16 and f32 out, each
+held bit-identical to ``dequant_wt_plain``; its ``check`` first runs OUT
+128/384/640 x IG 1/37 x K 1-8 at S 16 (and two runs bitwise equal). ``b8``
+times the KV row write at the int8_short cache [32, 4, 32, 2048, 128],
+offsets 0/511/512/1999: the one-array bf16 form and the four-array int8
+form (``kv_write_inplace``, ``kv_write4_inplace``), each bit-identical to
+``kv_write.plain``, with the wrapper's host time (``host_ms``, the median
+of five runs of 200 calls) and the
+floor of one CUDA-graph kernel node (a one-element ``fill_``,
+``launch_floor_ms``); its ``check`` first runs B x H 1x1-8x64, D 4/64/128,
+1-4 planes of mixed row widths and offsets -1 and S through
+``kv_write.launch``. Compare two copies within one call on one card, in
+turns (A, B, B, A). Exits non-zero on any mismatch.
 """
 import json
 import os
+import statistics
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import compare, time_ms  # noqa: E402  (imports no aqlm_tpu_torch)
+from chip_smoke import compare, host_ms, time_ms  # noqa: E402  (imports no aqlm_tpu_torch)
 
 root, tag, kernel = sys.argv[1], sys.argv[2], sys.argv[3]
 sys.path.insert(0, os.path.abspath(root))
@@ -131,11 +145,112 @@ def calib(kernel, check):
     sys.exit(1 if bad else 0)
 
 
-if kernel in ("b13", "b14"):
+def b5(check):
+    """The b5 mode (see the docstring)."""
+    from chip_smoke import BWD_PROJS, N_LAYERS_TIMED
+    from aqlm_tpu_torch.ops import gather_prefill as gp
+    from aqlm_tpu_torch.ops import lut_gemv as lg
+
+    assert gp.__file__.startswith(os.path.abspath(root)), gp.__file__
+    bad, res = 0, {}
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    if check:
+        same = True
+        for out_f in (128, 384, 640):
+            for ig in (1, 37):
+                for K in range(1, 9):
+                    codes = lg.tile_codes(torch.randint(0, 16, (K, ig, out_f), generator=g, device=dev,
+                                                        dtype=torch.int32).to(torch.uint8))
+                    cb = torch.randn((K, 16, 8), generator=g, device=dev).to(torch.bfloat16)
+                    sc = torch.rand(out_f, generator=g, device=dev) + 0.5
+                    for dt in dtypes.values():
+                        got = gp.dequant_wt_launch(codes, cb, sc, dt)
+                        ok = torch.equal(got, gp.dequant_wt_plain(codes, cb, sc, dt))
+                        same = same and torch.equal(got, gp.dequant_wt_launch(codes, cb, sc, dt))
+                        bad += not ok
+                        if not ok:
+                            print("FAIL", out_f, ig, K, dt, flush=True)
+        print(tag, "check bad", bad, "reruns bitwise equal", same, flush=True)
+    for name, out_f, in_f in BWD_PROJS:
+        tn = lg.lut_tile_n(out_f)
+        codes = torch.randint(0, 256, (N_LAYERS_TIMED, out_f // tn, in_f // 8 * 2, tn), generator=g,
+                              device=dev, dtype=torch.int32).to(torch.uint8)
+        cb = (torch.randn((2, 256, 8), generator=g, device=dev) / 4).to(torch.bfloat16)
+        sc = torch.rand(out_f, generator=g, device=dev) + 0.5
+        for dname, dt in dtypes.items():
+            bad += not torch.equal(gp.dequant_wt_launch(codes[0], cb, sc, dt),
+                                   gp.dequant_wt_plain(codes[0], cb, sc, dt))
+            res[f"{name}/{dname}"] = round(time_ms(
+                lambda i=0: gp.dequant_wt_launch(codes[i % N_LAYERS_TIMED], cb, sc, dt), 20, 5), 5)
+            torch.cuda.empty_cache()
+        del codes
+    return bad, res
+
+
+def b8(check):
+    """The b8 mode (see the docstring)."""
+    from aqlm_tpu_torch.ops import kv_write as kw
+
+    assert kw.__file__.startswith(os.path.abspath(root)), kw.__file__
+    bad, res = 0, {}
+    if check:
+        for b, h in ((1, 1), (2, 3), (4, 32), (8, 64)):
+            for d in (4, 64, 128):
+                for n in (1, 2, 3, 4):
+                    S = 40
+                    specs = [(torch.float16 if d == 4 else torch.bfloat16, d), (torch.int8, d),
+                             (torch.float32, 1), (torch.uint8, 3)][:n]
+                    caches = [torch.randint(-100, 100, (b, h, S, w), generator=g, device=dev,
+                                            dtype=torch.int32).to(dt) for dt, w in specs]
+                    news = [torch.randint(-100, 100, (b, h, w), generator=g, device=dev,
+                                          dtype=torch.int32).to(dt) for dt, w in specs]
+                    offsets = torch.tensor([S - 1, -1, S, 0, 17, 5, 39, 2][:b], dtype=torch.int32,
+                                           device=dev)
+                    want = [c.clone() for c in caches]
+                    kw.plain(want, news, offsets)
+                    kw.launch(caches, news, offsets)
+                    ok = all(torch.equal(c, w) for c, w in zip(caches, want))
+                    bad += not ok
+                    if not ok:
+                        print("FAIL", b, h, d, n, flush=True)
+        print(tag, "check bad", bad, flush=True)
+    L, B, H, S, D = 32, 4, 32, 2048, 128
+    offsets = torch.tensor([0, 511, 512, 1999], dtype=torch.int32, device=dev)
+    for form in ("kv_write", "kv_write4"):
+        if form == "kv_write":
+            caches = [torch.randn((L, B, H, S, D), generator=g, device=dev).to(torch.bfloat16)]
+            news = [torch.randn((B, H, 1, D), generator=g, device=dev).to(torch.bfloat16)]
+            run = lambda i=0: kw.kv_write_inplace(caches[0], news[0], i % L, offsets)
+        else:
+            caches = [torch.randint(-127, 128, (L, B, H, S, D), generator=g, device=dev,
+                                    dtype=torch.int32).to(torch.int8) for _ in range(2)] + [
+                torch.rand((L, B, H, S, 1), generator=g, device=dev) for _ in range(2)]
+            news = [torch.randint(-127, 128, (B, H, 1, D), generator=g, device=dev,
+                                  dtype=torch.int32).to(torch.int8) for _ in range(2)] + [
+                torch.rand((B, H, 1, 1), generator=g, device=dev) for _ in range(2)]
+            run = lambda i=0: kw.kv_write4_inplace(*caches, *news, i % L, offsets)
+        want = [c[3].clone() for c in caches]
+        kw.plain(want, [n[:, :, 0] for n in news], offsets)
+        run(3)
+        bad += not all(torch.equal(c[3], w) for c, w in zip(caches, want))
+        res[form] = round(time_ms(run, 50, 5), 6)
+        res[f"{form}/host_ms"] = round(statistics.median(host_ms(run, 200) for _ in range(5)), 6)
+        del caches, want
+        torch.cuda.empty_cache()
+    one = torch.zeros(1, device=dev)
+    res["launch_floor_ms"] = round(time_ms(lambda i=0: one.fill_(1.0), 50, 5), 6)
+    return bad, res
+
+
+if kernel in ("b13", "b14", "b5", "b8"):
     _build.library()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    calib(kernel, len(sys.argv) > 4)
+    if kernel in ("b13", "b14"):
+        calib(kernel, len(sys.argv) > 4)
+    bad, res = (b5 if kernel == "b5" else b8)(len(sys.argv) > 4)
+    print(tag, kernel, "bad", bad, json.dumps(res), flush=True)
+    sys.exit(1 if bad else 0)
 
 m = i8 if kernel in ("int8", "int8_moe") else i4
 moe = kernel.endswith("_moe")

@@ -1294,6 +1294,42 @@ def test_gather_dequant_wt_small_codebooks(dev):
                            gp.dequant_wt_plain(codes, cb, scales))
 
 
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("K", range(1, 9))
+@pytest.mark.parametrize("ig_count", [1, 37])
+@pytest.mark.parametrize("out_f", [128, 384, 640])
+def test_gather_dequant_wt_edges_match_plain(dev, out_f, ig_count, K, out_dtype):
+    """B5 at OUT 128, 384 and 640 (the last chunk's half-empty warp), IG 1
+    and 37, K 1-8, S 16: bit-identical to its plain version, and a second
+    run bitwise the first."""
+    gen = torch.Generator(device=dev).manual_seed(out_f * 100 + ig_count * 10 + K)
+    codes = lg.tile_codes(torch.randint(0, 16, (K, ig_count, out_f), generator=gen, device=dev,
+                                        dtype=torch.int32).to(torch.uint8))
+    cb = torch.randn((K, 16, 8), generator=gen, device=dev).to(torch.bfloat16)
+    scales = torch.rand(out_f, generator=gen, device=dev) + 0.5
+    got = gp.gather_dequant_wt(codes, cb, scales, dtype=out_dtype)
+    assert got.shape == (ig_count * 8, out_f)
+    assert torch.equal(got, gp.dequant_wt_plain(codes, cb, scales, out_dtype))
+    assert torch.equal(got, gp.gather_dequant_wt(codes, cb, scales, dtype=out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_gather_dequant_wt_unaligned_codes(dev, out_dtype):
+    """Codes one byte off an 8-byte boundary take the kernel's byte loads."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    codes_t = torch.randint(0, 256, (2, 9, 640), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    tiled = lg.tile_codes(codes_t)
+    buf = torch.empty(tiled.numel() + 1, dtype=torch.uint8, device=dev)
+    codes = buf[1:].view(tiled.shape)
+    codes.copy_(tiled)
+    assert codes.is_contiguous() and codes.data_ptr() % 8 == 1
+    cb = torch.randn((2, 256, 8), generator=gen, device=dev).to(torch.bfloat16)
+    scales = torch.rand(640, generator=gen, device=dev) + 0.5
+    assert torch.equal(gp.gather_dequant_wt(codes, cb, scales, dtype=out_dtype),
+                       gp.dequant_wt_plain(tiled, cb, scales, out_dtype))
+
+
 @pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rows", [1, 8, 77, 200, 1024])
 @pytest.mark.parametrize("out_f,in_f", [(4096, 4096), (11008, 4096), (4096, 11008), (200, 1152),
@@ -1547,6 +1583,45 @@ def test_kv_write4_kernel_matches_plain(dev):
     assert _build.KERNELS["kv_write"].launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# B8 planes: (dtype, row elements); D is the k/v row's width
+def _kv_planes(d, n):
+    return [(torch.float16 if d == 4 else torch.bfloat16, d), (torch.int8, d), (torch.float32, 1),
+            (torch.uint8, 3)][:n]
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 3, 4])
+@pytest.mark.parametrize("d", [4, 64, 128])
+@pytest.mark.parametrize("b,h", [(1, 1), (2, 3), (4, 32), (8, 64)])
+def test_kv_write_planes_match_plain(dev, b, h, d, n_planes):
+    """B8 over 1-4 planes of mixed row widths in one launch (16-, 4- and
+    1-byte words: fp16 rows of 8 bytes at D 4, bf16 and int8 rows, f32
+    scales, 3-byte rows), B x H from 1 x 1 to 8 x 64: bit-identical to the
+    plain version; offsets -1 and S write nothing."""
+    gen = torch.Generator(device=dev).manual_seed(b * h * d + n_planes)
+    S = 40
+    caches, news = [], []
+    for dtype, width in _kv_planes(d, n_planes):
+        if dtype.is_floating_point:
+            cache = (torch.randn((b, h, S, width), generator=gen, device=dev) * 50).to(dtype)
+            new = (torch.randn((b, h, width), generator=gen, device=dev) * 50).to(dtype)
+        else:
+            lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
+            cache = torch.randint(lo, hi, (b, h, S, width), generator=gen, device=dev,
+                                  dtype=torch.int32).to(dtype)
+            new = torch.randint(lo, hi, (b, h, width), generator=gen, device=dev,
+                                dtype=torch.int32).to(dtype)
+        caches.append(cache)
+        news.append(new)
+    offsets = torch.tensor([S - 1, -1, S, 0, 17, 5, 39, 2][:b], dtype=torch.int32, device=dev)
+    want = [c.clone() for c in caches]
+    kw.plain(want, news, offsets)
+    before = _build.KERNELS["kv_write"].launches
+    kw.launch(caches, news, offsets)
+    assert _build.KERNELS["kv_write"].launches == before + 1
+    for got, w in zip(caches, want):
+        assert torch.equal(got, w)
 
 
 def test_kv_write_wrapper_raises(dev):
