@@ -6,8 +6,10 @@ versions).
         --num_codebooks 2 --nbits_per_codebook 8 --in_group_size 8 --save out_dir
 
 Prints a final JSON line of the stats (``avg_bits``, ``quantization_time_s``,
-``memory``, seconds by part). Not ported: ``--mesh_*`` > 1 (ROADMAP A14),
-``--eval_datasets`` (A11) and ``--wandb`` (A15).
+``memory``, seconds by part, and ``ppl_<dataset>`` of each
+``--eval_datasets`` entry, evaluated on the quantized model after the save).
+Not ported: ``--mesh_*`` > 1 (ROADMAP A14), the HF datasets (A11) and
+``--wandb`` (A15).
 """
 
 from __future__ import annotations
@@ -27,9 +29,10 @@ from aqlm_tpu_torch.calib import (
 )
 from aqlm_tpu_torch.cli.common import dtype_from_str, load_calibration_data, resolve_model
 from aqlm_tpu_torch.config import AqlmScheme
+from aqlm_tpu_torch.data import evaluate_perplexity
 from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.io import save_quantized_model
-from aqlm_tpu_torch.models.family import taps_fn
+from aqlm_tpu_torch.models.family import forward_fn, taps_fn
 from aqlm_tpu_torch.ops.runtime import not_ported
 
 
@@ -95,8 +98,6 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.mesh_data > 1 or args.mesh_model > 1:
         raise not_ported("multi-device calibration (--mesh_data/--mesh_model)", "A14")
-    if args.eval_datasets:
-        raise not_ported("perplexity evaluation (--eval_datasets)", "A11")
     if args.wandb:
         raise not_ported("metric logging to wandb", "A15")
     dev = resolve_device(args.device)
@@ -144,6 +145,12 @@ def main(argv=None) -> dict:
     if args.save:
         save_quantized_model(args.save, params, cfg, extra_config={"cli_args": vars(args)})
         print(f"saved quantized model to {args.save}")
+    for ds in args.eval_datasets:
+        eval_ids = load_calibration_data(ds, args.eval_nsamples, args.model_seqlen, cfg,
+                                         seed=args.seed + 1, eval_mode=True)[:args.eval_nsamples]
+        ppl = evaluate_perplexity(params, cfg, eval_ids, forward_fn=forward_fn(cfg))
+        stats[f"ppl_{ds}"] = ppl
+        print(f"{ds} perplexity: {ppl:.4f}")
     print(json.dumps({k: v for k, v in stats.items() if not isinstance(v, list)}, default=str))
     return stats
 

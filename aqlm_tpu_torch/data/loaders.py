@@ -1,5 +1,7 @@
-"""Calibration data loaders (PyTorch counterpart of ``aqlm_tpu.data.loaders``):
-``random`` token ids and pre-tokenized ``.npy``/``.npz`` files.
+"""Calibration and evaluation data loaders (PyTorch counterpart of
+``aqlm_tpu.data.loaders``): ``random`` token ids and pre-tokenized
+``.npy``/``.npz`` files, and the finetune preprocessing helpers
+(``split_long_texts``, ``group_texts``).
 
 The random ids come from numpy's ``RandomState(seed)``, as in ``aqlm_tpu``,
 so both packages calibrate on the same ids. The HF datasets (wikitext2, ptb,
@@ -14,7 +16,7 @@ import numpy as np
 
 from aqlm_tpu_torch.ops.runtime import not_ported
 
-__all__ = ["get_loaders"]
+__all__ = ["get_loaders", "split_long_texts", "group_texts"]
 
 
 def _random_tokens(nsamples: int, seqlen: int, vocab_size: int, seed: int) -> np.ndarray:
@@ -38,12 +40,34 @@ def _load_custom(path: str, nsamples: int, seqlen: int) -> np.ndarray:
     return tokens.astype(np.int32)
 
 
-def get_loaders(name: str, nsamples: int = 128, seqlen: int = 4096, *,
-                vocab_size: int = 32000, seed: int = 0) -> np.ndarray:
+def get_loaders(name: str, nsamples: int = 128, seqlen: int = 4096, *, tokenizer=None,
+                vocab_size: int = 32000, seed: int = 0, eval_mode: bool = False) -> np.ndarray:
     """Token ids [nsamples, seqlen] int32. ``name``: ``random`` or a path to a
-    .npy/.npz file."""
+    .npy/.npz file; ``tokenizer`` and ``eval_mode`` matter only to the HF
+    datasets, as in ``aqlm_tpu``."""
     if name == "random":
         return _random_tokens(nsamples, seqlen, vocab_size, seed)
     if os.path.exists(name) or name.endswith((".npy", ".npz")):
         return _load_custom(name, nsamples, seqlen)
     raise not_ported(f"the dataset {name!r} (HF datasets)", "A11")
+
+
+def split_long_texts(texts, max_chars: int) -> list:
+    """Documents cut into pieces of at most ``max_chars`` characters."""
+    out = []
+    for t in texts:
+        for start in range(0, len(t), max_chars):
+            out.append(t[start:start + max_chars])
+    return out
+
+
+def group_texts(token_lists, seqlen: int, add_labels: bool = False):
+    """Tokenized documents concatenated and regrouped into [n, seqlen]
+    int32 chunks (the tail dropped); with ``add_labels`` a dict of
+    ``input_ids`` and a copy as ``labels``."""
+    flat = np.concatenate([np.asarray(t, np.int32).reshape(-1) for t in token_lists])
+    n = len(flat) // seqlen
+    ids = flat[: n * seqlen].reshape(n, seqlen)
+    if add_labels:
+        return {"input_ids": ids, "labels": ids.copy()}
+    return ids

@@ -64,17 +64,18 @@ def _savez(path: str, arrays: dict) -> None:
 
 def _loadz(path: str) -> dict:
     """npz -> {key: tensor on the CPU} (``::bf16`` keys decoded to bf16);
-    string entries stay numpy."""
+    string entries stay numpy. Each array read from the archive is a fresh,
+    writable buffer, so the tensors share it rather than copy it."""
     out = {}
     with np.load(path, allow_pickle=False) as data:
         for k in data.files:
             a = data[k]
             if k.endswith(_BF16_SUFFIX):
-                out[k[: -len(_BF16_SUFFIX)]] = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+                out[k[: -len(_BF16_SUFFIX)]] = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
             elif a.dtype.kind in "US":
                 out[k] = a
             else:
-                out[k] = torch.from_numpy(a.copy())
+                out[k] = torch.from_numpy(a)
     return out
 
 

@@ -20,6 +20,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.models import llama
@@ -117,16 +118,20 @@ def block_forward_with_taps(x, layer, cfg: FalconConfig, positions):
 
 
 def forward(params: dict, cfg: FalconConfig, input_ids: torch.Tensor, *,
-            positions: torch.Tensor | None = None) -> torch.Tensor:
+            positions: torch.Tensor | None = None, return_hidden: bool = False,
+            remat_blocks: bool = False, **_):
     """Causal LM forward over the list of layers, without a KV cache (the
-    serving form with a cache is ``models.stacked.forward_stacked``).
-    Returns logits [B, T, V]."""
+    serving form with a cache is ``models.stacked.forward_stacked``; other
+    keywords are ignored, as ``aqlm_tpu`` ignores them). ``return_hidden``
+    and ``remat_blocks`` as in ``llama.forward``. Returns (logits or the
+    post-final-norm hidden state, None)."""
     b, t = input_ids.shape
     if positions is None:
         positions = torch.arange(t, device=input_ids.device)[None, :]
     positions = positions.expand(b, t)
     x = params["embed"][input_ids]
     for layer in params["layers"]:
-        x = _block(x, layer, cfg, positions)
+        x = checkpoint(_block, x, layer, cfg, positions, use_reentrant=False) if remat_blocks \
+            else _block(x, layer, cfg, positions)
     x = layer_norm(x, params["final_norm"], params["final_norm_bias"], cfg.ln_eps)
-    return llama.head(x, params, cfg)
+    return (x if return_hidden else llama.head(x, params, cfg)), None

@@ -8,7 +8,8 @@ from __future__ import annotations
 from aqlm_tpu_torch.models import falcon, llama, mixtral
 from aqlm_tpu_torch.ops.runtime import not_ported
 
-__all__ = ["FAMILY_REGISTRY", "family_name", "family_module", "config_class", "taps_fn"]
+__all__ = ["FAMILY_REGISTRY", "family_name", "family_module", "config_class", "forward_fn",
+           "taps_fn"]
 
 # name -> (config class, module); subclasses of ModelConfig come before it
 FAMILY_REGISTRY = {
@@ -34,6 +35,11 @@ def config_class(name: str):
         raise not_ported(f"the {name} family", "A9")
     return FAMILY_REGISTRY[name][0]
 
+
+def forward_fn(cfg: llama.ModelConfig):
+    """The family's unstacked ``forward(params, cfg, ids, ...)`` (the
+    evaluation path)."""
+    return family_module(cfg).forward
 
 
 def taps_fn(cfg: llama.ModelConfig):

@@ -1,8 +1,11 @@
 """Llama-family causal LM (PyTorch counterpart of ``aqlm_tpu.models.llama``).
 
 Parameters are a plain dict: every projection is a DenseLinear or a
-QuantizedLinear. ``forward`` is the unstacked (list-of-layers) forward; the
-serving form is ``models.stacked.forward_stacked``.
+QuantizedLinear. ``forward`` is the unstacked (list-of-layers) forward with
+``aqlm_tpu``'s contract: ``(logits, caches)``, an optional per-layer KV
+cache (``init_kv_cache``), the hidden state in place of the logits, and
+per-block recomputation in the backward. The serving form is
+``models.stacked.forward_stacked``.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.models.common import (
@@ -21,8 +25,8 @@ from aqlm_tpu_torch.models.common import (
     rope,
 )
 
-__all__ = ["ModelConfig", "init_random_params", "forward", "block_forward_with_taps",
-           "QUANTIZABLE_PROJS", "projection_shapes"]
+__all__ = ["ModelConfig", "init_random_params", "init_kv_cache", "forward",
+           "block_forward_with_taps", "QUANTIZABLE_PROJS", "projection_shapes"]
 
 QUANTIZABLE_PROJS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 
@@ -137,9 +141,23 @@ def init_random_params(generator: torch.Generator, cfg: ModelConfig, dtype=torch
     )
 
 
-def attention_half(x, layer, cfg: ModelConfig, positions, taps=None):
-    """The block's attention half without a cache: x + o_proj(attention).
-    A ``taps`` dict receives each projection's input by name."""
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                  device=None) -> list:
+    """[layers] of (k, v) zeros, each [B, max_len, n_kv, head_dim], on
+    ``device`` (None = the card): the cache of the unstacked ``forward``."""
+    dev = resolve_device(device)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.dim_per_head)
+    return [(torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev))
+            for _ in range(cfg.num_layers)]
+
+
+def attention_half(x, layer, cfg: ModelConfig, positions, taps=None, kv=None, cache_offset=0,
+                   kv_mask=None):
+    """The block's attention half: x + o_proj(attention). A ``taps`` dict
+    receives each projection's input by name. With ``kv`` (one layer's
+    (k, v) cache) the new K/V are written into it in place at
+    [cache_offset, cache_offset + T) and attention runs over the whole cache
+    under ``kv_mask`` [B, 1, T, max_len]."""
     b, t, _ = x.shape
     d = cfg.dim_per_head
     res = x
@@ -148,16 +166,23 @@ def attention_half(x, layer, cfg: ModelConfig, positions, taps=None):
     k = apply_linear(x, layer["k_proj"]).reshape(b, t, cfg.num_kv_heads, d)
     v = apply_linear(x, layer["v_proj"]).reshape(b, t, cfg.num_kv_heads, d)
     q, k = rope(q, k, positions, cfg.rope_theta, scaling=cfg.rope_scaling)
-    attn = attention(q, k, v, make_causal_mask(positions, positions, window=cfg.sliding_window))
-    attn = attn.reshape(b, t, -1)
+    if kv is not None:
+        k_cache, v_cache = kv
+        k_cache[:, cache_offset:cache_offset + t] = k.to(k_cache.dtype)
+        v_cache[:, cache_offset:cache_offset + t] = v.to(v_cache.dtype)
+        k, v, mask = k_cache.to(q.dtype), v_cache.to(q.dtype), kv_mask
+    else:
+        mask = make_causal_mask(positions, positions, window=cfg.sliding_window)
+    attn = attention(q, k, v, mask).reshape(b, t, -1)
     if taps is not None:
         taps["q_proj"] = taps["k_proj"] = taps["v_proj"] = x
         taps["o_proj"] = attn
     return res + apply_linear(attn, layer["o_proj"])
 
 
-def _block(x, layer, cfg: ModelConfig, positions, taps=None):
-    res = x = attention_half(x, layer, cfg, positions, taps)
+def _block(x, layer, cfg: ModelConfig, positions, taps=None, kv=None, cache_offset=0,
+           kv_mask=None):
+    res = x = attention_half(x, layer, cfg, positions, taps, kv, cache_offset, kv_mask)
     xn = rms_norm(x, layer["post_attn_norm"], cfg.rms_eps, plus_one=cfg.gemma_norm)
     gate = apply_linear(xn, layer["gate_proj"])
     up = apply_linear(xn, layer["up_proj"])
@@ -193,18 +218,52 @@ def head(x, params, cfg):
     return logits
 
 
-def forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, *,
-            positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Causal LM forward over the list of layers, without a KV cache (the
-    serving form with a cache is ``models.stacked.forward_stacked``).
-    Returns logits [B, T, V]."""
+def embed_and_positions(params, cfg: ModelConfig, input_ids, positions, cache_offset):
+    """The embedded tokens and the positions [B, T] the forwards share:
+    ``cache_offset + arange(T)`` unless given."""
     b, t = input_ids.shape
     if positions is None:
-        positions = torch.arange(t, device=input_ids.device)[None, :]
+        positions = torch.arange(t, device=input_ids.device)[None, :] + int(cache_offset or 0)
     positions = positions.expand(b, t)
     x = params["embed"][input_ids]
     if cfg.gemma_norm:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
-    for layer in params["layers"]:
-        x = _block(x, layer, cfg, positions)
-    return head(final_norm(x, params, cfg), params, cfg)
+    return x, positions
+
+
+def run_blocks(block, x, params, cfg, positions, kv_caches, cache_offset, remat_blocks):
+    """``block(x, layer, cfg, positions, None, kv, cache_offset, kv_mask)``
+    over the layers, each under ``torch.utils.checkpoint`` (non-reentrant)
+    with ``remat_blocks``. Returns (x, caches or None)."""
+    kv_mask = None
+    if kv_caches is not None:  # the queries over every row of the cache
+        b, max_len = positions.shape[0], kv_caches[0][0].shape[1]
+        key_pos = torch.arange(max_len, device=positions.device)[None, :].expand(b, max_len)
+        kv_mask = make_causal_mask(positions, key_pos, window=cfg.sliding_window)
+    off = int(cache_offset or 0)
+    for li, layer in enumerate(params["layers"]):
+        kv = None if kv_caches is None else kv_caches[li]
+        args = (x, layer, cfg, positions, None, kv, off, kv_mask)
+        x = checkpoint(block, *args, use_reentrant=False) if remat_blocks else block(*args)
+    return x, kv_caches
+
+
+def forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, *,
+            positions: torch.Tensor | None = None, kv_caches: list | None = None,
+            cache_offset=None, return_hidden: bool = False, remat_blocks: bool = False):
+    """Causal LM forward over the list of layers, as ``aqlm_tpu``'s.
+
+    Without a cache: the full-sequence forward (calibration, perplexity,
+    prefill). With ``kv_caches`` (``init_kv_cache``) and ``cache_offset``
+    (one offset for every row): the new K/V are written in place at
+    [cache_offset, cache_offset + T) and attention runs over the cache.
+    ``return_hidden`` returns the post-final-norm hidden state instead of
+    the logits; ``remat_blocks`` recomputes each block in the backward
+    (``torch.utils.checkpoint``, non-reentrant).
+
+    Returns (logits [B, T, V] or hidden [B, T, H], the caches or None)."""
+    x, positions = embed_and_positions(params, cfg, input_ids, positions, cache_offset)
+    x, caches = run_blocks(_block, x, params, cfg, positions, kv_caches, cache_offset,
+                           remat_blocks)
+    x = final_norm(x, params, cfg)
+    return (x if return_hidden else head(x, params, cfg)), caches

@@ -333,20 +333,21 @@ def block_forward_with_taps(x, layer, cfg: MixtralConfig, positions):
     raise not_ported("Mixtral calibration taps", "A12")
 
 
+def _block(x, layer, cfg: MixtralConfig, positions, taps=None, kv=None, cache_offset=0,
+           kv_mask=None):
+    res = x = llama.attention_half(x, layer, cfg, positions, taps, kv, cache_offset, kv_mask)
+    xn = rms_norm(x, layer["post_attn_norm"], cfg.rms_eps)
+    return res + _moe_mlp(xn, layer, cfg)
+
+
 def forward(params: dict, cfg: MixtralConfig, input_ids: torch.Tensor, *,
-            positions: torch.Tensor | None = None, kv_caches=None) -> torch.Tensor:
-    """Causal LM forward over the list of layers, without a KV cache (the
-    serving form with a cache is ``models.stacked.forward_stacked``).
-    Returns logits [B, T, V]."""
-    if kv_caches is not None:
-        raise not_ported("the KV-cache path of the unstacked forward", "A4")
-    b, t = input_ids.shape
-    if positions is None:
-        positions = torch.arange(t, device=input_ids.device)[None, :]
-    positions = positions.expand(b, t)
-    x = params["embed"][input_ids]
-    for layer in params["layers"]:
-        res = x = llama.attention_half(x, layer, cfg, positions)
-        xn = rms_norm(x, layer["post_attn_norm"], cfg.rms_eps)
-        x = res + _moe_mlp(xn, layer, cfg)
-    return llama.head(llama.final_norm(x, params, cfg), params, cfg)
+            positions: torch.Tensor | None = None, kv_caches: list | None = None,
+            cache_offset=None, return_hidden: bool = False, remat_blocks: bool = False):
+    """Causal LM forward over the list of layers, with ``llama.forward``'s
+    contract (the serving form is ``models.stacked.forward_stacked``).
+    Returns (logits or the post-final-norm hidden state, the caches or None)."""
+    x, positions = llama.embed_and_positions(params, cfg, input_ids, positions, cache_offset)
+    x, caches = llama.run_blocks(_block, x, params, cfg, positions, kv_caches, cache_offset,
+                                 remat_blocks)
+    x = llama.final_norm(x, params, cfg)
+    return (x if return_hidden else llama.head(x, params, cfg)), caches

@@ -8,7 +8,9 @@ lands in ``build/kernels/`` at the root of the checkout (listed in
 
 Each kernel also carries a plain launch counter: its wrapper adds one where
 it launches the kernel and nowhere else, so a run can show that its main
-path went through the kernel. The split kernels' tickets (``tickets``) are
+path went through the kernel; the kernels whose wrappers come in an
+unindexed and a layer-indexed form (K1, K2, the int8 and int4 matmuls) also
+count each form apart (``forms``). The split kernels' tickets (``tickets``) are
 kept here, per device and stream, for every kernel that zeroes its own, and
 so is the f32 scratch of kernels that merge partial sums in a second pass
 (``scratch``).
@@ -28,7 +30,8 @@ import time
 import torch
 
 __all__ = [
-    "BUILD_DIR", "KERNELS", "KernelInfo", "library", "check", "reset_launch_counts", "stream_ptr",
+    "BUILD_DIR", "KERNELS", "KernelInfo", "library", "check", "count", "reset_launch_counts",
+    "stream_ptr",
     "sm_count", "tickets", "scratch",
 ]
 
@@ -50,6 +53,7 @@ class KernelInfo:
     replaces: str  # file:line of the TPU kernel's pallas_call on the main path
     also_replaces: tuple
     launches: int = 0
+    forms: dict = dataclasses.field(default_factory=dict)  # launches by wrapper form
 
 
 KERNELS = {
@@ -150,6 +154,16 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.forms = {}
+
+
+def count(name: str, form: str | None = None) -> None:
+    """One launch of kernel ``name``, made by its wrapper's ``form``
+    (``unindexed`` or ``indexed``) where the kernel has both."""
+    k = KERNELS[name]
+    k.launches += 1
+    if form is not None:
+        k.forms[form] = k.forms.get(form, 0) + 1
 
 
 def _sources() -> list[str]:

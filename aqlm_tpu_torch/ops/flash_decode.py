@@ -313,7 +313,7 @@ def launch(q_hm, nk, nv, nks, nvs, k_c, v_c, ks_c, vs_c, offsets, scale, window,
         sc.splits, sc.smem, float(scale), _build.stream_ptr(dev),
     )
     _build.check(rc, "flash_decode_write")
-    _build.KERNELS["flash_decode_write"].launches += 1
+    _build.count("flash_decode_write")
     return out
 
 
@@ -435,7 +435,7 @@ def launch_attend(q_hm, k_c, v_c, ks_c, vs_c, lengths, scale, window, splits=Non
         sc.splits, sc.smem, float(scale), _build.stream_ptr(dev),
     )
     _build.check(rc, "flash_decode")
-    _build.KERNELS["flash_decode"].launches += 1
+    _build.count("flash_decode")
     return out
 
 

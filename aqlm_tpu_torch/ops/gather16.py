@@ -231,7 +231,7 @@ def gemv_launch(xb, codes, packed_cb, scales, group):
                                   B, out_features, ig, group, int(p.x_staged), p.grid[0], p.smem,
                                   _build.stream_ptr(xb.device))
     _build.check(rc, "gather16_gemv")
-    _build.KERNELS["gather16_gemv"].launches += 1
+    _build.count("gather16_gemv")
     return out
 
 
@@ -287,7 +287,7 @@ def gemm_launch(xb, codes, packed_cb, scales, group):
     p = plan(T, out_features, ig, group, _build.sm_count(xb.device.index))
     w = gather_w(codes, packed_cb, group, p.prepass_blocks)
     out = gemm_w_launch(xb, w, scales, p)
-    _build.KERNELS["gather16_gemm"].launches += 1
+    _build.count("gather16_gemm")
     return out
 
 

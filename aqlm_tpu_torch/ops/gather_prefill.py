@@ -111,7 +111,7 @@ def plain(xb, codes_tl, codebooks, scales, proj_map, out_dtype=None):
     return y.to(out_dtype or xb.dtype)
 
 
-def _launch(x, codes_e, cb_e, scales_e, proj_map, group, out_dtype, counter):
+def _launch(x, codes_e, cb_e, scales_e, proj_map, group, out_dtype, counter, form=None):
     """K2 over E experts in one launch: x [T, IN] shared or [E, T, IN] one
     per expert, bf16; codes_e [E, NT, K*IG, tn] uint8; cb_e [E, P, K, S, 8]
     bf16; scales_e [E, OUT] f32; proj_map [NT] int32 or None. Returns
@@ -162,16 +162,18 @@ def _launch(x, codes_e, cb_e, scales_e, proj_map, group, out_dtype, counter):
         _build.stream_ptr(dev),
     )
     _build.check(rc, "gather_prefill")
-    _build.KERNELS[counter].launches += 1
+    _build.count(counter, form)
     return out
 
 
-def launch(xb, codes_tl, codebooks, scales, proj_map, group, out_dtype=torch.bfloat16):
+def launch(xb, codes_tl, codebooks, scales, proj_map, group, out_dtype=torch.bfloat16,
+           form="unindexed"):
     """K2 on one layer's arrays: xb [T, IN] bf16; codes_tl [NT, K*IG, tn]
     uint8; codebooks [P, K, S, 8] bf16; scales [OUT] f32; proj_map or None.
-    Returns [T, OUT] in ``out_dtype`` (bf16 or f32)."""
+    Returns [T, OUT] in ``out_dtype`` (bf16 or f32); ``form`` is the
+    wrapper's, for the launch count."""
     return _launch(xb, codes_tl[None], codebooks[None], scales[None], proj_map, group, out_dtype,
-                   "gather_prefill")[0]
+                   "gather_prefill", form)[0]
 
 
 def moe_launch(x, codes_tl_e, codebooks_e, scales_e, group):
@@ -183,13 +185,13 @@ def moe_launch(x, codes_tl_e, codebooks_e, scales_e, group):
                    "moe_gather_prefill")
 
 
-def _matmul(xb, codes_tl, codebooks, scales, proj_map, group):
+def _matmul(xb, codes_tl, codebooks, scales, proj_map, group, form="unindexed"):
     """Dispatch on the device of the activations: CPU -> plain, CUDA -> K2."""
     if xb.device.type == "cpu":
         return plain(xb, codes_tl, codebooks, scales, proj_map)
     if xb.device.type != "cuda":
         raise ValueError(f"unsupported device {xb.device}")
-    return launch(xb, codes_tl, codebooks, scales, proj_map, group)
+    return launch(xb, codes_tl, codebooks, scales, proj_map, group, form=form)
 
 
 def _add_bias(y, bias):
@@ -216,7 +218,8 @@ def gather_prefill_matmul_indexed(x, codes_tl_all, codebooks_all, scales_all, la
     lead = x.shape[:-1]
     xb = x.reshape(-1, x.shape[-1]).contiguous()
     li = int(layer_idx)
-    y = _matmul(xb, codes_tl_all[li], codebooks_all[li][None], scales_all[li], None, group)
+    y = _matmul(xb, codes_tl_all[li], codebooks_all[li][None], scales_all[li], None, group,
+                "indexed")
     if bias_all is not None:
         y = _add_bias(y, bias_all[li])
     return y.reshape(*lead, -1)
@@ -234,7 +237,8 @@ def gather_prefill_matmul_grouped_indexed(x, codes_tl_all, codebooks_all, scales
     if proj_map is None:
         proj_map = proj_map_for(out_sizes, tn, x.device)
     li = int(layer_idx)
-    y = _matmul(xb, codes_tl_all[li], codebooks_all[li], scales_all[li], proj_map, group)
+    y = _matmul(xb, codes_tl_all[li], codebooks_all[li], scales_all[li], proj_map, group,
+                "indexed")
     return y.reshape(*lead, -1)
 
 
@@ -315,7 +319,7 @@ def dequant_wt_launch(codes_tl, codebooks, scales, dtype=torch.bfloat16):
                                       out.data_ptr(), int(dtype == torch.bfloat16), nt, kig, tn,
                                       K, S, _build.stream_ptr(dev))
     _build.check(rc, "gather_dequant_wt")
-    _build.KERNELS["gather_dequant_wt"].launches += 1
+    _build.count("gather_dequant_wt")
     return out
 
 

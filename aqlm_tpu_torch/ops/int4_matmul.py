@@ -240,7 +240,7 @@ def plan(T: int, out_features: int, in_features: int, ldb: int, experts: int = 1
                 (col_tiles, row_tiles, experts * splits), smem)
 
 
-def _run(xb, w4, gscale, name, x_per_expert):
+def _run(xb, w4, gscale, name, x_per_expert, form=None):
     """Check the operands of one launch (w4 [E, OUT, IN_pad/2], gscale [E,
     IN_pad/128, OUT], xb [rows, IN] or [E, rows, IN]) and launch it as
     ``plan`` lays it out. Returns [E, rows, OUT] bf16."""
@@ -292,11 +292,11 @@ def _run(xb, w4, gscale, name, x_per_expert):
             ldb, p.bm, p.stages, p.smem, _build.stream_ptr(dev),
         )
     _build.check(rc, name)
-    _build.KERNELS[name].launches += 1
+    _build.count(name, form)
     return out
 
 
-def launch(xb, w4, gscale):
+def launch(xb, w4, gscale, form="unindexed"):
     """The kernel on one layer's arrays: xb [rows, IN] bf16; w4 [OUT,
     IN_pad/2] uint8; gscale [IN_pad/128, OUT] f32. Rows <= 8 take the decode
     (GEMV) path, more rows the prefill (TMA + wgmma GEMM) path. Returns
@@ -304,7 +304,7 @@ def launch(xb, w4, gscale):
     if w4.dim() != 2 or gscale.dim() != 2:
         raise ValueError(f"int4_matmul kernel takes w4 [OUT, IN_pad/2] and gscale [IN_pad/128, "
                          f"OUT], got {tuple(w4.shape)} and {tuple(gscale.shape)}")
-    return _run(xb, w4[None], gscale[None], "int4_matmul", False)[0]
+    return _run(xb, w4[None], gscale[None], "int4_matmul", False, form)[0]
 
 
 def moe_launch(xb, w4, gscale):
@@ -319,13 +319,21 @@ def moe_launch(xb, w4, gscale):
     return _run(xb, w4, gscale, "int4_moe_matmul", xb.dim() == 3)
 
 
-def _matmul(xb, w4, gscale):
+def _matmul(xb, w4, gscale, form="unindexed"):
     """Dispatch on the device of the activations: CPU -> plain, CUDA -> the kernel."""
     if xb.device.type == "cpu":
         return plain(xb, w4, gscale)
     if xb.device.type != "cuda":
         raise ValueError(f"unsupported device {xb.device}")
-    return launch(xb, w4, gscale)
+    return launch(xb, w4, gscale, form)
+
+
+def _apply(x, w4, gscale, bias, form):
+    lead = x.shape[:-1]
+    y = _matmul(x.reshape(-1, x.shape[-1]).contiguous(), w4, gscale, form)
+    if bias is not None:
+        y = y + bias[None, :].to(y.dtype)
+    return y.reshape(*lead, -1)
 
 
 def int4_matmul(x, w4, gscale, bias=None):
@@ -334,11 +342,7 @@ def int4_matmul(x, w4, gscale, bias=None):
     x: [..., IN]; w4: [OUT, IN_pad/2] uint8; gscale: [IN_pad/128, OUT] f32;
     bias: [OUT] or None, added after the cast to x's dtype, as ``aqlm_tpu``
     adds it."""
-    lead = x.shape[:-1]
-    y = _matmul(x.reshape(-1, x.shape[-1]).contiguous(), w4, gscale)
-    if bias is not None:
-        y = y + bias[None, :].to(y.dtype)
-    return y.reshape(*lead, -1)
+    return _apply(x, w4, gscale, bias, "unindexed")
 
 
 def int4_matmul_indexed(x, w4_all, gscale_all, layer_idx: int, bias_all=None):
@@ -347,7 +351,8 @@ def int4_matmul_indexed(x, w4_all, gscale_all, layer_idx: int, bias_all=None):
     w4_all: [L, OUT, IN_pad/2] uint8; gscale_all: [L, IN_pad/128, OUT] f32.
     The layer is a view of the stacked arrays: nothing is copied."""
     li = int(layer_idx)
-    return int4_matmul(x, w4_all[li], gscale_all[li], None if bias_all is None else bias_all[li])
+    return _apply(x, w4_all[li], gscale_all[li], None if bias_all is None else bias_all[li],
+                  "indexed")
 
 
 def int4_moe_matmul(x, w4_all, gscale_all):

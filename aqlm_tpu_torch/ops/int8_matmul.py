@@ -215,7 +215,7 @@ def plan(T: int, out_features: int, in_features: int, ld: int, experts: int = 1,
                 (col_tiles, row_tiles, experts * splits), gemm_t_smem(bm, stages))
 
 
-def _run(xb, w8, w_scale, name, x_per_expert):
+def _run(xb, w8, w_scale, name, x_per_expert, form=None):
     """Check the operands of one launch (w8 [E, OUT, IN_pad], w_scale [E,
     OUT], xb [rows, IN] or [E, rows, IN]) and launch it as ``plan`` lays it
     out. Returns [E, rows, OUT] bf16."""
@@ -267,18 +267,18 @@ def _run(xb, w8, w_scale, name, x_per_expert):
             ld, p.bm, p.stages, p.smem, _build.stream_ptr(dev),
         )
     _build.check(rc, name)
-    _build.KERNELS[name].launches += 1
+    _build.count(name, form)
     return out
 
 
-def launch(xb, w8, w_scale):
+def launch(xb, w8, w_scale, form="unindexed"):
     """The kernel on one layer's arrays: xb [rows, IN] bf16; w8 [OUT, IN_pad]
     int8; w_scale [OUT] f32. Rows <= 8 take the decode (GEMV) path, more
     rows the prefill (TMA + wgmma GEMM) path. Returns [rows, OUT] bf16."""
     if w8.dim() != 2 or w_scale.dim() != 1:
         raise ValueError(f"int8_matmul kernel takes w8 [OUT, IN_pad] and w_scale [OUT], got "
                          f"{tuple(w8.shape)} and {tuple(w_scale.shape)}")
-    return _run(xb, w8[None], w_scale[None], "int8_matmul", False)[0]
+    return _run(xb, w8[None], w_scale[None], "int8_matmul", False, form)[0]
 
 
 def moe_launch(xb, w8, w_scale):
@@ -291,13 +291,21 @@ def moe_launch(xb, w8, w_scale):
     return _run(xb, w8, w_scale, "int8_moe_matmul", xb.dim() == 3)
 
 
-def _matmul(xb, w8, w_scale):
+def _matmul(xb, w8, w_scale, form="unindexed"):
     """Dispatch on the device of the activations: CPU -> plain, CUDA -> the kernel."""
     if xb.device.type == "cpu":
         return plain(xb, w8, w_scale)
     if xb.device.type != "cuda":
         raise ValueError(f"unsupported device {xb.device}")
-    return launch(xb, w8, w_scale)
+    return launch(xb, w8, w_scale, form)
+
+
+def _apply(x, w8, w_scale, bias, form):
+    lead = x.shape[:-1]
+    y = _matmul(x.reshape(-1, x.shape[-1]).contiguous(), w8, w_scale, form)
+    if bias is not None:
+        y = y + bias[None, :].to(y.dtype)
+    return y.reshape(*lead, -1)
 
 
 def int8_matmul(x, w8, w_scale, bias=None):
@@ -305,11 +313,7 @@ def int8_matmul(x, w8, w_scale, bias=None):
 
     x: [..., IN]; w8: [OUT, IN_pad] int8; w_scale: [OUT] f32; bias: [OUT]
     or None, added after the cast to x's dtype, as ``aqlm_tpu`` adds it."""
-    lead = x.shape[:-1]
-    y = _matmul(x.reshape(-1, x.shape[-1]).contiguous(), w8, w_scale)
-    if bias is not None:
-        y = y + bias[None, :].to(y.dtype)
-    return y.reshape(*lead, -1)
+    return _apply(x, w8, w_scale, bias, "unindexed")
 
 
 def int8_matmul_indexed(x, w8_all, scale_all, layer_idx: int, bias_all=None):
@@ -318,7 +322,8 @@ def int8_matmul_indexed(x, w8_all, scale_all, layer_idx: int, bias_all=None):
     w8_all: [L, OUT, IN_pad] int8; scale_all: [L, OUT] f32. The layer is a
     view of the stacked arrays: nothing is copied."""
     li = int(layer_idx)
-    return int8_matmul(x, w8_all[li], scale_all[li], None if bias_all is None else bias_all[li])
+    return _apply(x, w8_all[li], scale_all[li], None if bias_all is None else bias_all[li],
+                  "indexed")
 
 
 def int8_moe_matmul(x, w8_all, scale_all):
@@ -501,7 +506,7 @@ def launch_t(gb, w8, w_scale):
         int(gb.dtype == torch.float32), rows, out_features, in_pad,
         p.bm, p.splits, p.per_split, p.stages, p.smem, _build.stream_ptr(dev))
     _build.check(rc, "int8_matmul_transposed")
-    _build.KERNELS["int8_matmul_transposed"].launches += 1
+    _build.count("int8_matmul_transposed")
     return out
 
 

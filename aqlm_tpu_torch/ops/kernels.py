@@ -221,7 +221,7 @@ def launch(xb, codes_t, codebooks, scales, group):
         p.xg, ig, out_features, K, S, _build.stream_ptr(dev),
     )
     _build.check(rc, "onehot_matmul")
-    _build.KERNELS["onehot_matmul"].launches += 1
+    _build.count("onehot_matmul")
     return out
 
 
@@ -304,7 +304,7 @@ def dequant_launch(codes, codebooks, scales=None, *, precise: bool = True):
         out.data_ptr(), og * ig, ig, K, S, g, int(precise), _build.stream_ptr(dev),
     )
     _build.check(rc, "dequantize_onehot")
-    _build.KERNELS["dequantize_onehot"].launches += 1
+    _build.count("dequantize_onehot")
     return out
 
 
@@ -425,7 +425,7 @@ def cb_grad_launch(codes, data, num_segments: int, *, precise: bool = True):
                             G, K, num_segments, g, p.blocks, p.slots, p.vec, int(precise),
                             _build.stream_ptr(dev))
     _build.check(rc, "cb_grad_segment")
-    _build.KERNELS["cb_grad_segment"].launches += 1
+    _build.count("cb_grad_segment")
     return out
 
 
@@ -485,7 +485,7 @@ def gather_wraps_launch(tab, idx):
     rc = lib.gather_wraps_launch(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), rows,
                                  _build.stream_ptr(tab.device))
     _build.check(rc, "gather_wraps")
-    _build.KERNELS["gather_wraps"].launches += 1
+    _build.count("gather_wraps")
     return out
 
 

@@ -69,7 +69,7 @@ def launch(caches, news, offsets) -> None:
         _build.stream_ptr(dev),
     )
     _build.check(rc, "kv_write")
-    _build.KERNELS["kv_write"].launches += 1
+    _build.count("kv_write")
 
 
 def _write(alls, news_hm, layer_idx: int, offsets) -> None:

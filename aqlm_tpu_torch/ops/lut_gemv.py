@@ -230,11 +230,13 @@ def plain(xb, codes_tl, codebooks, scales, proj_map, out_dtype):
     return y.to(out_dtype)
 
 
-def launch(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group, *, proj_cols=None):
+def launch(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group, *, proj_cols=None,
+           form="unindexed"):
     """K1 on one layer's arrays: xb [B, IN]; codes_tl [NT, K*IG, tn] uint8;
     codebooks [P, K, S, 8] bf16; scales [OUT] f32; proj_map [NT] int32 or
     None; ``proj_cols`` the projections' common width (their gcd), which lets
-    a block span tiles (one tile when not given)."""
+    a block span tiles (one tile when not given); ``form`` is the wrapper's,
+    for the launch count."""
     nt, kig, tn = codes_tl.shape
     P, K, S, g = codebooks.shape
     B, in_features = xb.shape
@@ -263,11 +265,12 @@ def launch(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group, *, proj_
         raise ValueError("lut_gemv kernel needs 16-byte aligned codes and activations")
     out = torch.empty((B, nt * tn), dtype=out_dtype, device=dev)
     p = plan(B, K, nt * tn, kig // K, tn, P, 1, _build.sm_count(dev.index), proj_cols)
-    _launch(p, xb, codes_tl, codebooks, scales, proj_map, out, 0, 1, K, S, "lut_gemv")
+    _launch(p, xb, codes_tl, codebooks, scales, proj_map, out, 0, 1, K, S, "lut_gemv", form)
     return out
 
 
-def _launch(p, x, codes, codebooks, scales, proj_map, out, moe, experts, K, S, counter):
+def _launch(p, x, codes, codebooks, scales, proj_map, out, moe, experts, K, S, counter,
+            form=None):
     """One launch of K1 as ``p`` lays it out (dense or all-expert)."""
     nt, kig, tn = codes.shape[-3:]
     B, in_features = x.shape[-2:]
@@ -289,16 +292,18 @@ def _launch(p, x, codes, codebooks, scales, proj_map, out, moe, experts, K, S, c
         p.blocks_per_proj, _build.stream_ptr(dev),
     )
     _build.check(rc, counter)
-    _build.KERNELS[counter].launches += 1
+    _build.count(counter, form)
 
 
-def _gemv(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group, proj_cols=None):
+def _gemv(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group, proj_cols=None,
+          form="unindexed"):
     """Dispatch on the device of the activations: CPU -> plain, CUDA -> K1."""
     if xb.device.type == "cpu":
         return plain(xb, codes_tl, codebooks, scales, proj_map, out_dtype)
     if xb.device.type != "cuda":
         raise ValueError(f"unsupported device {xb.device}")
-    return launch(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group, proj_cols=proj_cols)
+    return launch(xb, codes_tl, codebooks, scales, proj_map, out_dtype, group, proj_cols=proj_cols,
+                  form=form)
 
 
 def lut_gemv_kx8_tiled(x, codes_tl, codebooks, scales, bias=None, *, group: int):
@@ -324,7 +329,7 @@ def lut_gemv_kx8_indexed(x, codes_tl_all, codebooks_all, scales_all, layer_idx: 
     out_dtype = torch.float32 if bias_all is not None else x.dtype
     li = int(layer_idx)
     y = _gemv(xb, codes_tl_all[li], codebooks_all[li][None], scales_all[li], None,
-              out_dtype, group)
+              out_dtype, group, form="indexed")
     if bias_all is not None:
         y = (y + bias_all[li][None, :].to(y.dtype)).to(x.dtype)
     return y.reshape(*lead, -1)
@@ -346,7 +351,7 @@ def lut_gemv_kx8_grouped_indexed(x, codes_tl_all, codebooks_all, scales_all, out
         proj_map = proj_map_for(out_sizes, tn, x.device)
     li = int(layer_idx)
     y = _gemv(xb, codes_tl_all[li], codebooks_all[li], scales_all[li], proj_map, x.dtype, group,
-              math.gcd(*out_sizes))
+              math.gcd(*out_sizes), form="indexed")
     return y.reshape(*lead, -1)
 
 

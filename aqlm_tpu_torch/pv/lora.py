@@ -154,7 +154,7 @@ def make_lora_step(cfg, forward_fn=llama.forward):
     def step(state: LoraTrainState, input_ids: torch.Tensor, mask=None):
         with torch.enable_grad():
             params = merge_trainable(state.adapters, state.frozen)
-            logits = forward_fn(params, cfg, input_ids)
+            logits, _ = forward_fn(params, cfg, input_ids)
             loss = cross_entropy_loss(logits[:, :-1], input_ids[:, 1:], mask)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()

@@ -104,9 +104,27 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    step 7 x 32 forward launches (K2 or the int8 kernel) and 7 x 32 - 3
    backward launches (B5 or B10), nothing else; seconds per step, trained
    tokens/s, peak memory and a profiled step's device time by kernel;
-8. the seconds of each phase, the kernel list (launches over the engine,
-   calibration, serving and training runs), then {"ok": true, "device":
-   {...}} as the last line.
+8. the entry points a user calls, on one canonical Llama-2-7B checkpoint
+   (2x8 g8, all 32 layers, random weights from a seed, bf16 embedding,
+   norms and head) written by the port's ``save_quantized_model`` under
+   build/ with its ``cli.convert --to int8`` and 2-layer cuts (deleted at
+   the end): ``unstacked_decode`` (``llama.forward`` in codes mode, batch 4,
+   a 64-token prefill into ``llama.init_kv_cache`` and 8 cached steps: K2
+   and K1 by their unindexed forms exactly 7 x 32 a forward, nothing else;
+   the last logits against ``forward_stacked``), ``evaluate``
+   (``cli.evaluate.main`` on 8 random windows of 4096 ids in codes, int8
+   (the materialized checkpoint), int4 (transcoded at load) and reference
+   mode: finite perplexities, codes within 1e-2 of reference in ln PPL, each
+   mode's kernel launched 8 x 32 x 7 times by its unindexed form, and at 2
+   layers the card within 1e-2 of the CPU in ln PPL), and ``cli_serve``
+   (``cli.serve`` on the int8 checkpoint, 8 concurrent /v1/completions
+   requests, 2 streamed and 2 with logprobs: tokens identical to an Engine
+   replaying the server loop's calls; requests/s, latency, time to first
+   token; then ``cli.generate --benchmark --mode codes``);
+9. the seconds of each phase, the kernel list (launches over the engine,
+   calibration, serving, training and entry-point runs, and for K1, K2,
+   int8 and int4 the launches by wrapper form), then {"ok": true,
+   "device": {...}} as the last line.
 
 Writes chiprun_out/chip_smoke.json with every record and
 chiprun_out/ptxas.txt with the kernels' register and shared-memory report.
@@ -123,6 +141,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1378,8 +1397,8 @@ def reference_check(dev, run):
 
         ids128 = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 128)))
         with torch.inference_mode():
-            got = llama.forward(params, cfg2, ids128.to(dev))[0].float().cpu()
-            want = llama.forward(_to(params, torch.device("cpu")), cfg2, ids128)[0].float()
+            got = llama.forward(params, cfg2, ids128.to(dev))[0][0].float().cpu()
+            want = llama.forward(_to(params, torch.device("cpu")), cfg2, ids128)[0][0].float()
         err, scale = (got - want).abs().max().item(), want.abs().max().item()
         entry_ok = bool(torch.isfinite(got).all()) and err <= 3e-2 * scale
         aside["llama_forward_128"] = {"max_abs_err": err, "max_rel_err": err / scale,
@@ -1567,7 +1586,9 @@ def engine_run(dev, run):
            "generate_s": total_s, "steps": len(steps),
            "build_peak_mem_gib": build_peak_gib,
            "serve_peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches": launches, **per_forward, "prefix_hits": engine.prefix_stats["hits"],
+           "launches": launches, "forms": {k: dict(v.forms) for k, v in _build.KERNELS.items()
+                                           if v.forms},
+           **per_forward, "prefix_hits": engine.prefix_stats["hits"],
            "first_tokens": [o[:4] for o in out], "ok": ok and ran and others}
     t0 = time.perf_counter()
     rec["profile"] = profile_decode(engine, cfg, rng)
@@ -1579,9 +1600,14 @@ def engine_run(dev, run):
     return rec
 
 
+PROFILE_NEW_TOKENS = 8
+
+
 def profile_decode(engine, cfg, rng) -> dict:
     """Device time by kernel over a short decode window (4 rows of 64-token
-    prompts, 16 new tokens), from torch.profiler, beside its wall time."""
+    prompts, 8 new tokens), from torch.profiler, beside its wall time. The
+    window is short because ``key_averages`` walks every recorded event: at
+    16 new tokens it took 28-42 s a run on the H100's host."""
     from torch.profiler import ProfilerActivity, profile
 
     from aqlm_tpu_torch.serve import SamplingParams
@@ -1591,7 +1617,7 @@ def profile_decode(engine, cfg, rng) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.generate(prompts, SamplingParams(max_new_tokens=16))
+        engine.generate(prompts, SamplingParams(max_new_tokens=PROFILE_NEW_TOKENS))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
@@ -1607,7 +1633,7 @@ def profile_decode(engine, cfg, rng) -> dict:
     # the host side: torch ops by their own CPU time (the profiler's overhead included)
     host = [e for e in averages if getattr(e, "device_type", None) == DeviceType.CPU]
     host_top = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
-    return {"window": "4 x 64-token prompts, 16 new tokens", "wall_ms": wall_ms,
+    return {"window": f"4 x 64-token prompts, {PROFILE_NEW_TOKENS} new tokens", "wall_ms": wall_ms,
             "device_ms": total_ms, "device_busy_share": total_ms / wall_ms,
             "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "calls": e.count} for e in top],
             "host_ms": sum(e.self_cpu_time_total for e in host) / 1e3,
@@ -1843,10 +1869,10 @@ def serve_calibrated(dev) -> dict:
     ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 64))).to(dev)
     with torch.inference_mode():
         _build.reset_launch_counts()
-        ref = llama.forward(params, cfg, ids)[0].float()
+        ref = llama.forward(params, cfg, ids)[0][0].float()
         ref_b13 = _build.KERNELS["dequantize_onehot"].launches
         codes = convert_runtime_mode(params, "codes")
-        got = llama.forward(codes, cfg, ids)[0].float()
+        got = llama.forward(codes, cfg, ids)[0][0].float()
     err, scale = float((got - ref).abs().max()), float(ref.abs().max())
     engine = Engine(codes, cfg, ServeConfig(max_batch=4, max_len=512, kv_quantized=True))
     rng = np.random.default_rng(4)
@@ -2064,6 +2090,469 @@ def lora_run(dev, run) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the entry points a user calls, on one canonical Llama-2-7B checkpoint
+# ---------------------------------------------------------------------------
+
+ENTRY_SEED = 5
+ENTRY_PROJS = 7  # quantized projections a layer; the dense bf16 head is no kernel's
+EVAL_ARGS = ["--datasets", "random", "--nsamples", "8", "--model_seqlen", "4096",
+             "--batch_size", "1"]
+EVAL_CPU_ARGS = ["--datasets", "random", "--nsamples", "1", "--model_seqlen", "256",
+                 "--batch_size", "1"]  # the 2-layer card-against-CPU comparison
+# evaluate runs: (mode, checkpoint) -> the kernel whose unindexed form each projection launches
+EVAL_RUNS = (("codes", "canonical", "gather_prefill"), ("int8", "int8", "int8_matmul"),
+             ("int4", "canonical", "int4_matmul"), ("reference", "canonical", "dequantize_onehot"))
+PATH_KERNELS["unstacked_decode"] = ("lut_gemv", "gather_prefill")
+for _mode, _, _kernel in EVAL_RUNS:
+    PATH_KERNELS[f"evaluate_{_mode}"] = (_kernel,)
+PATH_KERNELS["evaluate_int4"] += ("dequantize_onehot",)  # the int4 transcode at load
+PATH_KERNELS["cli_serve"] = ("int8_matmul", "flash_decode_write")
+PATH_KERNELS["cli_generate"] = ("lut_gemv", "gather_prefill", "flash_decode_write")
+SERVE_LENGTHS = [64, 200, 700, 1100, 1500, 333, 90, 512]  # prompt ids a request
+SERVE_STREAMED, SERVE_LOGPROBS = (2, 5), (3, 6)
+SERVE_NEW = 64
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _launch_record() -> dict:
+    from aqlm_tpu_torch.ops import _build
+
+    return {"launches": {k: v.launches for k, v in _build.KERNELS.items()},
+            "forms": {k: dict(v.forms) for k, v in _build.KERNELS.items() if v.forms}}
+
+
+def _only_launched(rec: dict, want: dict) -> bool:
+    """Exactly ``want`` {kernel: launches} by the unindexed form, every other
+    kernel and form 0."""
+    launches, forms = rec["launches"], rec["forms"]
+    return (all(launches[k] == n for k, n in want.items())
+            and all(n == 0 for k, n in launches.items() if k not in want)
+            and all(forms.get(k, {"unindexed": n}) == {"unindexed": n} for k, n in want.items()))
+
+
+def write_entry_checkpoints(dev, root) -> dict:
+    """Under ``root``: ``canonical``, Llama-2-7B in 2x8 g8 at full width and
+    depth (random codes, codebooks and scales from ENTRY_SEED; a bf16
+    embedding, norms and head, so the kernels get bf16 activations), written
+    by the port's ``save_quantized_model``; ``int8``, its ``cli.convert --to
+    int8``; and the same model cut to 2 layers, canonical and converted to
+    int8 and int4 (``canonical_2``, ``int8_2``, ``int4_2``)."""
+    from aqlm_tpu_torch.cli import convert as cli_convert
+    from aqlm_tpu_torch.config import AqlmScheme
+    from aqlm_tpu_torch.io import save_quantized_model
+    from aqlm_tpu_torch.models.quantize import random_quantized_params
+
+    cfg = model_config("llama2_7b")
+    paths = {k: os.path.join(root, k) for k in ("canonical", "int8", "canonical_2", "int8_2",
+                                                 "int4_2")}
+    seconds = {}
+    t0 = time.perf_counter()
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(ENTRY_SEED), cfg,
+                                     AqlmScheme.parse("2x8g8"), mode="reference", device=dev)
+    save_quantized_model(paths["canonical"], params, cfg)
+    save_quantized_model(paths["canonical_2"], {**params, "layers": params["layers"][:2]},
+                         dataclasses.replace(cfg, num_layers=2))
+    del params
+    torch.cuda.empty_cache()
+    seconds["write_canonical"] = time.perf_counter() - t0
+    for src, dst, to in (("canonical", "int8", "int8"), ("canonical_2", "int8_2", "int8"),
+                         ("canonical_2", "int4_2", "int4")):
+        t0 = time.perf_counter()
+        cli_convert.main([paths[src], paths[dst], "--to", to, "--device", dev.type])
+        torch.cuda.empty_cache()
+        seconds[f"convert_{dst}"] = time.perf_counter() - t0
+    size = lambda p: sum(os.path.getsize(os.path.join(p, f)) for f in os.listdir(p))
+    return {"paths": paths, "seconds": seconds,
+            "gib": {k: size(p) / 2 ** 30 for k, p in paths.items()}}
+
+
+DECODE_B, DECODE_T0, DECODE_STEPS = 4, 64, 8  # unstacked_decode's batch, prefill, steps
+
+
+def _unstacked_steps(params, cfg, ids, dev):
+    """A DECODE_T0-token prefill into ``llama.init_kv_cache`` and
+    DECODE_STEPS cached single-token steps of ``llama.forward``: (the last
+    step's logits, prefill ms, each step's ms)."""
+    from aqlm_tpu_torch.models import llama
+
+    cache = llama.init_kv_cache(cfg, DECODE_B, DECODE_T0 + DECODE_STEPS, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    _, cache = llama.forward(params, cfg, ids[:, :DECODE_T0], kv_caches=cache, cache_offset=0)
+    _sync(dev)
+    prefill_ms, step_ms = (time.perf_counter() - t0) * 1e3, []
+    for p in range(DECODE_T0, DECODE_T0 + DECODE_STEPS):
+        t0 = time.perf_counter()
+        out, cache = llama.forward(params, cfg, ids[:, p:p + 1], kv_caches=cache, cache_offset=p)
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return out[:, -1].float().cpu(), prefill_ms, step_ms
+
+
+def _stacked_steps(params, cfg, ids, dev, fuse):
+    """The same steps through ``forward_stacked`` (the Engine's form: layers
+    stacked, the kernels layer-indexed, q/k/v and gate/up fused or not) over
+    a bf16 cache of DECODE_T0 + DECODE_STEPS rows (the plain attention, as
+    the unstacked forward's): the last step's logits."""
+    from aqlm_tpu_torch.models import stacked
+    from aqlm_tpu_torch.serve import ServeConfig
+    from aqlm_tpu_torch.serve.engine import serving_params
+
+    max_len = DECODE_T0 + DECODE_STEPS
+    st = serving_params(params, cfg, ServeConfig(max_batch=DECODE_B, max_len=max_len,
+                                                 fuse_projections=fuse))
+    cache = stacked.init_kv_cache(cfg, DECODE_B, max_len, quantized=False, device=dev)
+    stacked.forward_stacked(st, cfg, ids[:, :DECODE_T0], cache=cache, cache_offset=0)
+    for p in range(DECODE_T0, DECODE_T0 + DECODE_STEPS):
+        out, _ = stacked.forward_stacked(st, cfg, ids[:, p:p + 1], cache=cache, cache_offset=p)
+    return out[:, -1].float().cpu()
+
+
+def _logit_diff(got, want) -> dict:
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    return {"max_abs_err": err, "max_rel_err": err / scale,
+            "argmax_agree": float((got.argmax(-1) == want.argmax(-1)).float().mean())}
+
+
+def unstacked_decode(dev, paths) -> dict:
+    """``llama.forward`` in codes mode over the canonical checkpoint (loaded
+    and transcoded by ``cli.common.resolve_model``) at batch 4: a 64-token
+    prefill into ``llama.init_kv_cache`` (K2's unindexed form), then 8 cached
+    single-token steps (K1's tiled form). Gates: K2 launches exactly 7 x 32
+    and K1 exactly 8 x 7 x 32 times, by their unindexed forms, and nothing
+    else launches; the last logits finite; and at 2 layers (the 2-layer
+    cut), the last logits within 3e-2 max|logit| of ``forward_stacked``
+    (fused, as the Engine runs it) over the same ids, as the reference
+    phase gates at 2 layers. At 32 layers the same comparison, and the
+    Engine's own fused form against its unfused one, are recorded ungated:
+    the random model's attention logits have a std of ~540
+    (experiments/torch_random_model_scale.py), so its softmax is nearly an
+    argmax and routes that round differently drift apart with depth
+    (experiments/torch_unstacked_depth.py)."""
+    from aqlm_tpu_torch.cli.common import resolve_model
+    from aqlm_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    params, cfg, _ = resolve_model(paths["canonical"], mode="codes", device=dev)
+    load_s = time.perf_counter() - t0
+    ids = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (DECODE_B, DECODE_T0 + DECODE_STEPS))).to(dev)
+    with torch.inference_mode():
+        _build.reset_launch_counts()
+        got, prefill_ms, step_ms = _unstacked_steps(params, cfg, ids, dev)
+        rec = _launch_record()
+        fused = _stacked_steps(params, cfg, ids, dev, True)
+        unfused = _stacked_steps(params, cfg, ids, dev, False)
+        full = {"vs_forward_stacked_fused": _logit_diff(got, fused),
+                "vs_forward_stacked_unfused": _logit_diff(got, unfused),
+                "stacked_fused_vs_unfused": _logit_diff(fused, unfused)}
+        del params
+        torch.cuda.empty_cache()
+        p2, cfg2, _ = resolve_model(paths["canonical_2"], mode="codes", device=dev)
+        got2 = _unstacked_steps(p2, cfg2, ids, dev)[0]
+        two = _logit_diff(got2, _stacked_steps(p2, cfg2, ids, dev, True))
+        del p2
+    torch.cuda.empty_cache()
+    per_forward = cfg.num_layers * ENTRY_PROJS
+    formula = {"gather_prefill": per_forward, "lut_gemv": DECODE_STEPS * per_forward}
+    counts_ok = _only_launched(rec, formula)
+    two_ok = bool(torch.isfinite(got2).all()) and two["max_rel_err"] <= 3e-2
+    return {"phase": "unstacked_decode", "mode": "codes", "layers": cfg.num_layers,
+            "batch": DECODE_B, "prefill_tokens": DECODE_T0, "decode_steps": DECODE_STEPS,
+            "kv": "bf16", "load_s": load_s, "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "decode_tok_s": DECODE_B * DECODE_STEPS / (sum(step_ms) / 1e3), **rec,
+            "launch_formula": formula, "launches_match": counts_ok,
+            "two_layers_vs_forward_stacked": {**two, "ok": two_ok,
+                                              "tol": "max|unstacked - stacked| <= 3e-2 * max|stacked|"},
+            "full_depth_ungated": full,
+            "ok": counts_ok and bool(torch.isfinite(got).all()) and two_ok}
+
+
+def _timed_eval(argv, dev) -> tuple[dict, float]:
+    """(``cli.evaluate.main(argv)``'s result, seconds inside its
+    ``evaluate_perplexity``): the CLI module's name is wrapped for the call."""
+    from aqlm_tpu_torch.cli import evaluate as cli_evaluate
+
+    inner, spent = cli_evaluate.evaluate_perplexity, []
+
+    def timed(*args, **kw):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        _sync(dev)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    cli_evaluate.evaluate_perplexity = timed
+    try:
+        res = cli_evaluate.main(argv)
+    finally:
+        cli_evaluate.evaluate_perplexity = inner
+    return res, sum(spent)
+
+
+def evaluate_run(dev, paths) -> dict:
+    """``cli.evaluate.main`` in-process on 8 random windows of 4096 ids, batch
+    1: in codes mode (the canonical checkpoint transcoded at load), on the
+    materialized int8 checkpoint, in int4 (transcoded at load) and in
+    reference mode. Gates: every perplexity finite; |ln PPL(codes) - ln
+    PPL(reference)| <= 1e-2; each mode's kernel launched by its unindexed
+    form exactly 8 windows x 32 layers x 7 projections times (reference mode:
+    B13, one dequant a projection a forward; int4 also B13 once a projection
+    at load) and nothing else; and at 2
+    layers (1 window of 256 ids), each mode's ln PPL on the card within
+    1e-2 of the same CLI's on the CPU (plain versions), over the same
+    checkpoints (int8 and int4 materialized)."""
+    from aqlm_tpu_torch.ops import _build
+
+    cfg = model_config("llama2_7b")
+    nwin, seqlen = 8, 4096
+    runs = {}
+    for mode, ckpt, kernel in EVAL_RUNS:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, eval_s = _timed_eval([paths[ckpt], *EVAL_ARGS, "--mode", mode, "--device", dev.type],
+                                  dev)
+        _sync(dev)
+        total_s = time.perf_counter() - t0
+        rec = _launch_record()
+        formula = {kernel: nwin * cfg.num_layers * ENTRY_PROJS}
+        if mode == "int4":  # transcoded at load: B13 dequantizes each projection once
+            formula["dequantize_onehot"] = cfg.num_layers * ENTRY_PROJS
+        ppl = res["ppl_random"]
+        runs[mode] = {"checkpoint": ckpt, "ppl": ppl, "ln_ppl": math.log(ppl),
+                      "seconds": total_s, "load_s": total_s - eval_s, "eval_s": eval_s,
+                      "s_per_window": eval_s / nwin, "tok_s": nwin * seqlen / eval_s, **rec,
+                      "launch_formula": formula, "launches_match": _only_launched(rec, formula),
+                      "finite": math.isfinite(ppl)}
+        torch.cuda.empty_cache()
+    small = {}
+    for mode, ckpt, _ in EVAL_RUNS:
+        path = paths[f"{ckpt}_2" if mode != "int4" else "int4_2"]
+        lp = {}
+        for d in (dev.type, "cpu"):
+            t0 = time.perf_counter()
+            res = _timed_eval([path, *EVAL_CPU_ARGS, "--mode", mode, "--device", d],
+                              torch.device(d))[0]
+            lp[d] = (math.log(res["ppl_random"]), time.perf_counter() - t0)
+        card, cpu = lp[dev.type], lp["cpu"]
+        small[mode] = {"checkpoint": os.path.basename(path), "ln_ppl_card": card[0],
+                       "ln_ppl_cpu": cpu[0], "diff": abs(card[0] - cpu[0]),
+                       "seconds_card": card[1], "seconds_cpu": cpu[1],
+                       "ok": abs(card[0] - cpu[0]) <= 1e-2}
+    codes_vs_ref = abs(runs["codes"]["ln_ppl"] - runs["reference"]["ln_ppl"])
+    ok = (all(r["finite"] and r["launches_match"] for r in runs.values())
+          and codes_vs_ref <= 1e-2 and all(s["ok"] for s in small.values()))
+    return {"phase": "evaluate", "argv": EVAL_ARGS, "layers": cfg.num_layers, "windows": nwin,
+            "seqlen": seqlen, "runs": runs, "ln_ppl_codes_vs_reference": codes_vs_ref,
+            "two_layers_card_vs_cpu": {"argv": EVAL_CPU_ARGS, **small},
+            "tol": "|ln PPL(codes) - ln PPL(reference)| <= 1e-2; 2 layers: |card - cpu| <= 1e-2",
+            "ok": ok}
+
+
+def _tensor_leaves(node):
+    """Every tensor of a params tree (dicts, lists, weight dataclasses), in order."""
+    if isinstance(node, torch.Tensor):
+        yield node
+    elif isinstance(node, dict):
+        for k in sorted(node):
+            yield from _tensor_leaves(node[k])
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _tensor_leaves(v)
+    elif dataclasses.is_dataclass(node):
+        for f in dataclasses.fields(node):
+            yield from _tensor_leaves(getattr(node, f.name))
+
+
+class _RecordingEngine:
+    """The server's engine with its loop's ``submit`` and ``step`` calls
+    recorded in order, so another engine can replay them."""
+
+    def __init__(self, engine):
+        self.engine, self.calls = engine, []
+
+    def submit(self, prompt, sampling):
+        rid = self.engine.submit(prompt, sampling)
+        self.calls.append(("submit", prompt, sampling, rid))
+        return rid
+
+    def step(self):
+        self.calls.append(("step",))
+        return self.engine.step()
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+
+def _completion(port, i, prompt, out):
+    """One /v1/completions request (streamed, with logprobs or plain):
+    out[i] = (its answer, seconds to the last byte, seconds to the first
+    streamed chunk or None)."""
+    import urllib.request
+
+    body = {"prompt_ids": [int(t) for t in prompt], "max_tokens": SERVE_NEW,
+            "temperature": 0.0}
+    stream = i in SERVE_STREAMED
+    if stream:
+        body["stream"] = True
+    if i in SERVE_LOGPROBS:
+        body["logprobs"] = 1
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first = None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not stream:
+            ans = json.loads(r.read())
+        else:
+            tokens = []
+            for line in r:
+                line = line.decode().strip()
+                if line.startswith("data: ") and line != "data: [DONE]":
+                    first = first or time.perf_counter() - t0
+                    tokens += json.loads(line[len("data: "):])["choices"][0]["token_ids"]
+            ans = {"choices": [{"token_ids": tokens}]}
+    out[i] = (ans, time.perf_counter() - t0, first)
+
+
+def cli_serve_run(dev, paths) -> dict:
+    """``cli.serve`` over the materialized int8 checkpoint (``--max_batch 4
+    --kv_int8 --decode_chunk 8``, 127.0.0.1, port 0), in-process: 8
+    concurrent /v1/completions requests of 64-1500 prompt ids, 64 greedy new
+    tokens each, 2 streamed (SSE) and 2 with logprobs. Gates: every answer's
+    tokens equal those of an in-process ``Engine`` on the same params (the
+    canonical checkpoint transcoded to int8 at load, its serving tensors
+    equal to the served engine's bit for bit) and prompts, replaying the
+    server loop's own sequence of submits and steps (so the batches match),
+    the logprobs within 1e-5 of its (the answer rounds them to 6 decimals);
+    the int8 kernel and K3 launched, nothing else. Records
+    requests/s, mean and p99 latency and the streams' time to first token.
+    Then ``cli.generate --benchmark --mode codes`` on the canonical
+    checkpoint, its printed lines kept."""
+    import contextlib
+    import io
+    import threading
+
+    from aqlm_tpu_torch.cli import generate as cli_generate
+    from aqlm_tpu_torch.cli import serve as cli_serve
+    from aqlm_tpu_torch.cli.common import resolve_model
+    from aqlm_tpu_torch.ops import _build
+    from aqlm_tpu_torch.serve import Engine
+
+    argv = [paths["int8"], "--host", "127.0.0.1", "--port", "0", "--max_batch", "4", "--kv_int8",
+            "--decode_chunk", "8", "--mode", "int8", "--device", dev.type]
+    cfg = model_config("llama2_7b")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENGTHS]
+    t0 = time.perf_counter()
+    httpd, server = cli_serve.make_server(cli_serve.build_parser().parse_args(argv))
+    load_s = time.perf_counter() - t0
+    recorder = server.engine = _RecordingEngine(server.engine)
+    serve_cfg = recorder.engine.serve
+    port = httpd.server_address[1]
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    answers = {}
+    try:
+        _build.reset_launch_counts()
+        clients = [threading.Thread(target=_completion, args=(port, i, p, answers))
+                   for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(900)
+        wall_s = time.perf_counter() - t0
+        _sync(dev)
+        rec = _launch_record()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+    calls, served_engine = recorder.calls, recorder.engine
+    del recorder, server, httpd
+    served = sorted(answers) == list(range(len(prompts)))
+
+    # the replay: a fresh engine on the same params (the canonical checkpoint
+    # transcoded to int8 at load, the layout `convert --to int8` wrote: the
+    # served engine's tensors, bit for bit), the server loop's calls in order
+    t0 = time.perf_counter()
+    params, _, _ = resolve_model(paths["canonical"], mode="int8", device=dev)
+    engine = Engine(params, cfg, serve_cfg, device=dev)
+    del params
+    replay_load_s = time.perf_counter() - t0
+    mine, theirs = list(_tensor_leaves(engine.params)), list(_tensor_leaves(served_engine.params))
+    same_params = len(mine) == len(theirs) and all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    del mine, theirs, served_engine
+    torch.cuda.empty_cache()
+    rid_of = {}
+    for call in calls:
+        if call[0] == "submit":
+            rid = engine.submit(call[1], call[2])
+            rid_of[tuple(int(t) for t in call[1])] = rid
+            assert rid == call[3]
+        else:
+            engine.step()
+    mismatch, lp_err = [], 0.0
+    for i, p in enumerate(prompts):
+        if i not in answers:
+            continue
+        req = engine.requests[rid_of[tuple(int(t) for t in p)]]
+        choice = answers[i][0]["choices"][0]
+        if choice["token_ids"] != [int(t) for t in req.generated] or len(req.generated) != SERVE_NEW:
+            mismatch.append(i)
+        if i in SERVE_LOGPROBS:
+            got = choice["logprobs"]["token_logprobs"]
+            lp_err = max(lp_err, max(abs(a - b) for a, b in zip(got, req.logprobs)))
+    del engine
+    torch.cuda.empty_cache()
+    lat = [answers[i][1] for i in sorted(answers)]
+    ttft = [answers[i][2] for i in SERVE_STREAMED if i in answers]
+    ran = all(rec["launches"][k] > 0 for k in PATH_KERNELS["cli_serve"])
+    others = all(n == 0 for k, n in rec["launches"].items() if k not in PATH_KERNELS["cli_serve"])
+    serve_rec = {"argv": argv, "prompt_lengths": SERVE_LENGTHS, "new_tokens": SERVE_NEW,
+                 "streamed": list(SERVE_STREAMED), "logprobs": list(SERVE_LOGPROBS),
+                 "load_s": load_s, "wall_s": wall_s, "requests_per_s": len(lat) / wall_s,
+                 "tokens_per_s": len(lat) * SERVE_NEW / wall_s,
+                 "latency_mean_s": statistics.mean(lat),
+                 "latency_p99_s": float(np.percentile(lat, 99)), "ttft_s": ttft,
+                 "engine_calls": {"submits": sum(c[0] == "submit" for c in calls),
+                                  "steps": sum(c[0] == "step" for c in calls)},
+                 **rec, "replay_load_s": replay_load_s, "replay_params_identical": same_params,
+                 "replay_mismatch": mismatch, "logprob_max_abs_err": lp_err,
+                 "tol": "tokens identical to the replaying Engine; logprobs within 1e-5"}
+    serve_ok = served and same_params and not mismatch and lp_err <= 1e-5 and ran and others
+
+    # cli.generate --benchmark: its two printed lines kept
+    _build.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    gen_argv = [paths["canonical"], "--mode", "codes", "--benchmark", "--device", dev.type]
+    with contextlib.redirect_stdout(buf):
+        gen = cli_generate.main(gen_argv)
+    gen_s = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    grec = _launch_record()
+    gen_ok = (gen["new_tokens"] > 1 and len(gen["tokens"]) == 128
+              and lines[0].endswith(" tokens per second>") and json.loads(lines[-1])
+              == {k: gen[k] for k in ("tokens_per_second", "new_tokens")}
+              and all(grec["launches"][k] > 0 for k in PATH_KERNELS["cli_generate"])
+              and all(n == 0 for k, n in grec["launches"].items()
+                      if k not in PATH_KERNELS["cli_generate"]))
+    torch.cuda.empty_cache()
+    return {"phase": "cli_serve", "serve": serve_rec, "serve_ok": serve_ok,
+            "generate": {"argv": gen_argv,
+                         "lines": lines, "seconds": gen_s, **grec, "ok": gen_ok},
+            "runs": {"cli_serve": rec, "cli_generate": grec}, "ok": serve_ok and gen_ok}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2171,6 +2660,40 @@ def main() -> int:
             print(f"chip_smoke: the {run} training run failed its checks", file=sys.stderr)
             return 8
 
+    # the entry points a user calls, on one canonical checkpoint written here
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="entry_checkpoints_", dir="build")
+    try:
+        t0 = time.perf_counter()
+        ckpts = write_entry_checkpoints(dev, root)
+        phase_s["entry_checkpoints"] = time.perf_counter() - t0
+        emit({"phase": "entry_checkpoints", **ckpts, "total_s": phase_s["entry_checkpoints"]})
+        t0 = time.perf_counter()
+        runs["unstacked_decode"] = unstacked_decode(dev, ckpts["paths"])
+        phase_s["unstacked_decode"] = runs["unstacked_decode"]["seconds"] = time.perf_counter() - t0
+        emit(runs["unstacked_decode"])
+        if not runs["unstacked_decode"]["ok"]:
+            print("chip_smoke: the unstacked forward failed its checks", file=sys.stderr)
+            return 9
+        t0 = time.perf_counter()
+        rec = evaluate_run(dev, ckpts["paths"])
+        phase_s["evaluate"] = rec["seconds"] = time.perf_counter() - t0
+        emit(rec)
+        runs.update({f"evaluate_{mode}": r for mode, r in rec["runs"].items()})
+        if not rec["ok"]:
+            print("chip_smoke: the evaluate CLI failed its checks", file=sys.stderr)
+            return 10
+        t0 = time.perf_counter()
+        rec = cli_serve_run(dev, ckpts["paths"])
+        phase_s["cli_serve"] = rec["seconds"] = time.perf_counter() - t0
+        emit(rec)
+        runs.update(rec["runs"])
+        if not rec["ok"]:
+            print("chip_smoke: the serve or generate CLI failed its checks", file=sys.stderr)
+            return 11
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
     emit({"phase": "seconds", **phase_s, "total": time.perf_counter() - T_START})
     kernels = []
     for name, info in _build.KERNELS.items():
@@ -2179,6 +2702,10 @@ def main() -> int:
                   if name in PATH_KERNELS[run]}
         # B6 and B16 are on no path (nor in aqlm_tpu's engine): phase 2 alone launches them
         aside = {} if by_run else {"launches_note": "on no path: launched by phase 2's checks only"}
+        forms = {run: rec["forms"][name] for run, rec in runs.items()
+                 if name in PATH_KERNELS[run] and name in rec.get("forms", {})}
+        if forms:  # K1, K2, int8, int4: launches by wrapper form (unindexed, indexed)
+            aside["forms_by_run"] = forms
         kernels.append({"name": name, "route": "cuda", "source": info.source,
                         "replaces": info.replaces, "also_replaces": list(info.also_replaces),
                         "launches": sum(by_run.values()), "launches_by_run": by_run, **aside,

@@ -179,7 +179,8 @@ def test_falcon_forward_matches_jax(mode):
     _, cfg = _cfgs()
     ids = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 9))
     want, _ = jfalcon.forward(jparams, jcfg, jnp.asarray(ids))
-    got = falcon.forward(_port(jparams), cfg, torch.from_numpy(ids))
+    got, caches = falcon.forward(_port(jparams), cfg, torch.from_numpy(ids))
+    assert caches is None
     assert got.shape == (2, 9, cfg.vocab_size)
     assert_close(got, want)
 

@@ -159,7 +159,7 @@ def test_llama_forward_1x16_matches_jax():
     assert q.packed_cb is not None and q.codes.dtype == torch.int16
     ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 11))
     want, _ = jllama.forward(jparams, jcfg, jnp.asarray(ids))
-    got = llama.forward(params, cfg, torch.from_numpy(ids))
+    got, _ = llama.forward(params, cfg, torch.from_numpy(ids))
     assert got.shape == (2, 11, cfg.vocab_size)
     assert_close(got, want)
 

@@ -233,7 +233,7 @@ def test_zero_init_lora_is_identity():
     p = params_from_numpy(to_numpy_tree(jp), device="cpu")
     wrapped = attach_lora(p, torch.Generator().manual_seed(1), r=4)
     ids = torch.tensor([[3, 1, 4, 1, 5, 9, 2, 6]])
-    assert torch.equal(llama.forward(p, cfg, ids), llama.forward(wrapped, cfg, ids))
+    assert torch.equal(llama.forward(p, cfg, ids)[0], llama.forward(wrapped, cfg, ids)[0])
 
 
 def test_split_lora_and_merge_trainable_round_trip():
@@ -248,7 +248,7 @@ def test_split_lora_and_merge_trainable_round_trip():
     assert fq.lora_a is None and fq.lora_b is None and fq.base.codes is not None
     merged = merge_trainable(adapters, frozen)
     ids = torch.tensor([[1, 2, 3]])
-    assert torch.equal(llama.forward(wrapped, cfg, ids), llama.forward(merged, cfg, ids))
+    assert torch.equal(llama.forward(wrapped, cfg, ids)[0], llama.forward(merged, cfg, ids)[0])
 
 
 def test_merge_lora_dense_matches_jax():
@@ -265,7 +265,7 @@ def test_merge_lora_dense_matches_jax():
         np.testing.assert_allclose(f32(m["layers"][0][name].weight),
                                    f32(jm["layers"][0][name].weight), rtol=1e-6, atol=1e-7)
     ids = torch.tensor([[5, 6, 7, 8]])
-    np.testing.assert_allclose(f32(llama.forward(w, cfg, ids)), f32(llama.forward(m, cfg, ids)),
+    np.testing.assert_allclose(f32(llama.forward(w, cfg, ids)[0]), f32(llama.forward(m, cfg, ids)[0]),
                                atol=2e-5)
 
 

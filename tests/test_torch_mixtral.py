@@ -33,7 +33,7 @@ from aqlm_tpu_torch.config import SCHEME_1X16 as T_SCHEME_1X16
 from aqlm_tpu_torch.config import SCHEME_2X8 as T_SCHEME_2X8
 from aqlm_tpu_torch.convert import params_from_numpy
 from aqlm_tpu_torch.io import load_quantized_model
-from aqlm_tpu_torch.models import family, mixtral
+from aqlm_tpu_torch.models import family, llama, mixtral
 from aqlm_tpu_torch.models.common import DenseLinear
 from aqlm_tpu_torch.models.quantize import random_quantize_projections, random_quantized_params
 from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache, stack_layer_params
@@ -246,7 +246,8 @@ def test_mixtral_forward_matches_jax(mode):
     _, cfg = _cfgs()
     ids = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 9))
     want, _ = jmixtral.forward(jparams, jcfg, jnp.asarray(ids))
-    got = mixtral.forward(_port(jparams), cfg, torch.from_numpy(ids))
+    got, caches = mixtral.forward(_port(jparams), cfg, torch.from_numpy(ids))
+    assert caches is None
     assert got.shape == (2, 9, cfg.vocab_size)
     assert_close(got, want)
 
@@ -385,5 +386,9 @@ def test_unported_mixtral_paths_raise():
         mixtral.stack_experts(codes16["layers"][0], cfg)
     with pytest.raises(NotImplementedError, match="A9"):
         family.config_class("opt")
-    with pytest.raises(NotImplementedError, match="A4"):
-        mixtral.forward(codes, cfg, torch.zeros((1, 3), dtype=torch.long), kv_caches=[])
+    # the KV-cache path of the unstacked forward is ported (it raised A4 before)
+    ids = torch.arange(3)[None, :]
+    caches = llama.init_kv_cache(cfg, 1, 8, device="cpu")
+    got, out_caches = mixtral.forward(codes, cfg, ids, kv_caches=caches, cache_offset=0)
+    assert out_caches is caches and bool(caches[0][0][:, 3:].eq(0).all())
+    assert torch.equal(got, mixtral.forward(codes, cfg, ids)[0])

@@ -56,7 +56,8 @@ def test_llama_forward_matches_jax(name, b, t):
     jcfg, cfg, jparams, tparams = _model(name)
     ids = _ids(cfg, b, t)
     want, _ = jllama.forward(jparams, jcfg, jnp.asarray(ids))
-    got = llama.forward(tparams, cfg, torch.from_numpy(ids).long())
+    got, caches = llama.forward(tparams, cfg, torch.from_numpy(ids).long())
+    assert caches is None
     assert got.shape == (b, t, cfg.vocab_size)
     assert_close(got, want)
 
