@@ -23,6 +23,10 @@ import torch
 
 __all__ = ["beam_search_optimal_codes", "channelwise_squared_error"]
 
+# candidates scored at once along the codebook axis by the L2 beam search
+# (calib/beam_search_l2) when a codebook is larger: JAX's block width
+_SCORE_S_BLOCK = 8192
+
 
 def channelwise_squared_error(XTX: torch.Tensor, weight: torch.Tensor,
                               reference_weight: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,12 @@ import torch
 __all__ = ["fit_kmeans", "find_nearest_cluster", "fit_kmeans_1d"]
 
 
+def _take_rows_safe(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx]: the rows of ``table`` [k, d] at ``idx`` (JAX's row-packed
+    gather avoids a v5e fault; on the card and the CPU a plain index)."""
+    return table[idx.long()]
+
+
 def _assign(data: torch.Tensor, clusters: torch.Tensor, chunk: int) -> torch.Tensor:
     """argmin_c ||x - c||^2 per point, as argmax(x.c - 0.5||c||^2), lowest index on ties."""
     half_sq = 0.5 * (clusters * clusters).sum(dim=1)

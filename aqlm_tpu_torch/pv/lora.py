@@ -31,7 +31,7 @@ from aqlm_tpu_torch.models import llama
 from aqlm_tpu_torch.models.common import DenseLinear, LoraLinear
 from aqlm_tpu_torch.ops.runtime import QuantizedLinear
 from aqlm_tpu_torch.pv.losses import cross_entropy_loss
-from aqlm_tpu_torch.pv.trainer import merge_trainable, tree_leaves, tree_map
+from aqlm_tpu_torch.pv.trainer import merge_trainable, trainable_copy, tree_leaves, tree_map
 
 __all__ = [
     "attach_lora",
@@ -137,8 +137,7 @@ def init_lora_state(params: dict,
     ``lambda p: torch.optim.Adam(p, lr=3e-3)``, the update of
     ``optax.adam(3e-3)``)."""
     adapters, frozen = split_lora(params)
-    adapters = tree_map(lambda t: None if t is None else t.detach().clone().requires_grad_(True),
-                        adapters)
+    adapters = trainable_copy(adapters)
     return LoraTrainState(adapters=adapters, frozen=frozen,
                           optimizer=make_optimizer(tree_leaves(adapters)))
 

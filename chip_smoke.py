@@ -42,8 +42,8 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    card's write ceiling), B6 (``flash_decode``, K3 without the
    row write) at K3's three shapes, int8 and bf16, lengths 1/512/513/2048,
    with and without a window of 256, and its unindexed form once (one bf16
-   step, the cache unchanged), and B8 (``kv_write``) into the int8_short
-   run's cache [32, 4, 32, 2048, 128], the one-array write of a bf16 cache
+   step, the cache unchanged), and B8 (``kv_write``) into a full-depth
+   Llama-2-7B cache [32, 4, 32, 2048, 128], the one-array write of a bf16 cache
    and the four-array write of the int8 one (bit-identical; beside it the
    floor of one CUDA-graph kernel node, a one-element ``fill_``)), and B16
    (``gather_wraps``, the lane-gather wrap probe: bit-identical), with its
@@ -60,8 +60,10 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    (also through the unstacked llama.forward over 128 tokens, the flagship's
    own shape), kernels on the card against the plain versions on the CPU,
    prefill and decode logits;
-4. engine: eight Engine.generate runs at full width and depth (random
-   weights from a seed, int8 KV cache) on 6 prompts of 64-1500 tokens, 64
+4. engine: eight Engine.generate runs at full width (random weights from a
+   seed, int8 KV cache), the first at full depth and the others cut to
+   ENGINE_CUT_LAYERS layers (so the script stays inside its time limit), on
+   6 prompts of 64-1500 tokens, 64
    new tokens each, greedy: Llama-2-7B in 2x8 codes, in int8 with the int8
    lm_head and in int4 with the dense head, then Mixtral-8x7B in int8 with
    the int8 lm_head and in int4 with the dense head, both loaded with
@@ -76,11 +78,13 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    times per layer per prefill forward (all experts in one launch), the
    Falcon run B15 5 times per K1/K2
    launch (q/k/v/o/fc2 against fc1), and the 1x16 run its GEMV 7 times per
-   layer per decode forward and its GEMM a multiple of 7 x 32 times;
-   then ``int8_short``: Llama-2-7B in int8 (int8 lm_head) at max_len 512,
+   layer per decode forward and its GEMM a multiple of 7 x layers times;
+   then ``int8_short``: Llama-2-7B in int8 (int8 lm_head) at max_len 512
+   and ENGINE_CUT_LAYERS layers,
    where decode writes its rows with B8 and attends by the plain attention,
    4 prompts of 64-380 tokens, 64 new tokens, greedy, with decode_chunk 1
-   and 8: identical tokens, B8 32 times per decode forward, K3 and B6 never,
+   and 8: identical tokens, B8 once per layer per decode forward, K3 and B6
+   never,
    no synchronising call inside a chunk;
 5. calibration: ``aqlm_tpu_torch.cli.quantize.main`` in-process on
    random:llama2_7b:2 (two layers at full width) in 2x8 g8 on random ids
@@ -89,6 +93,19 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    build/calib_checkpoint (deleted once served): every projection's final
    MSE below its k-means-init MSE, finite out losses, B13 and B14 launched exactly as the config's
    formula says and no serving kernel; seconds by part and peak memory;
+   then PV-tuning (``pv``): ``aqlm_tpu_torch.cli.finetune.main`` in-process,
+   the calibrated checkpoint as the student of the dense seed-0 model it was
+   quantized from, 8 steps of 2 x 2 x 512 random ids (a V step every 2,
+   the training state saved every 4) into build/pv_checkpoint (deleted at the
+   end of the phase), then 4 steps with ``--st_window 1 --offload_teacher``:
+   finite KL; the tuned student's KL on a held-out 2 x 512 batch below the
+   calibrated one's; every V step within ceil(1e-2 x groups) changed groups
+   and not farther from its buffer; B13 and B14 exactly as
+   ``pv_launch_formula`` says, no other kernel; the second run's KL within
+   1e-3 of the first's; the saved codes the final state's; one gradient pass
+   at 1 x 128 ids on the card within 1e-2 (loss) and 3e-2 of max|grad| of
+   the CPU's; seconds per step (gradient pass, update, V step), peak memory
+   and B13's and B14's share of the steps;
 6. serve the calibrated checkpoint: loaded, transcoded to codes mode and
    served by Engine.generate (4 prompts, 16 new tokens): K1, K2 and K3
    launch, B13 and B14 do not; its prefill logits within 3e-2 max|logit|
@@ -105,24 +122,25 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    backward launches (B5 or B10), nothing else; seconds per step, trained
    tokens/s, peak memory and a profiled step's device time by kernel;
 8. the entry points a user calls, on one canonical Llama-2-7B checkpoint
-   (2x8 g8, all 32 layers, random weights from a seed, bf16 embedding,
+   (2x8 g8, full width, ENTRY_LAYERS layers, random weights from a seed, bf16 embedding,
    norms and head) written by the port's ``save_quantized_model`` under
    build/ with its ``cli.convert --to int8`` and 2-layer cuts (deleted at
    the end): ``unstacked_decode`` (``llama.forward`` in codes mode, batch 4,
    a 64-token prefill into ``llama.init_kv_cache`` and 8 cached steps: K2
-   and K1 by their unindexed forms exactly 7 x 32 a forward, nothing else;
+   and K1 by their unindexed forms exactly 7 x layers a forward, nothing
+   else;
    the last logits against ``forward_stacked``), ``evaluate``
-   (``cli.evaluate.main`` on 8 random windows of 4096 ids in codes, int8
+   (``cli.evaluate.main`` on 4 random windows of 4096 ids in codes, int8
    (the materialized checkpoint), int4 (transcoded at load) and reference
    mode: finite perplexities, codes within 1e-2 of reference in ln PPL, each
-   mode's kernel launched 8 x 32 x 7 times by its unindexed form, and at 2
+   mode's kernel launched 4 x layers x 7 times by its unindexed form, and at 2
    layers the card within 1e-2 of the CPU in ln PPL), and ``cli_serve``
    (``cli.serve`` on the int8 checkpoint, 8 concurrent /v1/completions
    requests, 2 streamed and 2 with logprobs: tokens identical to an Engine
    replaying the server loop's calls; requests/s, latency, time to first
    token; then ``cli.generate --benchmark --mode codes``);
 9. the seconds of each phase, the kernel list (launches over the engine,
-   calibration, serving, training and entry-point runs, and for K1, K2,
+   calibration, PV-tuning, serving, training and entry-point runs, and for K1, K2,
    int8 and int4 the launches by wrapper form), then {"ok": true,
    "device": {...}} as the last line.
 
@@ -157,6 +175,12 @@ T_START = time.perf_counter()
 def emit(rec: dict) -> None:
     RECORDS.append(rec)
     print(json.dumps(rec), flush=True)
+
+
+def starting(phase: str) -> None:
+    """A phase's start on stderr, with the seconds since the script began."""
+    print(f"chip_smoke: {phase} at {time.perf_counter() - T_START:.1f} s", file=sys.stderr,
+          flush=True)
 
 
 def time_ms(fn, iters: int, repeats: int = 3) -> float:
@@ -1225,8 +1249,8 @@ def check_b6(gen, dev, failures):
 
 
 def check_b8(gen, dev, failures):
-    """B8 (``kv_write``) at the int8_short run's cache, [32, 4, 32, 2048,
-    128]: the one-array write of a bf16 cache and the four-array write of the
+    """B8 (``kv_write``) into a full-depth Llama-2-7B cache of the int8_short
+    run's batch, [32, 4, 32, 2048, 128]: the one-array write of a bf16 cache and the four-array write of the
     int8 one (k, v and both f32 scale planes), bit-identical to the plain
     version (indexed assignment), into layer i % 32. The library time is one
     ``index_put_`` for the one-array write; the four-array write has no
@@ -1413,7 +1437,7 @@ def reference_check(dev, run):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: Engine.generate at full Llama-2-7B width and depth
+# phase 4: Engine.generate at full width, the flagship run at full depth
 # ---------------------------------------------------------------------------
 
 # run -> (model, mode, scheme): the engine runs, in order
@@ -1434,6 +1458,9 @@ PATH_KERNELS = {"codes": ("lut_gemv", "gather_prefill", "flash_decode_write"),
                 "mixtral_codes": ("lut_gemv", "gather_prefill", "lut_moe_gemv",
                                   "moe_gather_prefill", "flash_decode_write"),
                 "codes_1x16": ("gather16_gemv", "gather16_gemm", "flash_decode_write")}
+# the depth of every engine run but the first (Llama-2-7B in 2x8 codes, at
+# full depth) and of int8_short: their launch gates follow cfg.num_layers
+ENGINE_CUT_LAYERS = 8
 
 
 def model_config(model):
@@ -1445,10 +1472,17 @@ def model_config(model):
             "falcon_7b": FalconConfig.falcon_7b}[model]()
 
 
+def engine_config(run):
+    """The run's model config: full depth for the first run, ENGINE_CUT_LAYERS
+    layers for the others."""
+    cfg = model_config(RUNS[run][0])
+    return cfg if run == "codes" else dataclasses.replace(cfg, num_layers=ENGINE_CUT_LAYERS)
+
+
 def engine_serve_config(run):
-    """Mixtral's 43.6 GiB of int8 weights load with donate_params: without it
-    the stacked copies would double them past the card's 80 GB (its ~24 GB
-    in int4 load the same way)."""
+    """Mixtral loads with donate_params, as it must at full depth: there its
+    43.6 GiB of int8 weights and their stacked copies would not fit the
+    card's 80 GB together (its ~24 GB in int4 load the same way)."""
     from aqlm_tpu_torch.serve import ServeConfig
 
     model, mode, _ = RUNS[run]
@@ -1478,7 +1512,7 @@ def engine_run(dev, run):
     from aqlm_tpu_torch.serve import Engine, SamplingParams
 
     model, mode, scheme = RUNS[run]
-    cfg = model_config(model)
+    cfg = engine_config(run)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = run_params(dev, run, cfg, seed=0)
@@ -1600,14 +1634,14 @@ def engine_run(dev, run):
     return rec
 
 
-PROFILE_NEW_TOKENS = 8
+PROFILE_NEW_TOKENS = 4
 
 
 def profile_decode(engine, cfg, rng) -> dict:
     """Device time by kernel over a short decode window (4 rows of 64-token
-    prompts, 8 new tokens), from torch.profiler, beside its wall time. The
+    prompts, 4 new tokens), from torch.profiler, beside its wall time. The
     window is short because ``key_averages`` walks every recorded event: at
-    16 new tokens it took 28-42 s a run on the H100's host."""
+    16 new tokens it took 28-42 s a run on the H100's host, at 8 21-32 s."""
     from torch.profiler import ProfilerActivity, profile
 
     from aqlm_tpu_torch.serve import SamplingParams
@@ -1657,18 +1691,19 @@ def count_syncs(fn, *args):
             torch.cuda.set_sync_debug_mode("default")
     return out, sum("called a synchronizing" in str(w.message) for w in caught)
 SHORT_LENGTHS = [64, 150, 270, 380]  # the int8_short run's prompts
-SHORT_REPEATS = 3  # timed generate calls per decode_chunk setting
+SHORT_REPEATS = 2  # timed generate calls per decode_chunk setting
 
 
 def int8_short_run(dev) -> dict:
-    """Llama-2-7B in int8 with the int8 lm_head at full width and depth, under
+    """Llama-2-7B in int8 with the int8 lm_head at full width and
+    ENGINE_CUT_LAYERS layers, under
     ServeConfig(max_batch=4, max_len=512, kv_quantized=True): the default
     rule keeps K3 off at this max_len, so a decode forward writes its rows
     with B8 (one kv_write4 launch per layer) and attends by the plain
     attention. Four prompts of 64-380 tokens, 64 new tokens each, greedy,
     once with decode_chunk 1 and once with 8 (each engine freed before the
-    next is built): the tokens must be identical, B8 must launch exactly 32
-    times per decode forward (so never in prefill), K3 and B6 never, and the
+    next is built): the tokens must be identical, B8 must launch exactly once
+    per layer per decode forward (so never in prefill), K3 and B6 never, and the
     forwards of each step and each chunk (``Engine._decode_chunk``, between
     the inputs' upload and the tokens' read-back) must make no synchronising
     call (counted by ``torch.cuda.set_sync_debug_mode("warn")``, a deliberate
@@ -1678,7 +1713,7 @@ def int8_short_run(dev) -> dict:
     from aqlm_tpu_torch.ops import _build
     from aqlm_tpu_torch.serve import Engine, SamplingParams, ServeConfig
 
-    cfg = model_config("llama2_7b")
+    cfg = dataclasses.replace(model_config("llama2_7b"), num_layers=ENGINE_CUT_LAYERS)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in SHORT_LENGTHS]
     warm = [rng.integers(0, cfg.vocab_size, 64)]
@@ -1836,6 +1871,223 @@ def calibration_run(dev) -> dict:
             "projections": projs, "launches": launches, "launch_formula": want,
             "mse_below_init": mse_ok, "out_loss_finite": loss_ok, "launches_match": count_ok,
             "no_other_kernel": others, "ok": mse_ok and loss_ok and count_ok and others}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: PV-tuning (cli.finetune) of the calibrated checkpoint against its teacher
+# ---------------------------------------------------------------------------
+
+PV_DIR = os.path.join("build", "pv_checkpoint")  # the tuned student and its training state
+PV_ARGS = dict(dataset="random", nsamples=16, model_seqlen=512, batch_size=4, microbatch_size=2,
+               total_steps=8, code_update_every=2)
+PV_WINDOW_STEPS = 4  # the --st_window 1 --offload_teacher run
+PV_MAX_CHANGE = 1e-2  # the CLI's default --max_code_change_per_step
+PATH_KERNELS["pv"] = ("dequantize_onehot", "cb_grad_segment")
+PATH_KERNELS["pv_window"] = PATH_KERNELS["pv"]
+
+
+def pv_launch_formula(layers: int, steps: int, window: int | None = None, projs: int = 7) -> dict:
+    """B13 and B14 launches of a ``cli.finetune`` run, from the code: the ST
+    buffers' init dequantizes each ST-active projection once (B13); every
+    gradient pass (steps x microbatches) dequantizes each ST-active
+    projection once, outside the blocks' recompute (B13), and backpropagates
+    it once (B14); with ``--st_window`` each inactive layer's projection runs
+    its reference-mode matmul in the forward and again in the block's
+    recompute (B13 twice) and backpropagates once (B14). The teacher is
+    dense, the V step's beam search gathers codebook rows itself, and the
+    saves dequantize nothing."""
+    active = layers if window is None else window
+    passes = steps * (PV_ARGS["batch_size"] // PV_ARGS["microbatch_size"])
+    return {"dequantize_onehot": projs * active + passes * projs * (active + 2 * (layers - active)),
+            "cb_grad_segment": passes * projs * layers}
+
+
+def _heldout_kl(params, teacher, cfg, ids) -> float:
+    """KL(teacher || student) over ``ids`` (the chunked loss of the CLI's path)."""
+    from aqlm_tpu_torch.models import llama
+    from aqlm_tpu_torch.pv.losses import chunked_kl_loss
+
+    with torch.no_grad():
+        s_hidden, _ = llama.forward(params, cfg, ids, return_hidden=True)
+        t_hidden, _ = llama.forward(teacher, cfg, ids, return_hidden=True)
+        return float(chunked_kl_loss(s_hidden, t_hidden, params["lm_head"].weight,
+                                     teacher["lm_head"].weight))
+
+
+class _VStepRecorder:
+    """Wraps the V step's beam search: per call, the groups whose codes
+    changed against ``ceil(max_update_fraction x groups)``, and
+    ||W_q(new) - st||^2 against ||W_q(old) - st||^2 (W_q by gathering the
+    codebook rows, as the search does; no kernel)."""
+
+    def __init__(self, search):
+        self.search, self.calls, self.check_s = search, [], 0.0
+
+    def __call__(self, reference_weight, codebooks, prev_codes, scales, **kw):
+        new = self.search(reference_weight, codebooks, prev_codes, scales, **kw)
+        t0 = time.perf_counter()
+        OG, IG, K = prev_codes.shape
+        _, S, og, ig = codebooks.shape
+        cb = codebooks.float().reshape(K, S, og * ig)
+        ref = reference_weight.float()
+
+        def err(codes):
+            flat = codes.reshape(-1, K).long()
+            groups = sum(cb[k][flat[:, k]] for k in range(K)).reshape(OG, IG, og, ig)
+            w = (groups * scales.float().reshape(OG, -1)[:, :, None, None]).permute(0, 2, 1, 3)
+            return float(((w.reshape(OG * og, IG * ig) - ref) ** 2).sum())
+
+        before, after = err(prev_codes), err(new)
+        changed = int((new != prev_codes).any(-1).sum())
+        limit = math.ceil(kw["max_update_fraction"] * OG * IG)
+        self.calls.append({"groups": OG * IG, "changed": changed, "limit": limit,
+                           "err_before": before, "err_after": after,
+                           "ok": changed <= limit and after <= before * (1 + 1e-5)})
+        torch.cuda.synchronize()
+        self.check_s += time.perf_counter() - t0
+        return new
+
+
+def _kernel_share(launches: dict) -> dict:
+    """B13's and B14's device time over a run, as launches x their phase-2
+    times at the path's shapes (q's for q/k/v/o, gate's for gate/up, down's
+    B13 and gate's B14, whose group count down shares)."""
+    ms = {(r["kernel"], r["proj"]): r["ms"] for r in RECORDS if r.get("phase") == "check"
+          and r.get("kernel") in PATH_KERNELS["pv"] and r.get("precise") and not r.get("scales")}
+    per_layer = {k: 4 * ms[(k, "q")] + 2 * ms[(k, "gate")] + ms[(k, "down" if (k, "down") in ms
+                                                                     else "gate")]
+                 for k in PATH_KERNELS["pv"]}
+    return {k: launches[k] / 7 * per_layer[k] / 1e3 for k in PATH_KERNELS["pv"]}
+
+
+def pv_run(dev) -> dict:
+    """``aqlm_tpu_torch.cli.finetune.main`` in-process: the calibrated
+    checkpoint (``CALIB_DIR``) as the student of random:llama2_7b:2, the
+    dense seed-0 model the calibration quantized, full width, outside
+    inference mode: ``PV_ARGS`` (8 steps of 2 x 2 x 512 ids, a V step every 2),
+    saving to ``PV_DIR`` with the training state every 4 steps; then a 4-step
+    run with ``--st_window 1 --offload_teacher`` from the same seed. Gates:
+    every step's KL finite; on a held-out 2 x 512 batch the tuned student's
+    KL below the calibrated one's; every V step within its change budget
+    and not farther from its buffer; B13 and B14 exactly as
+    ``pv_launch_formula`` says and no other kernel; the second run's KL
+    within 1e-3 of the first run's first 4 steps; the saved checkpoint loaded
+    by the port's loader with the final state's codes; one gradient pass at
+    batch 1 x 128 on the card against the CPU's plain path (loss within 1e-2,
+    each gradient within 3e-2 of its largest CPU magnitude)."""
+    from aqlm_tpu_torch.cli import finetune as cf
+    from aqlm_tpu_torch.cli.common import resolve_model
+    from aqlm_tpu_torch.io import load_quantized_model
+    from aqlm_tpu_torch.models import llama
+    from aqlm_tpu_torch.ops import _build
+    from aqlm_tpu_torch.pv import PVConfig, configurable_adamw, init_pv_state, make_pv_step
+    from aqlm_tpu_torch.pv import straight_through as pst
+    from aqlm_tpu_torch.pv.trainer import tree_leaves
+
+    layers, base = 2, "random:llama2_7b:2"
+    argv = ["--base_model", base, "--quantized_model", CALIB_DIR]
+    for k, v in PV_ARGS.items():
+        argv += [f"--{k}", str(v)]
+    teacher, cfg, _ = resolve_model(base, device=dev)
+    heldout = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 512))).to(dev)
+    calibrated, _ = load_quantized_model(CALIB_DIR, device=dev)
+    kl_calibrated = _heldout_kl(calibrated, teacher, cfg, heldout)
+    del calibrated
+
+    saved = {}
+    save = cf.save_quantized_model
+
+    def capture(path, params, *a, **kw):  # the final state's codes, as the CLI saves them
+        saved.update({(li, n): params["layers"][li][n].codes.cpu()
+                      for li in range(layers) for n in llama.QUANTIZABLE_PROJS})
+        return save(path, params, *a, **kw)
+
+    recorder = _VStepRecorder(pst.beam_search_optimal_codes_l2)
+    cf.save_quantized_model, pst.beam_search_optimal_codes_l2 = capture, recorder
+    runs = {}
+    try:
+        for name, extra in (("pv", ["--save", PV_DIR, "--save_state_every", "4"]),
+                            ("pv_window", ["--st_window", "1", "--offload_teacher"])):
+            run_argv = argv + extra
+            if name == "pv_window":
+                run_argv[run_argv.index("--total_steps") + 1] = str(PV_WINDOW_STEPS)
+            n_calls = len(recorder.calls)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = cf.main(run_argv)
+            torch.cuda.synchronize()
+            runs[name] = {"argv": run_argv, "total_s": time.perf_counter() - t0,
+                          "launches": {k: v.launches for k, v in _build.KERNELS.items()},
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                          "losses": res["step_losses"], "seconds": res["seconds"],
+                          "v_calls": recorder.calls[n_calls:]}
+    finally:
+        cf.save_quantized_model, pst.beam_search_optimal_codes_l2 = save, recorder.search
+
+    tuned, _ = load_quantized_model(PV_DIR, device=dev)
+    kl_tuned = _heldout_kl(tuned, teacher, cfg, heldout)
+    codes_ok = len(saved) == 7 * layers and all(
+        torch.equal(tuned["layers"][li][n].codes.cpu(), c) for (li, n), c in saved.items())
+    del tuned
+
+    # one gradient pass of the calibrated student, on the card and on the CPU
+    ids = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (1, 128)))
+    cpu = torch.device("cpu")
+    teacher_cpu = _to(teacher, cpu)
+    grad_ref = []
+    for d, t_params in ((dev, teacher), (cpu, teacher_cpu)):
+        student, _ = load_quantized_model(CALIB_DIR, device=d)
+        pv = PVConfig()
+        state = init_pv_state(student, configurable_adamw(pv.lr), configurable_adamw(pv.code_lr))
+        del student
+        loss, grads = make_pv_step(cfg, cfg, pv).grad_fn(state, t_params, ids.to(d))
+        grad_ref.append((float(loss), [g.float().cpu() for g in tree_leaves(grads)]))
+        del state, grads
+    del teacher, teacher_cpu
+    torch.cuda.empty_cache()
+    (loss, grads), (want_loss, want_grads) = grad_ref
+    ratios = [float((g - w).abs().max() / w.abs().max()) if w.any() else
+              (0.0 if not g.any() else float("inf")) for g, w in zip(grads, want_grads)]
+    shutil.rmtree(PV_DIR)
+
+    main_run, win = runs["pv"], runs["pv_window"]
+    for name, r in runs.items():
+        steps = len(r["losses"])
+        want = pv_launch_formula(layers, steps, 1 if name == "pv_window" else None)
+        r["launch_formula"] = want
+        r["launches_match"] = all(r["launches"][k] == want[k] for k in PATH_KERNELS["pv"])
+        r["no_other_kernel"] = all(n == 0 for k, n in r["launches"].items()
+                                   if k not in PATH_KERNELS["pv"])
+        r["losses_finite"] = bool(all(np.isfinite(r["losses"])))
+        r["v_steps_ok"] = bool(r["v_calls"]) and all(c["ok"] for c in r["v_calls"])
+        step_s = [a + b for a, b in zip(r["seconds"]["grad"], r["seconds"]["apply"])]
+        share = _kernel_share(r["launches"])
+        r["kernel_s"] = share
+        r["kernel_share_of_steps"] = sum(share.values()) / (sum(step_s) + sum(r["seconds"]["code"]))
+    kl_rel = [abs(a - b) / abs(b) for a, b in zip(win["losses"], main_run["losses"])]
+    grad_ok = abs(loss - want_loss) <= 1e-2 * abs(want_loss) and all(r <= 3e-2 for r in ratios)
+    ok = (all(r["launches_match"] and r["no_other_kernel"] and r["losses_finite"]
+              and r["v_steps_ok"] for r in runs.values())
+          and kl_tuned < kl_calibrated and max(kl_rel) <= 1e-3 and codes_ok and grad_ok)
+    n_micro = PV_ARGS["batch_size"] // PV_ARGS["microbatch_size"]
+    return {"phase": "pv", "model": "llama2_7b", "layers": layers, "hidden": cfg.hidden_size,
+            "intermediate": cfg.intermediate_size, "student": CALIB_DIR, "teacher": base,
+            "args": PV_ARGS, "microbatches": n_micro, "runs": runs,
+            "s_per_step": {part: statistics.median(main_run["seconds"][part][1:] or
+                                                   main_run["seconds"][part])
+                           for part in ("grad", "apply", "code")},
+            "v_check_s": recorder.check_s,
+            "heldout_kl": {"calibrated": kl_calibrated, "tuned": kl_tuned,
+                           "falls": kl_tuned < kl_calibrated},
+            "window_kl_rel_err": kl_rel, "window_kl_ok": max(kl_rel) <= 1e-3,
+            "saved_codes_equal_final": codes_ok,
+            "grad_check": {"ids": [1, 128], "loss": loss, "cpu_loss": want_loss,
+                           "max_grad_err_over_max": max(ratios), "leaves": len(ratios),
+                           "tol": "loss 1e-2 relative; each grad max|cuda - cpu| <= 3e-2 max|cpu|",
+                           "ok": grad_ok},
+            "ok": bool(ok)}
 
 
 def _dense_to(params: dict, dtype) -> dict:
@@ -2095,8 +2347,10 @@ def lora_run(dev, run) -> dict:
 # ---------------------------------------------------------------------------
 
 ENTRY_SEED = 5
+ENTRY_LAYERS = 8  # the canonical checkpoint's depth (full width)
 ENTRY_PROJS = 7  # quantized projections a layer; the dense bf16 head is no kernel's
-EVAL_ARGS = ["--datasets", "random", "--nsamples", "8", "--model_seqlen", "4096",
+EVAL_WINDOWS = 4  # 4096-id windows a mode: few, to keep the run inside its limit
+EVAL_ARGS = ["--datasets", "random", "--nsamples", str(EVAL_WINDOWS), "--model_seqlen", "4096",
              "--batch_size", "1"]
 EVAL_CPU_ARGS = ["--datasets", "random", "--nsamples", "1", "--model_seqlen", "256",
                  "--batch_size", "1"]  # the 2-layer card-against-CPU comparison
@@ -2135,9 +2389,13 @@ def _only_launched(rec: dict, want: dict) -> bool:
             and all(forms.get(k, {"unindexed": n}) == {"unindexed": n} for k, n in want.items()))
 
 
+def entry_config():
+    return dataclasses.replace(model_config("llama2_7b"), num_layers=ENTRY_LAYERS)
+
+
 def write_entry_checkpoints(dev, root) -> dict:
     """Under ``root``: ``canonical``, Llama-2-7B in 2x8 g8 at full width and
-    depth (random codes, codebooks and scales from ENTRY_SEED; a bf16
+    ENTRY_LAYERS layers (random codes, codebooks and scales from ENTRY_SEED; a bf16
     embedding, norms and head, so the kernels get bf16 activations), written
     by the port's ``save_quantized_model``; ``int8``, its ``cli.convert --to
     int8``; and the same model cut to 2 layers, canonical and converted to
@@ -2147,7 +2405,7 @@ def write_entry_checkpoints(dev, root) -> dict:
     from aqlm_tpu_torch.io import save_quantized_model
     from aqlm_tpu_torch.models.quantize import random_quantized_params
 
-    cfg = model_config("llama2_7b")
+    cfg = entry_config()
     paths = {k: os.path.join(root, k) for k in ("canonical", "int8", "canonical_2", "int8_2",
                                                  "int4_2")}
     seconds = {}
@@ -2223,12 +2481,12 @@ def unstacked_decode(dev, paths) -> dict:
     """``llama.forward`` in codes mode over the canonical checkpoint (loaded
     and transcoded by ``cli.common.resolve_model``) at batch 4: a 64-token
     prefill into ``llama.init_kv_cache`` (K2's unindexed form), then 8 cached
-    single-token steps (K1's tiled form). Gates: K2 launches exactly 7 x 32
-    and K1 exactly 8 x 7 x 32 times, by their unindexed forms, and nothing
+    single-token steps (K1's tiled form). Gates: K2 launches exactly 7 x
+    layers and K1 exactly 8 x 7 x layers times, by their unindexed forms, and nothing
     else launches; the last logits finite; and at 2 layers (the 2-layer
     cut), the last logits within 3e-2 max|logit| of ``forward_stacked``
     (fused, as the Engine runs it) over the same ids, as the reference
-    phase gates at 2 layers. At 32 layers the same comparison, and the
+    phase gates at 2 layers. At ENTRY_LAYERS the same comparison, and the
     Engine's own fused form against its unfused one, are recorded ungated:
     the random model's attention logits have a std of ~540
     (experiments/torch_random_model_scale.py), so its softmax is nearly an
@@ -2297,12 +2555,12 @@ def _timed_eval(argv, dev) -> tuple[dict, float]:
 
 
 def evaluate_run(dev, paths) -> dict:
-    """``cli.evaluate.main`` in-process on 8 random windows of 4096 ids, batch
+    """``cli.evaluate.main`` in-process on 4 random windows of 4096 ids, batch
     1: in codes mode (the canonical checkpoint transcoded at load), on the
     materialized int8 checkpoint, in int4 (transcoded at load) and in
     reference mode. Gates: every perplexity finite; |ln PPL(codes) - ln
     PPL(reference)| <= 1e-2; each mode's kernel launched by its unindexed
-    form exactly 8 windows x 32 layers x 7 projections times (reference mode:
+    form exactly 4 windows x layers x 7 projections times (reference mode:
     B13, one dequant a projection a forward; int4 also B13 once a projection
     at load) and nothing else; and at 2
     layers (1 window of 256 ids), each mode's ln PPL on the card within
@@ -2310,8 +2568,8 @@ def evaluate_run(dev, paths) -> dict:
     checkpoints (int8 and int4 materialized)."""
     from aqlm_tpu_torch.ops import _build
 
-    cfg = model_config("llama2_7b")
-    nwin, seqlen = 8, 4096
+    cfg = entry_config()
+    nwin, seqlen = EVAL_WINDOWS, 4096
     runs = {}
     for mode, ckpt, kernel in EVAL_RUNS:
         _build.reset_launch_counts()
@@ -2408,7 +2666,9 @@ def _completion(port, i, prompt, out):
                                  headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
     first = None
-    with urllib.request.urlopen(req, timeout=600) as r:
+    # a proxy set in the environment must not take requests to 127.0.0.1
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(req, timeout=180) as r:
         if not stream:
             ans = json.loads(r.read())
         else:
@@ -2448,7 +2708,7 @@ def cli_serve_run(dev, paths) -> dict:
 
     argv = [paths["int8"], "--host", "127.0.0.1", "--port", "0", "--max_batch", "4", "--kv_int8",
             "--decode_chunk", "8", "--mode", "int8", "--device", dev.type]
-    cfg = model_config("llama2_7b")
+    cfg = entry_config()
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENGTHS]
     t0 = time.perf_counter()
@@ -2468,7 +2728,7 @@ def cli_serve_run(dev, paths) -> dict:
         for c in clients:
             c.start()
         for c in clients:
-            c.join(900)
+            c.join(240)
         wall_s = time.perf_counter() - t0
         _sync(dev)
         rec = _launch_record()
@@ -2562,6 +2822,7 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    starting("build")
     _, build_s = _build.library()
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "ptxas.txt"), "w") as f:  # registers, smem, spills
@@ -2577,6 +2838,7 @@ def main() -> int:
     failures = []
     gen = torch.Generator(device=dev).manual_seed(0)
     phase_s = {"build": build_s}
+    starting("checks")
     t0 = time.perf_counter()
     with torch.inference_mode():
         reps = check_k1_k2(gen, dev, failures)
@@ -2600,6 +2862,7 @@ def main() -> int:
         return 2
 
     for run in RUNS:
+        starting(f"reference_{run}")
         t0 = time.perf_counter()
         ref = reference_check(dev, run)
         phase_s[f"reference_{run}"] = ref["seconds"] = time.perf_counter() - t0
@@ -2610,6 +2873,7 @@ def main() -> int:
 
     runs = {}
     for run in RUNS:
+        starting(f"engine_{run}")
         t0 = time.perf_counter()
         runs[run] = engine_run(dev, run)
         phase_s[f"engine_{run}"] = runs[run]["seconds"] = time.perf_counter() - t0
@@ -2618,6 +2882,7 @@ def main() -> int:
             print(f"chip_smoke: the {run} engine run failed its checks", file=sys.stderr)
             return 4
 
+    starting("engine_int8_short")
     t0 = time.perf_counter()
     runs["int8_short"] = int8_short_run(dev)
     phase_s["engine_int8_short"] = runs["int8_short"]["seconds"] = time.perf_counter() - t0
@@ -2627,6 +2892,7 @@ def main() -> int:
         return 4
 
     # calibration runs with autograd: outside inference mode
+    starting("calibration")
     t0 = time.perf_counter()
     runs["calibration"] = calibration_run(dev)
     phase_s["calibration"] = runs["calibration"]["seconds"] = time.perf_counter() - t0
@@ -2634,6 +2900,17 @@ def main() -> int:
     if not runs["calibration"]["ok"]:
         print("chip_smoke: the calibration run failed its checks", file=sys.stderr)
         return 5
+    # PV-tuning of the calibrated checkpoint: autograd, outside inference mode
+    starting("pv")
+    t0 = time.perf_counter()
+    rec = pv_run(dev)
+    phase_s["pv"] = rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    runs.update(rec["runs"])
+    if not rec["ok"]:
+        print("chip_smoke: the PV-tuning run failed its checks", file=sys.stderr)
+        return 12
+    starting("serve_calibrated")
     t0 = time.perf_counter()
     runs["serve_calibrated"] = serve_calibrated(dev)
     phase_s["serve_calibrated"] = runs["serve_calibrated"]["seconds"] = time.perf_counter() - t0
@@ -2644,6 +2921,7 @@ def main() -> int:
 
     # LoRA training: autograd, outside inference mode
     for mode in LORA_RUNS.values():
+        starting(f"lora_reference_{mode}")
         t0 = time.perf_counter()
         ref = lora_reference(dev, mode)
         phase_s[f"lora_reference_{mode}"] = ref["seconds"] = time.perf_counter() - t0
@@ -2652,6 +2930,7 @@ def main() -> int:
             print(f"chip_smoke: the {mode} training step disagrees with the CPU", file=sys.stderr)
             return 7
     for run in LORA_RUNS:
+        starting(run)
         t0 = time.perf_counter()
         runs[run] = lora_run(dev, run)
         phase_s[run] = runs[run]["seconds"] = time.perf_counter() - t0
@@ -2664,10 +2943,12 @@ def main() -> int:
     os.makedirs("build", exist_ok=True)
     root = tempfile.mkdtemp(prefix="entry_checkpoints_", dir="build")
     try:
+        starting("entry_checkpoints")
         t0 = time.perf_counter()
         ckpts = write_entry_checkpoints(dev, root)
         phase_s["entry_checkpoints"] = time.perf_counter() - t0
         emit({"phase": "entry_checkpoints", **ckpts, "total_s": phase_s["entry_checkpoints"]})
+        starting("unstacked_decode")
         t0 = time.perf_counter()
         runs["unstacked_decode"] = unstacked_decode(dev, ckpts["paths"])
         phase_s["unstacked_decode"] = runs["unstacked_decode"]["seconds"] = time.perf_counter() - t0
@@ -2675,6 +2956,7 @@ def main() -> int:
         if not runs["unstacked_decode"]["ok"]:
             print("chip_smoke: the unstacked forward failed its checks", file=sys.stderr)
             return 9
+        starting("evaluate")
         t0 = time.perf_counter()
         rec = evaluate_run(dev, ckpts["paths"])
         phase_s["evaluate"] = rec["seconds"] = time.perf_counter() - t0
@@ -2683,6 +2965,7 @@ def main() -> int:
         if not rec["ok"]:
             print("chip_smoke: the evaluate CLI failed its checks", file=sys.stderr)
             return 10
+        starting("cli_serve")
         t0 = time.perf_counter()
         rec = cli_serve_run(dev, ckpts["paths"])
         phase_s["cli_serve"] = rec["seconds"] = time.perf_counter() - t0

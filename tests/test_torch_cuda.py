@@ -2217,3 +2217,58 @@ def test_flash_decode_row_kernel_makes_no_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(first, second)
+
+
+# --------------------------------------------------------------------------- PV-tuning
+
+
+def _tiny_pv(dev_or_cpu):
+    """A 2-layer reference-mode 2x8 student (hidden 256) and a dense teacher,
+    made on the CPU from seeds and moved to ``dev_or_cpu``."""
+    from aqlm_tpu_torch.models.quantize import random_quantize_projections
+    from aqlm_tpu_torch.pv.trainer import tree_map
+
+    cfg = llama.ModelConfig.tiny(num_layers=2, hidden_size=256, intermediate_size=512,
+                                 num_heads=4, num_kv_heads=4)
+    teacher = llama.init_random_params(torch.Generator().manual_seed(0), cfg, dtype=torch.float32,
+                                       device="cpu")
+    student = random_quantize_projections(
+        torch.Generator().manual_seed(1),
+        llama.init_random_params(torch.Generator().manual_seed(2), cfg, dtype=torch.float32,
+                                 device="cpu"), SCHEME_2X8)
+    move = lambda p: tree_map(lambda t: None if t is None else t.to(dev_or_cpu), p)
+    return cfg, move(teacher), move(student)
+
+
+def test_tiny_pv_step_matches_the_cpu(dev):
+    """One PV grad pass, update and V step of the 2-layer student on the card
+    against the CPU (plain versions): loss rtol 1e-4, every trainable and ST
+    gradient within 1e-3 of its largest CPU magnitude, codes after the V step
+    identical; B13 14 a grad pass (the ST-active projections' dequant) plus
+    14 at the buffers' init, B14 14, nothing else."""
+    from aqlm_tpu_torch.pv import PVConfig, configurable_adamw, init_pv_state, make_pv_step
+    from aqlm_tpu_torch.pv.trainer import tree_leaves
+
+    pv = PVConfig(chunk_tokens=8, code_lr=5e-2, max_code_change_per_step=0.25)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 16)))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        cfg, teacher, student = _tiny_pv(d)
+        _build.reset_launch_counts()
+        state = init_pv_state(student, configurable_adamw(1e-3, b1=0.9, b2=0.95),
+                              configurable_adamw(pv.code_lr, b1=0.9, b2=0.95))
+        fns = make_pv_step(cfg, cfg, pv)
+        loss, grads = fns.grad_fn(state, teacher, ids.to(d))
+        state = fns.code_step(fns.apply_fn(state, grads))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        counts = {k: v.launches for k, v in _build.KERNELS.items() if v.launches}
+        codes = [state.frozen["layers"][li][n].codes.cpu() for li in range(2)
+                 for n in llama.QUANTIZABLE_PROJS]
+        out[d.type] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)], codes, counts)
+    (loss, grads, codes, counts), (want_loss, want_grads, want_codes, _) = out["cuda"], out["cpu"]
+    assert counts == {"dequantize_onehot": 28, "cb_grad_segment": 14}, counts
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    for g, w in zip(grads, want_grads):
+        assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max()) + 1e-30
+    assert all(torch.equal(a, b) for a, b in zip(codes, want_codes))
