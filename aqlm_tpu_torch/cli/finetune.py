@@ -11,6 +11,15 @@ versions).
 - ``--st_window N`` keeps N layers' straight-through buffers on the card a
   step, rotating round-robin, with every layer's buffers and their Adam in
   host memory (``pv.host.HostSTManager``);
+- ``--scan_blocks`` runs the student as ``pv.straight_through.
+  scanned_student_hidden`` (llama-family students quantized in every
+  projection): its manual projections re-dequantize in the backward (B13,
+  B14 on the card), so it holds one block's dense weights at a time. With
+  ``--st_window`` the window goes to the card as a stack with its first
+  layer's index: the gradient pass gets a zeros window (its value does not
+  enter the gradients), the ST gradients come down in bf16 to the host
+  Adam, and the updated buffers go up in bf16 for the V step (f32 with
+  ``--delta_decay``, whose mixed buffers are then stored back);
 - ``--offload_teacher`` keeps the teacher's weights in host memory and
   streams its forward a layer at a time, ``--teacher_stream_group`` batches a
   pass, in a background thread (``pv.teacher``). The teacher keeps its own
@@ -24,8 +33,8 @@ with ``np.random.RandomState(seed)`` as JAX's CLI draws them, a resume
 included. Prints a final JSON line: ``final_kl``, ``losses`` (at most 20,
 as JAX's), ``step_losses`` (every step) and ``seconds`` (each step's
 gradient pass, update and V step). Not ported: ``--mesh_data`` /
-``--mesh_model`` > 1 (ROADMAP A14), ``--scan_blocks`` (A13), ``--wandb``
-(A15); of the datasets only ``random`` and token files load (A11).
+``--mesh_model`` > 1 (ROADMAP A14), ``--wandb`` (A15); of the datasets only
+``random`` and token files load (A11).
 """
 
 from __future__ import annotations
@@ -86,7 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--st_window", type=int, default=0,
                    help=">0: only N layers' ST buffers on the card a step (host Adam, "
                         "round-robin rotation)")
-    p.add_argument("--scan_blocks", action="store_true", help="not ported")
+    p.add_argument("--scan_blocks", action="store_true",
+                   help="student as a loop over blocks whose backward holds one block's "
+                        "dense weights (llama-family, fully quantized students only)")
     p.add_argument("--offload_teacher", action="store_true",
                    help="teacher weights in host memory, layer-streamed forward")
     p.add_argument("--teacher_stream_group", type=int, default=4,
@@ -126,8 +137,6 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.mesh_data > 1 or args.mesh_model > 1:
         raise not_ported("multi-device PV-tuning (--mesh_data/--mesh_model)", "A14")
-    if args.scan_blocks:
-        raise not_ported("the scanned student forward (--scan_blocks)", "A13")
     logger = MetricLogger(use_wandb=args.wandb)
     dev = resolve_device(args.device)
     dtype = dtype_from_str(args.dtype)
@@ -143,8 +152,11 @@ def main(argv=None) -> dict:
                                                mode="reference", device=dev)
     if kind != "quantized":
         raise ValueError("the student must be a quantized model")
-    if family_name(student_cfg) != "llama" and args.offload_teacher:
-        raise ValueError("the host-streamed teacher supports the llama family only")
+    if family_name(student_cfg) != "llama":
+        if args.scan_blocks:
+            raise ValueError("scan_blocks supports llama-family students only")
+        if args.offload_teacher:
+            raise ValueError("the host-streamed teacher supports the llama family only")
 
     data = load_calibration_data(args.dataset, args.nsamples + args.val_size, args.model_seqlen,
                                  teacher_cfg, seed=args.seed)
@@ -158,7 +170,7 @@ def main(argv=None) -> dict:
         code_selection_temperature=args.code_selection_temperature,
         force_code_update=args.force_code_update,
         stochastic_rounding_tau=args.stochastic_rounding_tau,
-        chunk_tokens=args.loss_tokens_per_chunk)
+        chunk_tokens=args.loss_tokens_per_chunk, scan_blocks=args.scan_blocks)
     moment_dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16, None: None}
     cont_opt = configurable_adamw(
         pv.lr, b1=0.9, b2=0.95, weight_decay=args.weight_decay, lamb=args.lamb,
@@ -219,26 +231,50 @@ def main(argv=None) -> dict:
     losses = []
     seconds = {"grad": [], "apply": [], "code": []}
     add = lambda a, b: None if a is None else a + b
+    windowed = st_mgr is not None and args.scan_blocks  # the window as a stack + its start
+
+    def zeros_window(active):
+        # the ST correction st - st.detach() is zero and dL/d(st) is dL/dW
+        # whatever st holds, so the gradient pass needs no upload of the buffers
+        return {name: torch.zeros((len(active),) + tuple(buf.shape), dtype=torch.float32,
+                                  device=dev)
+                for name, buf in st_mgr.buffers[active[0]].items()}
+
     try:
         for step in range(start_step, args.total_steps):
             t0 = _sync(dev)
+            win_start = None
             if st_mgr is not None:
                 active = st_mgr.active_window(step)
-                state.st_buffers = st_mgr.fetch(active, dev)
+                if windowed:
+                    win_start = active[0]
+                    state.st_buffers = zeros_window(active)
+                else:
+                    state.st_buffers = st_mgr.fetch(active, dev)
             acc, loss_sum = None, 0.0
             for _ in range(n_micro):
                 if teacher_iter is not None:
                     batch, t_in = next(teacher_iter)
                 else:
                     batch, t_in = data[torch.from_numpy(rng.randint(0, n, size=micro))], teacher
-                loss, grads = fns.grad_fn(state, t_in, batch.to(dev))
+                loss, grads = fns.grad_fn(state, t_in, batch.to(dev), None, win_start)
                 loss_sum += float(loss)
                 acc = grads if acc is None else tree_map(add, acc, grads)
             t1 = _sync(dev)
             if st_mgr is not None:
                 g_tr, g_st = acc
+                if windowed:  # down in bf16, re-accumulated in f32 by the host Adam
+                    g_st = st_mgr.window_to_list(active, {
+                        k: v.to(torch.bfloat16).cpu().float() for k, v in g_st.items()})
                 st_mgr.adam_update(active, [{k: v / n_micro for k, v in e.items()} for e in g_st])
-                state.st_buffers = st_mgr.fetch(active, dev)
+                if windowed:
+                    # the buffers only feed the V step's search: up in bf16 unless
+                    # delta-decay mixes them (stored back below)
+                    up = torch.float32 if pv.delta_decay != 0 else torch.bfloat16
+                    state.st_buffers = {k: v.to(dev, up)
+                                        for k, v in st_mgr.fetch_window(active).items()}
+                else:
+                    state.st_buffers = st_mgr.fetch(active, dev)
                 acc = (g_tr, None)  # no st optimizer: the host updated the buffers
             state = fns.apply_fn(state, acc, 1.0 / n_micro)
             losses.append(loss_sum / n_micro)
@@ -246,9 +282,12 @@ def main(argv=None) -> dict:
             seconds["grad"].append(t1 - t0)
             seconds["apply"].append(t2 - t1)
             if args.code_update_every and (step + 1) % args.code_update_every == 0:
-                state = fns.code_step(state, generator)
-                if st_mgr is not None:
-                    st_mgr.store(active, state.st_buffers)
+                state = fns.code_step(state, generator, active=active)
+                # with delta_decay 0 the V step leaves the buffers as they are, and
+                # storing the windowed bf16 upload would round the host's f32 state
+                if st_mgr is not None and (pv.delta_decay != 0 or not windowed):
+                    st_mgr.store(active, st_mgr.window_to_list(active, state.st_buffers)
+                                 if windowed else state.st_buffers)
                 seconds["code"].append(_sync(dev) - t2)
             if args.save_state_every and state_path and (step + 1) % args.save_state_every == 0:
                 save_pytree(state_path, state, metadata={"step": step + 1})

@@ -70,8 +70,8 @@ class LoraLinear:
 
 
 def apply_linear(x: torch.Tensor, lin) -> torch.Tensor:
-    """x [..., IN] @ W^T for a DenseLinear, QuantizedLinear, LoraLinear or
-    indexed view."""
+    """x [..., IN] @ W^T for a DenseLinear, QuantizedLinear, LoraLinear,
+    indexed view, or a weightless linear with an ``apply(x)``."""
     if isinstance(lin, LoraLinear):
         # adapters in x's dtype; the scale rounds to y's dtype, and so does the
         # delta before the add
@@ -85,6 +85,9 @@ def apply_linear(x: torch.Tensor, lin) -> torch.Tensor:
         return fused_codes_matmul_indexed(x, lin)
     if isinstance(lin, QuantizedLinear):
         return quantized_matmul(x, lin)
+    if callable(getattr(lin, "apply", None)) and not hasattr(lin, "weight"):
+        # a weightless functional linear (the scanned PV student's projections)
+        return lin.apply(x)
     y = torch.matmul(x, lin.weight.to(x.dtype).t())
     if lin.bias is not None:
         y = y + lin.bias.to(y.dtype)

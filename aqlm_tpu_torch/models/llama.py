@@ -152,12 +152,13 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat
 
 
 def attention_half(x, layer, cfg: ModelConfig, positions, taps=None, kv=None, cache_offset=0,
-                   kv_mask=None):
+                   kv_mask=None, attention_fn=None):
     """The block's attention half: x + o_proj(attention). A ``taps`` dict
     receives each projection's input by name. With ``kv`` (one layer's
     (k, v) cache) the new K/V are written into it in place at
     [cache_offset, cache_offset + T) and attention runs over the whole cache
-    under ``kv_mask`` [B, 1, T, max_len]."""
+    under ``kv_mask`` [B, 1, T, max_len]. ``attention_fn`` replaces
+    ``attention`` (same arguments and values)."""
     b, t, _ = x.shape
     d = cfg.dim_per_head
     res = x
@@ -173,7 +174,7 @@ def attention_half(x, layer, cfg: ModelConfig, positions, taps=None, kv=None, ca
         k, v, mask = k_cache.to(q.dtype), v_cache.to(q.dtype), kv_mask
     else:
         mask = make_causal_mask(positions, positions, window=cfg.sliding_window)
-    attn = attention(q, k, v, mask).reshape(b, t, -1)
+    attn = (attention_fn or attention)(q, k, v, mask).reshape(b, t, -1)
     if taps is not None:
         taps["q_proj"] = taps["k_proj"] = taps["v_proj"] = x
         taps["o_proj"] = attn
@@ -181,12 +182,20 @@ def attention_half(x, layer, cfg: ModelConfig, positions, taps=None, kv=None, ca
 
 
 def _block(x, layer, cfg: ModelConfig, positions, taps=None, kv=None, cache_offset=0,
-           kv_mask=None):
-    res = x = attention_half(x, layer, cfg, positions, taps, kv, cache_offset, kv_mask)
+           kv_mask=None, *, attention_fn=None, act_mul_fn=None):
+    """One transformer block. ``attention_fn`` / ``act_mul_fn`` replace the
+    attention and the SiLU-times-up glue with functions of the same values
+    (the scanned PV student's recompute-in-backward forms,
+    ``pv.straight_through``)."""
+    res = x = attention_half(x, layer, cfg, positions, taps, kv, cache_offset, kv_mask,
+                             attention_fn)
     xn = rms_norm(x, layer["post_attn_norm"], cfg.rms_eps, plus_one=cfg.gemma_norm)
     gate = apply_linear(xn, layer["gate_proj"])
     up = apply_linear(xn, layer["up_proj"])
-    mlp_in = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
+    if act_mul_fn is None:
+        mlp_in = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
+    else:
+        mlp_in = act_mul_fn(gate, up)
     if taps is not None:
         taps["gate_proj"] = taps["up_proj"] = xn
         taps["down_proj"] = mlp_in

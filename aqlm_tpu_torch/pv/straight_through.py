@@ -1,5 +1,5 @@
 """Straight-through PV-tuning: the full P + V alternating update (PyTorch
-counterpart of ``aqlm_tpu.pv.straight_through``, its default unrolled path).
+counterpart of ``aqlm_tpu.pv.straight_through``).
 
 One PV step:
 
@@ -23,25 +23,35 @@ forward codes-resident through the differentiable reference-mode dequant.
 rotates the window; ``pv.teacher`` streams a host-resident teacher's hidden
 states (``teacher_kind="hidden"``).
 
+``PVConfig(scan_blocks=True)`` runs the student through
+``scanned_student_hidden`` instead: a loop over the layers (JAX's
+``lax.scan``) whose backward keeps one block's dense weights at a time. Its
+"manual" projections (``_make_manual_st_proj``) save only x and the codes,
+codebooks and scales, and re-dequantize in the backward: on the card B13 to
+W^T forward and backward, B14 for the codebook gradient. The attention and
+SiLU glue recompute their f32 intermediates in the backward
+(``_AttentionRemat``, ``_SiluMulRemat``).
+
 Unlike JAX, the state holds its ``torch.optim.Optimizer`` objects
-(``init_pv_state`` builds them) and the steps update it in place. The
-scanned student forward (``PVConfig(scan_blocks=True)``) is not ported
-(ROADMAP A13).
+(``init_pv_state`` builds them) and the steps update it in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from aqlm_tpu_torch.calib.beam_search_l2 import beam_search_optimal_codes_l2
 from aqlm_tpu_torch.models import llama
-from aqlm_tpu_torch.models.common import DenseLinear
+from aqlm_tpu_torch.models.common import DenseLinear, attention
 from aqlm_tpu_torch.models.llama import QUANTIZABLE_PROJS
+from aqlm_tpu_torch.ops import kernels
 from aqlm_tpu_torch.ops.dequant import AqlmWeight, dequantize_weight
-from aqlm_tpu_torch.ops.runtime import QuantizedLinear, not_ported
+from aqlm_tpu_torch.ops.runtime import QuantizedLinear
 from aqlm_tpu_torch.pv.losses import chunked_kl_loss, kl_divergence_loss
 from aqlm_tpu_torch.pv.trainer import (
     merge_trainable,
@@ -52,7 +62,7 @@ from aqlm_tpu_torch.pv.trainer import (
 )
 
 __all__ = ["PVConfig", "PVState", "PVStepFns", "init_pv_state", "make_pv_step",
-           "pv_code_update", "materialize_st_params"]
+           "pv_code_update", "materialize_st_params", "scanned_student_hidden"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,15 +82,20 @@ class PVConfig:
     chunk_tokens: int = 256
     # recompute each transformer block in the student's backward
     remat_blocks: bool = True
-    # the scanned student forward and its options: not ported
+    # the student as ``scanned_student_hidden``: a loop over homogeneous
+    # reference-mode Llama-family layers whose backward holds one block's
+    # dense weights at a time; needs the chunked loss
     scan_blocks: bool = False
+    # what its backward recomputes: "manual" (the custom-backward projections
+    # and glue), "dequant" (a checkpoint per projection), "block" (a
+    # checkpoint per block), "none"
     scan_remat: str = "manual"
+    # layers a segment: a loop boundary only (JAX chains scans of this depth)
     scan_segment_layers: int = 8
+    # the "manual" projections' dequant: "auto" (B13/B14 on the card for
+    # Kx<=8-bit, out_group_size 1, [OUT] scales; the plain gather otherwise),
+    # "kernel" or "xla" to force one
     scan_dequant: str = "auto"
-
-    def __post_init__(self):
-        if self.scan_blocks:
-            raise not_ported("the scanned student forward (PVConfig(scan_blocks=True))", "A13")
 
 
 @dataclasses.dataclass
@@ -96,9 +111,11 @@ class PVState:
 
 
 class PVStepFns(NamedTuple):
-    """grad_step(state, teacher, ids[, mask]) -> (state, loss): grad + apply.
-    code_step(state, generator[, active]) -> state: the V phase.
-    grad_fn(state, teacher, ids[, mask]) -> (loss, (g_trainable, g_st)) and
+    """grad_step(state, teacher, ids[, mask, window_start]) -> (state, loss):
+    grad + apply (``window_start`` with the windowed st_buffers of
+    ``scan_blocks``). code_step(state, generator[, active]) -> state: the V
+    phase. grad_fn(state, teacher, ids[, mask, window_start]) ->
+    (loss, (g_trainable, g_st)) and
     apply_fn(state, grads, scale) -> state split the step for gradient
     accumulation."""
 
@@ -149,6 +166,307 @@ def materialize_st_params(params: dict, st_buffers) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the scanned student: recompute-in-backward glue and projections
+# ---------------------------------------------------------------------------
+
+
+class _AttentionRemat(torch.autograd.Function):
+    """``models.common.attention`` whose backward recomputes the f32 softmax
+    probabilities from (q, k, v, mask), the only tensors it saves, so the
+    [B, Hkv, rep, Tq, Tk] probabilities of every layer are not held until the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return attention(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        b, tq, hq, d = q.shape
+        hkv = k.shape[2]
+        rep = hq // hkv
+        scale = d ** -0.5
+        qs = (q.float() * scale).to(q.dtype).reshape(b, tq, hkv, rep, d)
+        m = mask[:, :, None, :, :]
+        logits = torch.einsum("bqhrd,bkhd->bhrqk", qs.float(), k.float())
+        logits = torch.where(m, logits, torch.full_like(logits, -1e30))
+        p = torch.softmax(logits, dim=-1)  # [b, hkv, rep, tq, tk] f32, transient
+        del logits
+        gr = g.float().reshape(b, tq, hkv, rep, d)
+        dv = torch.einsum("bhrqk,bqhrd->bkhd", p, gr).to(v.dtype)
+        dp = torch.einsum("bqhrd,bkhd->bhrqk", gr, v.float())
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        ds = torch.where(m, ds, torch.zeros_like(ds))
+        dqs = torch.einsum("bhrqk,bkhd->bqhrd", ds, k.float())
+        dq = (dqs * scale).reshape(b, tq, hq, d).to(q.dtype)
+        dk = torch.einsum("bhrqk,bqhrd->bkhd", ds, qs.float()).to(k.dtype)
+        return dq, dk, dv, None
+
+
+class _SiluMulRemat(torch.autograd.Function):
+    """silu(gate) * up (SiLU in f32, as ``llama._block``) saving only (gate,
+    up) in their own dtype; the backward recomputes the SiLU in f32."""
+
+    @staticmethod
+    def forward(ctx, gate, up):
+        ctx.save_for_backward(gate, up)
+        return torch.nn.functional.silu(gate.float()).to(up.dtype) * up
+
+    @staticmethod
+    def backward(ctx, g):
+        gate, up = ctx.saved_tensors
+        g32 = gate.float()
+        s = torch.sigmoid(g32)
+        gy = g.float()
+        dgate = (gy * up.float() * (s + g32 * s * (1.0 - s))).to(gate.dtype)
+        dup = (gy * (g32 * s)).to(up.dtype)
+        return dgate, dup
+
+
+def _attention_remat(q, k, v, mask):
+    return _AttentionRemat.apply(q, k, v, mask)
+
+
+def _silu_mul_remat(gate, up):
+    return _SiluMulRemat.apply(gate, up)
+
+
+def _manual_dequant_t(codes, cbs, scales, scheme, dtype, dequant_impl: str):
+    """W^T [IN, OUT] in ``dtype``. "kernel": ``kernels.dequantize_onehot``
+    (B13 on the card, its plain version on the CPU: codebook entries rounded
+    to bf16, summed in f32, times the [OUT] scales), a transposed view of
+    the kernel's row-major W; "xla": the plain differentiable gather
+    (``dequantize_weight``)."""
+    if dequant_impl == "kernel":
+        # the kernel's epilogue and _dq_grads assume [OUT] scales and og == 1
+        if scheme.out_group_size != 1:
+            raise ValueError(f"the kernel dequant needs out_group_size 1, got {scheme}")
+        if scales.ndim != 1:
+            raise ValueError("kernel dequant path needs per-out scales [OUT]; per-group "
+                             f"scales {tuple(scales.shape)} use dequant_impl='xla'")
+        return kernels.dequantize_onehot(codes.permute(2, 1, 0), cbs[:, :, 0, :], scales,
+                                         group=scheme.in_group_size, dtype=dtype)
+    return dequantize_weight(AqlmWeight(codes=codes, codebooks=cbs, scales=scales, bias=None,
+                                        scheme=scheme), dtype=dtype).t()
+
+
+def _dq_grads(codes, cbs, scales, w, gw, scheme):
+    """(dcbs [K, S, 1, g], dscales [OUT]) from the f32 W [OUT, IN] and dL/dW.
+
+    dscales[o] = sum_i gw[o, i] W[o, i] / scales[o]; dcbs[k, s] = the sum over
+    the groups whose k-th code is s of scales[o] * gw's group: B14 on the
+    card (its plain version on the CPU) for uint8 codes, at most
+    ``CB_GRAD_MAX_SEGMENTS`` segments; a plain ``index_add_`` past them."""
+    g_ = scheme.in_group_size
+    out_f = gw.shape[0]
+    ig = gw.shape[1] // g_
+    safe = torch.where(scales.abs() > 1e-12, scales, torch.ones_like(scales))
+    dscales = ((gw * w).sum(dim=1) / safe).to(scales.dtype)
+    data = (gw.reshape(out_f, ig, g_) * scales[:, None, None]).reshape(-1, g_)
+    S, K = scheme.codebook_size, scheme.num_codebooks
+    flat = codes.reshape(-1, K)
+    if S <= kernels.CB_GRAD_MAX_SEGMENTS and codes.dtype == torch.uint8:
+        dcbs = kernels.cb_grad_segment(flat, data, S)
+    else:
+        idx = flat.long() % S  # 16-bit codes are stored signed
+        dcbs = torch.stack([torch.zeros((S, g_), dtype=torch.float32, device=data.device)
+                            .index_add_(0, idx[:, k], data) for k in range(K)])
+    return dcbs[:, :, None, :].to(cbs.dtype), dscales
+
+
+class _ManualSTProj(torch.autograd.Function):
+    """y = x @ dequant(codes)^T (+ bias) with a hand-written backward: it
+    saves x, codes, codebooks and scales (and the layer index), never the
+    dense W nor the ST window, re-dequantizes W in f32, and routes dL/dW into
+    the window slot of layer ``li`` (the straight-through estimator) while
+    the codebooks and scales get their chain-rule gradients."""
+
+    @staticmethod
+    def forward(ctx, x, codes, cbs, scales, bias, st_arr, li, start, spec):
+        scheme, compute_dtype, use_st, win, has_bias, dequant_impl = spec
+        wt = _manual_dequant_t(codes, cbs, scales, scheme, compute_dtype, dequant_impl)
+        y = torch.matmul(x, wt.to(x.dtype))
+        if has_bias:
+            y = y + bias.to(y.dtype)
+        ctx.save_for_backward(x, codes, cbs, scales)
+        ctx.li, ctx.start, ctx.spec = li, start, spec
+        ctx.st_dims = None if st_arr is None else tuple(st_arr.shape)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, codes, cbs, scales = ctx.saved_tensors
+        scheme, _, use_st, win, has_bias, dequant_impl = ctx.spec
+        li, start = ctx.li, ctx.start
+        gf = g.float()
+        out_f, in_f = gf.shape[-1], x.shape[-1]
+        gw = gf.reshape(-1, out_f).t() @ x.float().reshape(-1, in_f)  # dL/dW [OUT, IN]
+        if dequant_impl == "kernel":
+            w = _manual_dequant_t(codes, cbs, scales, scheme, torch.float32, dequant_impl).t()
+            dx = torch.matmul(gf, w).to(x.dtype)
+            dcbs, dscales = _dq_grads(codes, cbs, scales, w, gw, scheme)
+        else:
+            with torch.enable_grad():
+                c = cbs.detach().requires_grad_(True)
+                s = scales.detach().requires_grad_(True)
+                w = dequantize_weight(AqlmWeight(codes=codes, codebooks=c, scales=s, bias=None,
+                                                 scheme=scheme), dtype=torch.float32)
+            dx = torch.matmul(gf, w.detach()).to(x.dtype)
+            dcbs, dscales = torch.autograd.grad(w, (c, s), gw)
+        del w
+        dst = None
+        if use_st and start <= li < start + win:
+            if win == 1:  # JAX's window-of-one form: no zeros and scatter
+                dst = gw[None]
+            else:
+                dst = torch.zeros(ctx.st_dims, dtype=torch.float32, device=gw.device)
+                dst[li - start] = gw
+        dbias = gf.reshape(-1, out_f).sum(dim=0) if has_bias else None
+        return (dx, None, dcbs.to(cbs.dtype), dscales.to(scales.dtype), dbias, dst, None, None,
+                None)
+
+
+def _make_manual_st_proj(scheme, compute_dtype, use_st, win, has_bias, dequant_impl: str = "xla"):
+    """The straight-through projection of ``scan_remat="manual"``:
+    ``f(x, codes, cbs, scales, bias, st_arr, li, start) -> y`` with
+    ``_ManualSTProj``'s backward. The primal is x @ dequant(codes)^T (the ST
+    correction is zero); dL/dW goes to ``st_arr[li - start]`` when layer
+    ``li`` lies in the window of ``win`` layers from ``start`` (nowhere
+    otherwise). dequant_impl: "kernel" (B13/B14; [OUT] scales,
+    out_group_size 1) or "xla" (the plain gather, differentiated by
+    autograd)."""
+    if dequant_impl not in ("xla", "kernel"):
+        raise ValueError(f"dequant_impl must be xla or kernel, got {dequant_impl!r}")
+    spec = (scheme, compute_dtype, use_st, win, has_bias, dequant_impl)
+
+    def f(x, codes, cbs, scales, bias, st_arr, li, start):
+        return _ManualSTProj.apply(x, codes, cbs, scales, bias, st_arr, int(li), int(start),
+                                   spec)
+
+    return f
+
+
+class _FnLinear:
+    """A weightless linear for ``apply_linear``: ``apply(x)`` does the matmul."""
+
+    bias = None
+
+    def __init__(self, fn):
+        self.apply = fn
+
+
+def _proj_apply(x, codes, cbs, scales, bias, st_arr, li, *, scheme, compute_dtype, start, win):
+    """One projection of the "dequant", "block" and "none" forms: the dequant
+    (B13/B14 on the card), the ST correction in the window, then the matmul,
+    one unit that "dequant" checkpoints (the matmul inside, so the dense W is
+    no saved input)."""
+    w = dequantize_weight(AqlmWeight(codes=codes, codebooks=cbs, scales=scales, bias=None,
+                                     scheme=scheme), dtype=compute_dtype)
+    if st_arr is not None and start <= li < start + win:
+        stw = st_arr[li - start]
+        w = (w.float() + (stw - stw.detach())).to(compute_dtype)
+    y = torch.matmul(x, w.to(x.dtype).t())
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def scanned_student_hidden(params: dict, st_buffers, cfg, input_ids, window_start=None,
+                           remat: str = "manual", segment_layers: int = 8,
+                           dequant_impl: str = "auto"):
+    """The student's post-final-norm hidden states, layer by layer, with the
+    straight-through correction on a contiguous window of layers.
+
+    Every projection of every layer must be a reference-mode QuantizedLinear
+    of one scheme (a Llama-family student). ``st_buffers`` is the per-layer
+    list of ``init_pv_state`` (its non-empty entries a contiguous window) or
+    the windowed stack {proj: [W, out, in]} with ``window_start`` (window
+    slot w is layer window_start + w).
+
+    remat: "manual" (``_make_manual_st_proj`` projections: the backward
+    re-dequantizes, the window is never saved), "dequant" (each projection's
+    dequant + ST correction + matmul under ``torch.utils.checkpoint``),
+    "block" (a checkpoint around each block) or "none". Every form recomputes
+    the attention probabilities and the SiLU in the backward
+    (``_AttentionRemat``, ``_SiluMulRemat``). ``segment_layers`` splits the
+    loop into segments: a loop boundary, with no effect on the values (JAX
+    chains scans of this depth). ``dequant_impl`` ("auto", "kernel", "xla")
+    applies to "manual": "auto" picks "kernel" for codes of at most 8 bits,
+    out_group_size 1 and [OUT] scales on the card, "xla" otherwise (per-group
+    scales: the plain differentiable gather)."""
+    if remat not in ("dequant", "manual", "block", "none"):
+        raise ValueError(f"remat must be dequant, manual, block or none, got {remat!r}")
+    layers = params["layers"]
+    l0 = layers[0]
+    scheme = getattr(l0.get(QUANTIZABLE_PROJS[0]), "scheme", None)
+    for layer in layers:
+        for name in QUANTIZABLE_PROJS:
+            q = layer.get(name)
+            if not (isinstance(q, QuantizedLinear) and q.mode == "reference"
+                    and q.scheme == scheme and (q.bias is None) == (l0[name].bias is None)):
+                raise ValueError("scan_blocks needs homogeneous reference-mode layers; "
+                                 f"{name!r} is {type(q)}")
+    compute_dtype = params["embed"].dtype
+
+    st_stack, start, win = {}, 0, 0
+    if isinstance(st_buffers, dict):
+        if st_buffers:
+            if window_start is None:
+                raise ValueError("windowed st_buffers need window_start")
+            st_stack = st_buffers
+            start = int(window_start)
+            win = next(iter(st_buffers.values())).shape[0]
+    else:
+        active = [li for li, e in enumerate(st_buffers) if e]
+        if active:
+            start, win = active[0], len(active)
+            if active != list(range(start, start + win)):
+                raise ValueError(f"scan_blocks needs a contiguous active window, got {active}")
+            st_stack = {name: torch.stack([st_buffers[li][name] for li in active])
+                        for name in QUANTIZABLE_PROJS}
+
+    x, positions = llama.embed_and_positions(params, cfg, input_ids, None, 0)
+
+    if remat == "manual":
+        if dequant_impl == "auto":
+            kernel_ok = (scheme.nbits_per_codebook <= 8 and scheme.out_group_size == 1
+                         and all(l0[name].scales.ndim == 1 for name in QUANTIZABLE_PROJS))
+            on_card = l0[QUANTIZABLE_PROJS[0]].codes.device.type == "cuda"
+            dequant_impl = "kernel" if kernel_ok and on_card else "xla"
+        manual_fns = {name: _make_manual_st_proj(scheme, compute_dtype, name in st_stack, win,
+                                                 l0[name].bias is not None, dequant_impl)
+                      for name in QUANTIZABLE_PROJS}
+    else:
+        proj = partial(_proj_apply, scheme=scheme, compute_dtype=compute_dtype, start=start,
+                       win=win)
+        if remat == "dequant":
+            proj = partial(checkpoint, proj, use_reentrant=False)
+
+    def block(x, li):
+        layer = {"input_norm": layers[li]["input_norm"],
+                 "post_attn_norm": layers[li]["post_attn_norm"]}
+        for name in QUANTIZABLE_PROJS:
+            q = layers[li][name]
+            args = (q.codes, q.codebooks, q.scales, q.bias, st_stack.get(name), li)
+            if remat == "manual":
+                fn = lambda x, _f=manual_fns[name], _a=args: _f(x, *_a, start)
+            else:
+                fn = lambda x, _a=args: proj(x, *_a)
+            layer[name] = _FnLinear(fn)
+        return llama._block(x, layer, cfg, positions, attention_fn=_attention_remat,
+                            act_mul_fn=_silu_mul_remat)
+
+    n = len(layers)
+    seg = max(1, min(segment_layers, n)) if segment_layers else n
+    for s0 in range(0, n, seg):  # a segment is a loop boundary: the values are the same
+        for li in range(s0, min(s0 + seg, n)):
+            x = checkpoint(block, x, li, use_reentrant=False) if remat == "block" else block(x, li)
+    return llama.final_norm(x, params, cfg)
+
+
 def init_pv_state(params: dict, cont_opt: Callable, st_opt: Callable | None, *,
                   active_layers=None) -> PVState:
     """Split ``params``, copy the trainable leaves, make the active layers' ST
@@ -190,12 +508,21 @@ def make_pv_step(student_cfg, teacher_cfg, pv: PVConfig, *, forward_fn=llama.for
     {hidden [B, T, H], head [V, H] or None, embed (tied heads) or None},
     computed outside the step (``pv.teacher``)."""
     assert teacher_kind in ("params", "hidden"), teacher_kind
+    if pv.scan_blocks and not pv.chunk_tokens:
+        raise ValueError("scan_blocks requires the chunked loss (chunk_tokens > 0)")
 
-    def loss_fn(trainable, st, frozen, teacher, input_ids, mask):
-        eff = materialize_st_params(merge_trainable(trainable, frozen), st)
+    def loss_fn(trainable, st, frozen, teacher, input_ids, mask, window_start=None):
+        params = merge_trainable(trainable, frozen)
         if pv.chunk_tokens:
-            s_hidden, _ = forward_fn(eff, student_cfg, input_ids, return_hidden=True,
-                                     remat_blocks=pv.remat_blocks)
+            if pv.scan_blocks:
+                eff = params
+                s_hidden = scanned_student_hidden(
+                    params, st, student_cfg, input_ids, window_start, remat=pv.scan_remat,
+                    segment_layers=pv.scan_segment_layers, dequant_impl=pv.scan_dequant)
+            else:
+                eff = materialize_st_params(params, st)
+                s_hidden, _ = forward_fn(eff, student_cfg, input_ids, return_hidden=True,
+                                         remat_blocks=pv.remat_blocks)
             if teacher_kind == "hidden":
                 t_hidden = teacher["hidden"]
                 t_head, t_embed = teacher.get("head"), teacher.get("embed")
@@ -210,17 +537,18 @@ def make_pv_step(student_cfg, teacher_cfg, pv: PVConfig, *, forward_fn=llama.for
                 softcap=student_cfg.logit_softcap,
                 logit_scale=getattr(student_cfg, "logit_scale", None))
         assert teacher_kind == "params", "the full-logit KL needs teacher params"
+        eff = materialize_st_params(params, st)
         student_logits, _ = forward_fn(eff, student_cfg, input_ids, remat_blocks=pv.remat_blocks)
         with torch.no_grad():
             teacher_logits, _ = forward_fn(teacher, teacher_cfg, input_ids)
         return kl_divergence_loss(student_logits, teacher_logits, mask)
 
-    def grad_fn(state: PVState, teacher, input_ids, mask=None):
+    def grad_fn(state: PVState, teacher, input_ids, mask=None, window_start=None):
         for buf in tree_leaves(state.st_buffers):  # buffers given from outside (HostSTManager)
             buf.requires_grad_(True)
         with torch.enable_grad():
             loss = loss_fn(state.trainable, state.st_buffers, state.frozen, teacher, input_ids,
-                           mask)
+                           mask, window_start)
             leaves = tree_leaves(state.trainable) + tree_leaves(state.st_buffers)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
@@ -240,8 +568,8 @@ def make_pv_step(student_cfg, teacher_cfg, pv: PVConfig, *, forward_fn=llama.for
         state.step += 1
         return state
 
-    def grad_step(state: PVState, teacher, input_ids, mask=None):
-        loss, grads = grad_fn(state, teacher, input_ids, mask)
+    def grad_step(state: PVState, teacher, input_ids, mask=None, window_start=None):
+        loss, grads = grad_fn(state, teacher, input_ids, mask, window_start)
         return apply_fn(state, grads), loss
 
     def code_step(state: PVState, generator: torch.Generator | None = None, active=None):

@@ -11,7 +11,9 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    flash decode, the W8A16 int8 matmul, the W4A16 int4 matmul, the
    all-expert W8A16 and W4A16 MoE matmuls, B15, the dequant-matmul over
    untiled codes, and the calibration's B13 dequant and B14 codebook-gradient
-   segment sum) against its plain PyTorch version on the card, at the shapes
+   segment sum, also in the scanned PV student's forms: W^T with row scales
+   in bf16 and f32, and the backward's scaled groups) against its plain
+   PyTorch version on the card, at the shapes
    of the serving and calibration paths, K1's and B10's records with the
    launch their planning functions chose (K1: columns a block, code reads,
    tables, ring stages, splits, blocks; B10: GEMV or GEMM, rows a block,
@@ -105,7 +107,22 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    1e-3 of the first's; the saved codes the final state's; one gradient pass
    at 1 x 128 ids on the card within 1e-2 (loss) and 3e-2 of max|grad| of
    the CPU's; seconds per step (gradient pass, update, V step), peak memory
-   and B13's and B14's share of the steps;
+   and B13's and B14's share of the steps; then ``pv_scan``: the same CLI
+   with ``--scan_blocks`` (the scanned student, its projections B13 forward,
+   B13 + B14 backward) for 4 steps, then with ``--scan_blocks --st_window 1
+   --offload_teacher``: each step's KL within 1e-3 of the same step of the
+   two runs above, the groups whose codes differ recorded, B13/B14 exactly as
+   ``pv_scan_launch_formula`` says, one scanned gradient pass on the card
+   within 1e-2 (loss) and 3e-2 of max|grad| of the CPU's with the kernels'
+   plain versions; then ``pv_scan_depth``: a random 2x8 Llama-2-7B in bf16,
+   one gradient pass of the scanned student at 8 and 32 layers and of the
+   unrolled one at 8 (three each: seconds, peak memory, launches against
+   ``depth_launch_formula``, finite values), and at 8 layers in f32 scanned
+   against unrolled within 1e-2 (loss) and 3e-2 of max|grad| (window and
+   codebook gradients); then ``convert``: ``cli.convert --to requant
+   --scheme 1x8`` of the calibrated checkpoint (every projection below its
+   k-means init) and ``--to 2x8`` / ``--to 2x7`` of a 2-layer 1x16
+   checkpoint, each output served as in phase 6;
 6. serve the calibrated checkpoint: loaded, transcoded to codes mode and
    served by Engine.generate (4 prompts, 16 new tokens): K1, K2 and K3
    launch, B13 and B14 do not; its prefill logits within 3e-2 max|logit|
@@ -977,6 +994,103 @@ def check_calib(gen, dev, failures):
         del codes, cb
         torch.cuda.empty_cache()
     return reps
+
+
+def check_manual_proj(gen, dev, failures):
+    """B13 and B14 in the forms the scanned PV student's manual projections
+    launch them (``pv.straight_through._make_manual_st_proj``), at
+    Llama-2-7B's q, gate and down in 2x8: B13 as ``dequantize_onehot`` to
+    W^T [IN, OUT] with the [OUT] row scales and the codebook entries rounded
+    to bf16 first (precise=False, as JAX's kernel dequant), in bf16 (the
+    forward of a bf16 student) and in f32 (the backward, and an f32
+    student's forward): bit-identical to its plain version on the same
+    inputs (the f32 sum is the plain one's; bf16 is its rounding); B14 on
+    the backward's scaled groups (dL/dW's groups times each row's scale,
+    f32): each segment within 1e-5 of its sum of |data| of a float64 sum.
+    Library calls as ``check_calib``'s: ``F.embedding_bag(mode="sum")`` over
+    the bf16-rounded books (then the scales and the cast), one
+    ``index_add_``."""
+    import torch.nn.functional as F
+
+    from aqlm_tpu_torch.ops import kernels as kn
+
+    K, S, g = 2, 256, 8
+    for name, out_f, in_f in CALIB_PROJS:
+        ig = in_f // g
+        codes = torch.randint(0, S, (N_CALIB_COPIES, out_f, ig, K), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+        cb = torch.randn((K, S, g), generator=gen, device=dev) / 4
+        scales = torch.rand(out_f, generator=gen, device=dev) + 0.5
+        codes_t = codes.permute(0, 3, 2, 1)  # [copies, K, IG, OUT] views, as the projection passes
+        for dtype in (torch.bfloat16, torch.float32):
+            run = lambda i=0, d=dtype: kn.dequantize_onehot(codes_t[i % N_CALIB_COPIES], cb, scales,
+                                                           group=g, dtype=d)
+            got = run()
+            want = kn.dequant_plain(codes[0], cb, scales, precise=False).to(dtype).t()
+            same = bool(torch.equal(got, want))
+            cmp = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+                   "bit_identical": same, "tol": "bit-identical", "ok": same}
+            del got, want
+            ms = time_ms(run, 20)
+            plain_ms = time_ms(lambda i=0, d=dtype: kn.dequant_plain(
+                codes[0], cb, scales, precise=False).to(d).t(), 3)
+            idx = codes[0].reshape(-1, K).long() + torch.arange(K, device=dev) * S
+            table = cb.to(torch.bfloat16).float().reshape(K * S, g)
+            library = lambda i=0, d=dtype: (F.embedding_bag(idx, table, mode="sum").reshape(
+                out_f, in_f) * scales[:, None]).to(d).t()
+            library_ms = time_ms(library, 20)
+            del idx, table
+            G = out_f * ig
+            b_ms, b_by = _f32_bound(  # codes, books, scales read; W^T written in dtype
+                G * K + K * S * g * 4 + out_f * 4 + out_f * in_f * (2 if dtype == torch.bfloat16
+                                                                    else 4),
+                G * g * K + out_f * in_f)
+            rec = {"phase": "check", "kernel": "dequantize_onehot", "form": "manual_wt",
+                   "proj": name, "out_features": out_f, "in_features": in_f, "K": K, "S": S,
+                   "precise": False, "scales": True, "dtype": str(dtype).split(".")[-1], **cmp,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library": "F.embedding_bag(mode='sum') * scales, cast",
+                   "library_ms": library_ms, "host_ms": host_ms(run)}
+            emit(rec)
+            if not cmp["ok"]:
+                failures.append(rec)
+            torch.cuda.empty_cache()
+        # B14 on the backward's data: dL/dW's groups times their row's scale
+        flat = codes[0].reshape(-1, K)
+        G = flat.shape[0]
+        gw = torch.randn((out_f, in_f), generator=gen, device=dev) * 1e-3
+        data = (gw.reshape(out_f, ig, g) * scales[:, None, None]).reshape(-1, g)
+        del gw
+        got = kn.cb_grad_segment(flat, data, S)
+        want = torch.zeros((K, S, g), dtype=torch.float64, device=dev)
+        mass = torch.zeros((K, S, g), dtype=torch.float64, device=dev)
+        for k in range(K):
+            want[k].index_add_(0, flat[:, k].long(), data.double())
+            mass[k].index_add_(0, flat[:, k].long(), data.double().abs())
+        err = (got.double() - want).abs()
+        ok = bool(torch.isfinite(got).all()) and bool((err <= 1e-5 * mass).all())
+        cmp = {"max_abs_err": float(err.max()),
+               "max_err_over_mass": float((err / mass.clamp(min=1e-30)).max()),
+               "tol": "1e-5 * segment sum of |data| (float64 plain sum)", "ok": ok}
+        del got, want, mass, err
+        run = lambda i=0: kn.cb_grad_segment(flat, data, S)
+        ms = time_ms(run, 20)
+        plain_ms = time_ms(lambda i=0: kn.cb_grad_plain(flat, data, S), 3)
+        lidx = (flat.long() + torch.arange(K, device=dev) * S).reshape(-1)
+        ldata = data[:, None, :].expand(G, K, g).reshape(G * K, g).contiguous()
+        lout = torch.zeros((K * S, g), device=dev)
+        library_ms = time_ms(lambda i=0: lout.index_add_(0, lidx, ldata), 20)
+        del lidx, ldata, lout
+        b_ms, b_by = _f32_bound(G * g * 4 + G * K + K * S * g * 4, G * g * K)
+        rec = {"phase": "check", "kernel": "cb_grad_segment", "form": "manual_bwd", "proj": name,
+               "groups": G, "K": K, "S": S, "precise": True, **cmp, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library": "Tensor.index_add_", "library_ms": library_ms, "host_ms": host_ms(run)}
+        emit(rec)
+        if not ok:
+            failures.append(rec)
+        del codes, codes_t, cb, scales, data, flat
+        torch.cuda.empty_cache()
 
 
 # (name, out_features, in_features): the projections of a Llama-2-7B block
@@ -1884,6 +1998,17 @@ PV_WINDOW_STEPS = 4  # the --st_window 1 --offload_teacher run
 PV_MAX_CHANGE = 1e-2  # the CLI's default --max_code_change_per_step
 PATH_KERNELS["pv"] = ("dequantize_onehot", "cb_grad_segment")
 PATH_KERNELS["pv_window"] = PATH_KERNELS["pv"]
+PV_SCAN_STEPS = 4  # each --scan_blocks run's steps (the pv runs' first 4 are its reference)
+for _run in ("pv_scan", "pv_scan_window", "pv_scan_depth"):
+    PATH_KERNELS[_run] = PATH_KERNELS["pv"]
+
+
+def _v_calls(run: str, steps: int, layers: int, projs: int = 7) -> int:
+    """Beam-search calls of a ``cli.finetune`` run's V steps in its first
+    ``steps`` steps: every ST-active projection a V step (a window of one
+    layer with ``--st_window 1``)."""
+    active = 1 if run.endswith("window") else layers
+    return steps // PV_ARGS["code_update_every"] * projs * active
 
 
 def pv_launch_formula(layers: int, steps: int, window: int | None = None, projs: int = 7) -> dict:
@@ -1918,14 +2043,23 @@ class _VStepRecorder:
     """Wraps the V step's beam search: per call, the groups whose codes
     changed against ``ceil(max_update_fraction x groups)``, and
     ||W_q(new) - st||^2 against ||W_q(old) - st||^2 (W_q by gathering the
-    codebook rows, as the search does; no kernel)."""
+    codebook rows, as the search does; no kernel). The first ``keep`` calls
+    after ``keep_codes(keep)`` also keep their new codes (on the host), in
+    ``kept``."""
 
     def __init__(self, search):
         self.search, self.calls, self.check_s = search, [], 0.0
+        self.kept, self.keep = [], 0
+
+    def keep_codes(self, keep: int) -> list:
+        self.kept, self.keep = [], keep
+        return self.kept
 
     def __call__(self, reference_weight, codebooks, prev_codes, scales, **kw):
         new = self.search(reference_weight, codebooks, prev_codes, scales, **kw)
         t0 = time.perf_counter()
+        if len(self.kept) < self.keep:
+            self.kept.append(new.cpu())
         OG, IG, K = prev_codes.shape
         _, S, og, ig = codebooks.shape
         cb = codebooks.float().reshape(K, S, og * ig)
@@ -1960,7 +2094,7 @@ def _kernel_share(launches: dict) -> dict:
     return {k: launches[k] / 7 * per_layer[k] / 1e3 for k in PATH_KERNELS["pv"]}
 
 
-def pv_run(dev) -> dict:
+def pv_run(dev, kept: dict) -> dict:
     """``aqlm_tpu_torch.cli.finetune.main`` in-process: the calibrated
     checkpoint (``CALIB_DIR``) as the student of random:llama2_7b:2, the
     dense seed-0 model the calibration quantized, full width, outside
@@ -1974,7 +2108,9 @@ def pv_run(dev) -> dict:
     within 1e-3 of the first run's first 4 steps; the saved checkpoint loaded
     by the port's loader with the final state's codes; one gradient pass at
     batch 1 x 128 on the card against the CPU's plain path (loss within 1e-2,
-    each gradient within 3e-2 of its largest CPU magnitude)."""
+    each gradient within 3e-2 of its largest CPU magnitude). ``kept`` gets
+    each run's codes from the V steps of its first ``PV_SCAN_STEPS`` steps
+    (``pv_scan`` compares its codes with them)."""
     from aqlm_tpu_torch.cli import finetune as cf
     from aqlm_tpu_torch.cli.common import resolve_model
     from aqlm_tpu_torch.io import load_quantized_model
@@ -2012,6 +2148,7 @@ def pv_run(dev) -> dict:
             if name == "pv_window":
                 run_argv[run_argv.index("--total_steps") + 1] = str(PV_WINDOW_STEPS)
             n_calls = len(recorder.calls)
+            kept[name] = recorder.keep_codes(_v_calls(name, PV_SCAN_STEPS, layers))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _build.reset_launch_counts()
@@ -2090,24 +2227,309 @@ def pv_run(dev) -> dict:
             "ok": bool(ok)}
 
 
-def _dense_to(params: dict, dtype) -> dict:
-    """The embedding, norms and dense head in ``dtype`` (K2 takes bf16
-    activations); quantized projections as they are."""
-    from aqlm_tpu_torch.models.common import DenseLinear
-
-    cast = lambda v: v.to(dtype) if isinstance(v, torch.Tensor) else (
-        DenseLinear(v.weight.to(dtype), None if v.bias is None else v.bias.to(dtype))
-        if isinstance(v, DenseLinear) else v)
-    out = {k: cast(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = [{k: cast(v) for k, v in layer.items()} for layer in params["layers"]]
-    return out
+# ---------------------------------------------------------------------------
+# phase 5c: the scanned PV student (cli.finetune --scan_blocks) and its depth
+# ---------------------------------------------------------------------------
 
 
-def serve_calibrated(dev) -> dict:
-    """The calibrated checkpoint loaded with the port's loader (bf16 dense
-    parts), transcoded to codes mode (``convert_runtime_mode``) and served by
+def pv_scan_launch_formula(layers: int, steps: int, window: int | None = None,
+                           projs: int = 7) -> dict:
+    """B13 and B14 launches of a ``cli.finetune --scan_blocks`` run: the ST
+    buffers' init dequantizes each ST-active projection once (B13); every
+    gradient pass (steps x microbatches) runs each projection of each layer
+    through ``_make_manual_st_proj``: B13 to W^T in the forward, B13 again
+    in f32 and B14 in the backward, whatever the window. The windowed run's
+    zeros window, the host Adam, the teacher and the V step launch
+    nothing."""
+    active = layers if window is None else window
+    passes = steps * (PV_ARGS["batch_size"] // PV_ARGS["microbatch_size"])
+    return {"dequantize_onehot": projs * active + passes * projs * 2 * layers,
+            "cb_grad_segment": passes * projs * layers}
+
+
+def pv_scan_run(dev, pv_rec: dict, pv_codes: dict) -> dict:
+    """``cli.finetune --scan_blocks`` in-process, as ``pv_run`` runs the
+    unrolled student: the calibrated checkpoint, ``PV_ARGS`` cut to
+    ``PV_SCAN_STEPS`` steps, then the same with ``--st_window 1
+    --offload_teacher`` (the windowed rotation: zeros window, bf16
+    gradients down, bf16 buffers up). Gates: each step's KL within 1e-3
+    (relative) of the same step of ``pv`` and ``pv_window``; every V step
+    within its budget and not farther from its buffer; B13 and B14 exactly as
+    ``pv_scan_launch_formula`` says, no other kernel; one scanned gradient
+    pass of the calibrated student at 1 x 128 ids on the card (B13/B14)
+    against the same pass on the CPU with the kernels' plain versions
+    (``scan_dequant="kernel"``): loss within 1e-2, each gradient within 3e-2
+    of its largest CPU magnitude. Recorded: the largest KL difference and
+    the groups whose codes differ from the unrolled runs' after the same V
+    steps."""
+    from aqlm_tpu_torch.cli import finetune as cf
+    from aqlm_tpu_torch.cli.common import resolve_model
+    from aqlm_tpu_torch.io import load_quantized_model
+    from aqlm_tpu_torch.ops import _build
+    from aqlm_tpu_torch.pv import PVConfig, configurable_adamw, init_pv_state, make_pv_step
+    from aqlm_tpu_torch.pv import straight_through as pst
+    from aqlm_tpu_torch.pv.trainer import tree_leaves
+
+    layers, base = 2, "random:llama2_7b:2"
+    argv = ["--base_model", base, "--quantized_model", CALIB_DIR, "--scan_blocks"]
+    for k, v in dict(PV_ARGS, total_steps=PV_SCAN_STEPS).items():
+        argv += [f"--{k}", str(v)]
+    recorder = _VStepRecorder(pst.beam_search_optimal_codes_l2)
+    pst.beam_search_optimal_codes_l2 = recorder
+    runs = {}
+    try:
+        for name, ref, extra in (("pv_scan", "pv", []),
+                                 ("pv_scan_window", "pv_window",
+                                  ["--st_window", "1", "--offload_teacher"])):
+            n_calls = len(recorder.calls)
+            codes = recorder.keep_codes(_v_calls(name, PV_SCAN_STEPS, layers))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = cf.main(argv + extra)
+            torch.cuda.synchronize()
+            r = {"argv": argv + extra, "total_s": time.perf_counter() - t0,
+                 "launches": {k: v.launches for k, v in _build.KERNELS.items()},
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "losses": res["step_losses"], "seconds": res["seconds"],
+                 "v_calls": recorder.calls[n_calls:]}
+            want = pv_scan_launch_formula(layers, len(r["losses"]),
+                                          1 if name.endswith("window") else None)
+            r["launch_formula"] = want
+            r["launches_match"] = all(r["launches"][k] == want[k] for k in PATH_KERNELS[name])
+            r["no_other_kernel"] = all(n == 0 for k, n in r["launches"].items()
+                                       if k not in PATH_KERNELS[name])
+            r["losses_finite"] = bool(all(np.isfinite(r["losses"])))
+            r["v_steps_ok"] = bool(r["v_calls"]) and all(c["ok"] for c in r["v_calls"])
+            ref_losses = pv_rec["runs"][ref]["losses"][:len(r["losses"])]
+            r["kl_rel_err_vs_" + ref] = [abs(a - b) / abs(b) for a, b in
+                                         zip(r["losses"], ref_losses)]
+            r["kl_ok"] = len(ref_losses) == PV_SCAN_STEPS and max(r["kl_rel_err_vs_" + ref]) <= 1e-3
+            pairs = list(zip(codes, pv_codes[ref]))
+            r["codes_compared_calls"] = len(pairs)
+            r["groups_with_other_codes"] = sum(int((a != b).any(-1).sum()) for a, b in pairs)
+            r["groups_compared"] = sum(a.shape[0] * a.shape[1] for a, _ in pairs)
+            step_s = [a + b for a, b in zip(r["seconds"]["grad"], r["seconds"]["apply"])]
+            share = _kernel_share(r["launches"])
+            r["kernel_s"] = share
+            r["kernel_share_of_steps"] = sum(share.values()) / (sum(step_s) + sum(
+                r["seconds"]["code"]))
+            r["s_per_step"] = {part: statistics.median(r["seconds"][part][1:] or
+                                                       r["seconds"][part])
+                               for part in ("grad", "apply", "code")}
+            runs[name] = r
+            del codes, pairs
+    finally:
+        pst.beam_search_optimal_codes_l2 = recorder.search
+
+    # one scanned gradient pass, on the card (B13/B14) and on the CPU (plain versions)
+    teacher, cfg, _ = resolve_model(base, device=dev)
+    ids = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (1, 128)))
+    cpu = torch.device("cpu")
+    grad_ref = []
+    for d, impl in ((dev, "auto"), (cpu, "kernel")):
+        student, _ = load_quantized_model(CALIB_DIR, device=d)
+        t_params = teacher if d == dev else _to(teacher, cpu)
+        pv = PVConfig(scan_blocks=True, scan_dequant=impl)
+        state = init_pv_state(student, configurable_adamw(pv.lr), configurable_adamw(pv.code_lr))
+        del student
+        loss, grads = make_pv_step(cfg, cfg, pv).grad_fn(state, t_params, ids.to(d))
+        grad_ref.append((float(loss), [g.float().cpu() for g in tree_leaves(grads)]))
+        del state, grads, t_params
+    del teacher
+    torch.cuda.empty_cache()
+    (loss, grads), (want_loss, want_grads) = grad_ref
+    ratios = [float((g - w).abs().max() / w.abs().max()) if w.any() else
+              (0.0 if not g.any() else float("inf")) for g, w in zip(grads, want_grads)]
+    grad_ok = abs(loss - want_loss) <= 1e-2 * abs(want_loss) and all(r <= 3e-2 for r in ratios)
+    ok = all(r["launches_match"] and r["no_other_kernel"] and r["losses_finite"]
+             and r["v_steps_ok"] and r["kl_ok"] for r in runs.values()) and grad_ok
+    return {"phase": "pv_scan", "model": "llama2_7b", "layers": layers, "hidden": cfg.hidden_size,
+            "intermediate": cfg.intermediate_size, "student": CALIB_DIR, "teacher": base,
+            "steps": PV_SCAN_STEPS, "runs": runs,
+            "grad_check": {"ids": [1, 128], "loss": loss, "cpu_loss": want_loss,
+                           "max_grad_err_over_max": max(ratios), "leaves": len(ratios),
+                           "cpu_dequant": "kernel (B13/B14's plain versions)",
+                           "tol": "loss 1e-2 relative; each grad max|cuda - cpu| <= 3e-2 max|cpu|",
+                           "ok": grad_ok},
+            "ok": bool(ok)}
+
+
+DEPTH_TOKENS = 512
+DEPTH_PASSES = 3  # timed gradient passes a configuration (the median is kept)
+
+
+def depth_launch_formula(layers: int, scanned: bool, window: int = 1, projs: int = 7) -> dict:
+    """B13/B14 launches of one gradient pass of the depth probe: scanned,
+    each projection B13 forward and backward and B14 backward; unrolled, the
+    window's projections once outside the blocks' recompute and the others'
+    twice (forward, recompute), each B14 once."""
+    if scanned:
+        return {"dequantize_onehot": 2 * projs * layers, "cb_grad_segment": projs * layers}
+    return {"dequantize_onehot": projs * (window + 2 * (layers - window)),
+            "cb_grad_segment": projs * layers}
+
+
+def _depth_pass(params, cfg, scanned, teacher, ids, dev, passes):
+    """``passes`` gradient passes of ``make_pv_step``'s ``grad_fn`` (scanned
+    or unrolled) with a one-layer zeros ST window at layer 0: (seconds, loss,
+    finite, the window's and the codebooks' gradients of the last pass)."""
+    from aqlm_tpu_torch.models.llama import QUANTIZABLE_PROJS
+    from aqlm_tpu_torch.pv import PVConfig, init_pv_state, make_pv_step
+    from aqlm_tpu_torch.pv.trainer import tree_leaves
+
+    pv = PVConfig(chunk_tokens=256, scan_blocks=scanned)
+    state = init_pv_state(params, lambda leaves: None, None, active_layers=())
+    zeros = {name: torch.zeros((1, q.codes.shape[0], q.codes.shape[1] * 8), dtype=torch.float32,
+                               device=dev)
+             for name, q in ((n, params["layers"][0][n]) for n in QUANTIZABLE_PROJS)}
+    state.st_buffers = zeros if scanned else [{k: v[0] for k, v in zeros.items()}] + [
+        {} for _ in range(cfg.num_layers - 1)]
+    grad_fn = make_pv_step(cfg, cfg, pv, teacher_kind="hidden").grad_fn
+    args = (None, 0) if scanned else ()
+    seconds, finite = [], True
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        loss, (g_tr, g_st) = grad_fn(state, teacher, ids, *args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        finite = finite and bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in tree_leaves((g_tr, g_st)))
+    window = g_st if scanned else {k: v[None] for k, v in g_st[0].items()}
+    books = [{n: g_tr["layers"][li][n].codebooks.float() for n in QUANTIZABLE_PROJS}
+             for li in range(cfg.num_layers)]
+    return seconds, float(loss), finite, {k: v.float() for k, v in window.items()}, books
+
+
+def _grad_gaps(a, b) -> dict:
+    """Loss relative error and max|a - b| / max|b| over the window's and the
+    codebooks' gradients of two ``_depth_pass`` results."""
+    (_, la, _, wa, ca), (_, lb, _, wb, cb) = a, b
+    return {"loss_rel_err": abs(la - lb) / abs(lb),
+            "window_grad_err_over_max": max(float((wa[k] - wb[k]).abs().max()
+                                                  / wb[k].abs().max()) for k in wb),
+            "codebook_grad_err_over_max": max(float((x[n] - y[n]).abs().max() / y[n].abs().max())
+                                              for x, y in zip(ca, cb) for n in y)}
+
+
+def pv_scan_depth_run(dev) -> dict:
+    """The scanned student's gradient pass at Llama-2-7B's full width: a
+    random reference-mode 2x8 g8 student (``random_quantized_params``, seed
+    11, bf16 embedding, norms and head), a one-layer zeros ST window at layer
+    0, the teacher as hidden states [1, 512, 4096] and a dense head (seed
+    12), the chunked KL at 256 tokens a chunk. In bf16, ``DEPTH_PASSES``
+    passes of the scanned student ("manual", B13/B14) at 8 and 32 layers
+    and of the unrolled one at 8: seconds (median, synchronised), peak
+    memory, B13/B14 launches against ``depth_launch_formula``, finite loss
+    and gradients. Then the 8-layer comparison, one pass each, in f32 (the
+    same draw, its embedding, norms and head in f32 and its codebook entries
+    rounded to bf16 once, so the manual projections' bf16 entries equal the
+    unrolled path's f32 ones): the scanned loss within 1e-2 (relative) of
+    the unrolled one's and its window and codebook gradients within 3e-2 of
+    the unrolled gradient's largest magnitude. The random draw is chaotic
+    (its attention is nearly an argmax), so in bf16 the two paths' roundings
+    give gradients far apart (and both far from f32's,
+    ``experiments/torch_pv_scan_precision.py``): that comparison is recorded,
+    not gated."""
+    from aqlm_tpu_torch.config import AqlmScheme
+    from aqlm_tpu_torch.models.llama import ModelConfig
+    from aqlm_tpu_torch.models.quantize import random_quantized_params
+    from aqlm_tpu_torch.ops import _build
+
+    full = ModelConfig.llama2_7b()
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(11), full,
+                                     AqlmScheme.parse("2x8g8"), mode="reference", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    teacher = {"hidden": torch.randn((1, DEPTH_TOKENS, full.hidden_size), generator=gen,
+                                     device=dev).to(torch.bfloat16),
+               "head": (torch.randn((full.vocab_size, full.hidden_size), generator=gen, device=dev)
+                        * full.hidden_size ** -0.5).to(torch.bfloat16), "embed": None}
+    ids = torch.randint(0, full.vocab_size, (1, DEPTH_TOKENS), generator=gen, device=dev)
+    runs, kept = {}, {}
+    for label, layers, scanned in (("scan_8", 8, True), ("scan_32", 32, True),
+                                   ("unrolled_8", 8, False)):
+        cfg = dataclasses.replace(full, num_layers=layers)
+        p = dict(params, layers=params["layers"][:layers])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        out = _depth_pass(p, cfg, scanned, teacher, ids, dev, DEPTH_PASSES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {k: v.launches for k, v in _build.KERNELS.items()}
+        want = {k: DEPTH_PASSES * n for k, n in depth_launch_formula(layers, scanned).items()}
+        if layers == 8:
+            kept[label] = out
+        runs[label] = {"layers": layers, "scanned": scanned, "dtype": "bfloat16", "loss": out[1],
+                       "s_per_pass": statistics.median(out[0]), "seconds": out[0],
+                       "peak_mem_gib": peak, "launches": launches, "launch_formula": want,
+                       "launches_match": all(launches[k] == want[k]
+                                             for k in PATH_KERNELS["pv_scan_depth"]),
+                       "no_other_kernel": all(n == 0 for k, n in launches.items()
+                                              if k not in PATH_KERNELS["pv_scan_depth"]),
+                       "finite": out[2]}
+        del out, p
+        torch.cuda.empty_cache()
+    bf16_gaps = _grad_gaps(kept.pop("scan_8"), kept.pop("unrolled_8"))
+
+    # the 8-layer comparison in f32, the codebook entries on the bf16 grid
+    cfg = dataclasses.replace(full, num_layers=8)
+    p = _dense_to(dict(params, layers=params["layers"][:8]), torch.float32)
+    for layer in p["layers"]:
+        for name, q in list(layer.items()):
+            if hasattr(q, "codebooks"):
+                layer[name] = dataclasses.replace(
+                    q, codebooks=q.codebooks.to(torch.bfloat16).float())
+    teacher32 = {"hidden": teacher["hidden"].float(), "head": teacher["head"].float(),
+                 "embed": None}
+    del params, teacher
+    f32_runs = {}
+    for label, scanned in (("scan_8_f32", True), ("unrolled_8_f32", False)):
+        _build.reset_launch_counts()
+        f32_runs[label] = _depth_pass(p, cfg, scanned, teacher32, ids, dev, 1)
+        launches = {k: v.launches for k, v in _build.KERNELS.items()}
+        want = depth_launch_formula(8, scanned)
+        runs[label] = {"layers": 8, "scanned": scanned, "dtype": "float32",
+                       "loss": f32_runs[label][1], "seconds": f32_runs[label][0],
+                       "launches": launches, "launch_formula": want,
+                       "launches_match": all(launches[k] == want[k]
+                                             for k in PATH_KERNELS["pv_scan_depth"]),
+                       "no_other_kernel": all(n == 0 for k, n in launches.items()
+                                              if k not in PATH_KERNELS["pv_scan_depth"]),
+                       "finite": f32_runs[label][2]}
+    gaps = _grad_gaps(f32_runs["scan_8_f32"], f32_runs["unrolled_8_f32"])
+    del p, teacher32, f32_runs
+    torch.cuda.empty_cache()
+    cmp_ok = (gaps["loss_rel_err"] <= 1e-2 and gaps["window_grad_err_over_max"] <= 3e-2
+              and gaps["codebook_grad_err_over_max"] <= 3e-2)
+    ok = cmp_ok and all(r["launches_match"] and r["no_other_kernel"] and r["finite"]
+                        for r in runs.values())
+    # the phase's launches for the kernel line: the 32-layer passes' (its depth)
+    return {"phase": "pv_scan_depth", "model": "llama2_7b", "tokens": DEPTH_TOKENS,
+            "window": [0], "chunk_tokens": 256, "passes": DEPTH_PASSES, "runs": runs,
+            "launches": runs["scan_32"]["launches"],
+            "scan_vs_unrolled_8_f32": {**gaps, "tol": "loss 1e-2 relative; window and codebook "
+                                       "grads max|scan - unrolled| <= 3e-2 max|unrolled|",
+                                       "ok": cmp_ok},
+            "scan_vs_unrolled_8_bf16": {**bf16_gaps, "gated": False},
+            "ok": bool(ok)}
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the scheme converters (cli.convert --to requant|2x8|2x7), served
+# ---------------------------------------------------------------------------
+
+CONVERT_DIR = os.path.join("build", "converted")  # deleted at the end of the phase
+for _run in ("convert_requant", "convert_2x8", "convert_2x7"):
+    PATH_KERNELS[_run] = PATH_KERNELS["serve_calibrated"]
+
+
+def serve_check(dev, path: str, run: str) -> dict:
+    """A checkpoint loaded with the port's loader (bf16 dense parts),
+    transcoded to codes mode (``convert_runtime_mode``) and served by
     ``Engine.generate`` (4 prompts, 16 new tokens, greedy): K1, K2 and K3
-    launch and B13/B14 do not. Its prefill logits (``llama.forward`` over 64
+    launch and no other kernel. Its prefill logits (``llama.forward`` over 64
     tokens, K2) lie within 3e-2 max|logit| of the same checkpoint in
     reference mode on the card (B13's route)."""
     from aqlm_tpu_torch.io import load_quantized_model
@@ -2116,7 +2538,7 @@ def serve_calibrated(dev) -> dict:
     from aqlm_tpu_torch.ops import _build
     from aqlm_tpu_torch.serve import Engine, SamplingParams, ServeConfig
 
-    params, cfg = load_quantized_model(CALIB_DIR, device=dev)
+    params, cfg = load_quantized_model(path, device=dev)
     params = _dense_to(params, torch.bfloat16)
     ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 64))).to(dev)
     with torch.inference_mode():
@@ -2135,14 +2557,14 @@ def serve_calibrated(dev) -> dict:
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    scheme = next(v.scheme.name for v in params["layers"][0].values() if hasattr(v, "scheme"))
     del engine, codes, params
     torch.cuda.empty_cache()
-    shutil.rmtree(CALIB_DIR)
     tokens_ok = all(len(o) == 16 and all(0 <= t < cfg.vocab_size for t in o) for o in out)
-    ran = all(launches[k] > 0 for k in PATH_KERNELS["serve_calibrated"])
-    others = all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS["serve_calibrated"])
+    ran = all(launches[k] > 0 for k in PATH_KERNELS[run])
+    others = all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS[run])
     logits_ok = bool(torch.isfinite(got).all()) and err <= 3e-2 * scale
-    return {"phase": "serve_calibrated", "checkpoint": CALIB_DIR, "layers": cfg.num_layers,
+    return {"phase": run, "checkpoint": path, "scheme": scheme, "layers": cfg.num_layers,
             "prompts": [len(p) for p in prompts], "new_tokens": 16, "generate_s": gen_s,
             "launches": launches, "reference_b13_launches": ref_b13,
             "prefill_logits": {"tokens": 64, "max_abs_err": err, "max_rel_err": err / scale,
@@ -2150,6 +2572,118 @@ def serve_calibrated(dev) -> dict:
                                "tol": "max|codes - reference| <= 3e-2 * max|reference|"},
             "first_tokens": [o[:4] for o in out],
             "ok": tokens_ok and ran and others and logits_ok and ref_b13 > 0}
+
+
+def _config_of(path: str) -> dict:
+    with open(os.path.join(path, "config.json")) as f:
+        return json.load(f)
+
+
+def convert_run(dev) -> dict:
+    """The scheme converters of ``cli.convert`` on the card, each output
+    served (``serve_check``): ``--to requant --scheme 1x8`` of the calibrated
+    checkpoint (gate: each projection's weight rel-MSE finite and below its
+    k-means init's, the worst in the config); a 2-layer Llama-2-7B in 1x16
+    g8 (``codes_1x16``'s draw, seed 0, bf16 dense parts, its scales brought
+    to a dense layer's weight scale) written by ``save_quantized_model``,
+    then ``--to 2x8`` and ``--to 2x7`` (gate: the worst codebook rel-MSE
+    finite and in the config). Seconds of each
+    conversion; every serve check's gates."""
+    from aqlm_tpu_torch.calib import requantize as rq
+    from aqlm_tpu_torch.cli import convert as cc
+    from aqlm_tpu_torch.config import AqlmScheme
+    from aqlm_tpu_torch.io import save_quantized_model
+    from aqlm_tpu_torch.models.quantize import random_quantized_params
+    from aqlm_tpu_torch.ops.dequant import dequantize_weight
+
+    os.makedirs(CONVERT_DIR, exist_ok=True)
+    runs, conversions = {}, {}
+    inits, fits = [], []
+    init, requantize = rq.init_quantized_weight, rq.requantize_weight
+
+    def init_rec(W, scheme, **kw):  # each projection's k-means init and its rel-MSE
+        out = init(W, scheme, **kw)
+        err = dequantize_weight(out, dtype=torch.float32) - W
+        inits.append(float((err * err).sum() / (W * W).sum()))
+        return out
+
+    def fit_rec(*a, **kw):
+        out = requantize(*a, **kw)
+        fits.append(out[1])
+        return out
+
+    rq.init_quantized_weight, rq.requantize_weight = init_rec, fit_rec
+    try:
+        dst = os.path.join(CONVERT_DIR, "requant_1x8")
+        t0 = time.perf_counter()
+        cc.main([CALIB_DIR, dst, "--to", "requant", "--scheme", "1x8"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        rq.init_quantized_weight, rq.requantize_weight = init, requantize
+    cfg_out = _config_of(dst)
+    conversions["convert_requant"] = {
+        "source": CALIB_DIR, "to": "requant 1x8", "seconds": seconds,
+        "init_rel_mse": inits, "rel_mse": fits, "worst_rel_mse": cfg_out["worst_rel_mse"],
+        "ok": len(fits) == 14 and all(np.isfinite(f) and f < i for f, i in zip(fits, inits))
+        and cfg_out["requantized_to"] == "1x8" and cfg_out["worst_rel_mse"] == max(fits)}
+    runs["convert_requant"] = serve_check(dev, dst, "convert_requant")
+    shutil.rmtree(dst)
+
+    from aqlm_tpu_torch.models.llama import ModelConfig
+
+    cfg2 = dataclasses.replace(ModelConfig.llama2_7b(), num_layers=2)
+    src = os.path.join(CONVERT_DIR, "codes_1x16")
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg2,
+                                     AqlmScheme.parse("1x16g8"), mode="reference", device=dev)
+    # at a dense layer's weight scale (in_features^-0.5; the draw's entries have std
+    # 0.354): at the draw's own scale the attention is nearly an argmax, and codes
+    # mode's bf16 books then pick other keys than reference mode's f32 ones (logits
+    # 26-36% of max apart at 2 layers on the card), so the gate would measure that
+    for layer in params["layers"]:
+        for q in layer.values():
+            if hasattr(q, "scales") and q.codes is not None:
+                q.scales.mul_((q.codes.shape[1] * 8) ** -0.5 / 0.354)
+    save_quantized_model(src, params, cfg2)
+    del params
+    for to in ("2x8", "2x7"):
+        dst = os.path.join(CONVERT_DIR, to)
+        t0 = time.perf_counter()
+        cc.main([src, dst, "--to", to])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        cfg_out = _config_of(dst)
+        worst = cfg_out["worst_rel_mse"]
+        conversions[f"convert_{to}"] = {
+            "source": "codes_1x16 draw, 2 layers", "to": to, "seconds": seconds,
+            "worst_rel_mse": worst,
+            "ok": cfg_out["transcoded_from"] == "1x16" and bool(np.isfinite(worst)) and worst > 0}
+        runs[f"convert_{to}"] = serve_check(dev, dst, f"convert_{to}")
+        shutil.rmtree(dst)
+    shutil.rmtree(CONVERT_DIR)
+    ok = all(c["ok"] for c in conversions.values()) and all(r["ok"] for r in runs.values())
+    return {"phase": "convert", "conversions": conversions, "runs": runs, "ok": bool(ok)}
+
+
+def _dense_to(params: dict, dtype) -> dict:
+    """The embedding, norms and dense head in ``dtype`` (K2 takes bf16
+    activations); quantized projections as they are."""
+    from aqlm_tpu_torch.models.common import DenseLinear
+
+    cast = lambda v: v.to(dtype) if isinstance(v, torch.Tensor) else (
+        DenseLinear(v.weight.to(dtype), None if v.bias is None else v.bias.to(dtype))
+        if isinstance(v, DenseLinear) else v)
+    out = {k: cast(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: cast(v) for k, v in layer.items()} for layer in params["layers"]]
+    return out
+
+
+def serve_calibrated(dev) -> dict:
+    """The calibrated checkpoint through ``serve_check`` (B13/B14 of the
+    calibration stay at 0 there), then deleted."""
+    rec = serve_check(dev, CALIB_DIR, "serve_calibrated")
+    shutil.rmtree(CALIB_DIR)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2854,6 +3388,7 @@ def main() -> int:
         reps.update(check_moe_codes(gen, dev, failures))
         reps.update(check_gather16(gen, dev, failures))
         reps.update(check_calib(gen, dev, failures))
+        check_manual_proj(gen, dev, failures)
         reps.update(check_b10(gen, dev, failures))
         reps.update(check_b5(gen, dev, failures))
     phase_s["checks"] = time.perf_counter() - t0
@@ -2903,13 +3438,42 @@ def main() -> int:
     # PV-tuning of the calibrated checkpoint: autograd, outside inference mode
     starting("pv")
     t0 = time.perf_counter()
-    rec = pv_run(dev)
+    pv_codes = {}
+    rec = pv_run(dev, pv_codes)
     phase_s["pv"] = rec["seconds"] = time.perf_counter() - t0
     emit(rec)
     runs.update(rec["runs"])
     if not rec["ok"]:
         print("chip_smoke: the PV-tuning run failed its checks", file=sys.stderr)
         return 12
+    # the scanned student: the CLI beside pv's runs, then its depth at full width
+    starting("pv_scan")
+    t0 = time.perf_counter()
+    scan = pv_scan_run(dev, rec, pv_codes)
+    phase_s["pv_scan"] = scan["seconds"] = time.perf_counter() - t0
+    emit(scan)
+    runs.update(scan["runs"])
+    del pv_codes
+    if not scan["ok"]:
+        print("chip_smoke: the scanned PV-tuning runs failed their checks", file=sys.stderr)
+        return 13
+    starting("pv_scan_depth")
+    t0 = time.perf_counter()
+    runs["pv_scan_depth"] = pv_scan_depth_run(dev)
+    phase_s["pv_scan_depth"] = runs["pv_scan_depth"]["seconds"] = time.perf_counter() - t0
+    emit(runs["pv_scan_depth"])
+    if not runs["pv_scan_depth"]["ok"]:
+        print("chip_smoke: the scanned student's depth probe failed its checks", file=sys.stderr)
+        return 14
+    starting("convert")
+    t0 = time.perf_counter()
+    rec = convert_run(dev)
+    phase_s["convert"] = rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    runs.update(rec["runs"])
+    if not rec["ok"]:
+        print("chip_smoke: the scheme converters failed their checks", file=sys.stderr)
+        return 15
     starting("serve_calibrated")
     t0 = time.perf_counter()
     runs["serve_calibrated"] = serve_calibrated(dev)

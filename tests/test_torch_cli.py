@@ -291,8 +291,7 @@ def test_serve_reports_bad_requests_and_unknown_paths(int8_ckpt):
 
 
 UNPORTED = [
-    (convert, ["--to", "hf"], "A10"), (convert, ["--to", "2x8"], "A8"),
-    (convert, ["--to", "2x7"], "A8"), (convert, ["--to", "requant"], "A13"),
+    (convert, ["--to", "hf"], "A10"),
     (convert, ["--to", "int8", "--from_format", "legacy"], "A10"),
     (convert, ["--to", "int8", "--from_format", "legacy_fsdp"], "A10"),
     (generate, ["--draft_model", "random:tiny"], "A8"),

@@ -2272,3 +2272,37 @@ def test_tiny_pv_step_matches_the_cpu(dev):
     for g, w in zip(grads, want_grads):
         assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max()) + 1e-30
     assert all(torch.equal(a, b) for a, b in zip(codes, want_codes))
+
+
+@pytest.mark.parametrize("window", ["list", "stack"])
+def test_tiny_scanned_pv_pass_matches_the_cpu(dev, window):
+    """One gradient pass of the scanned student ("manual", B13/B14) on the
+    card against the CPU's plain versions of the same kernels
+    (``scan_dequant="kernel"``), the window at layer 1 as the per-layer list
+    or the stack: loss rtol 1e-4, every gradient within 1e-3 of its largest
+    CPU magnitude; B13 twice and B14 once a projection a pass (28 and 14),
+    plus 7 at the list's init, nothing else."""
+    from aqlm_tpu_torch.pv import PVConfig, configurable_adamw, init_pv_state, make_pv_step
+    from aqlm_tpu_torch.pv.trainer import tree_leaves
+
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 16)))
+    out = {}
+    for d, impl in ((dev, "auto"), (torch.device("cpu"), "kernel")):
+        cfg, teacher, student = _tiny_pv(d)
+        _build.reset_launch_counts()
+        state = init_pv_state(student, configurable_adamw(1e-3), None, active_layers=(1,))
+        args = ()
+        if window == "stack":
+            state.st_buffers = {k: v.detach()[None] for k, v in state.st_buffers[1].items()}
+            args = (None, 1)
+        pv = PVConfig(chunk_tokens=8, scan_blocks=True, scan_dequant=impl)
+        loss, grads = make_pv_step(cfg, cfg, pv).grad_fn(state, teacher, ids.to(d), *args)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        counts = {k: v.launches for k, v in _build.KERNELS.items() if v.launches}
+        out[d.type] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)], counts)
+    (loss, grads, counts), (want_loss, want_grads, _) = out["cuda"], out["cpu"]
+    assert counts == {"dequantize_onehot": 35, "cb_grad_segment": 14}, counts
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    for g, w in zip(grads, want_grads):
+        assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max()) + 1e-30

@@ -166,7 +166,7 @@ def test_st_window_matches_jax(dirs, tmp_path, monkeypatch):
 
 
 UNPORTED = [(["--mesh_data", "2"], "A14"), (["--mesh_model", "2"], "A14"),
-            (["--scan_blocks"], "A13"), (["--wandb"], "A15"),
+            (["--wandb"], "A15"),
             (["--eval_every_steps", "1", "--eval_datasets", "wikitext2"], "A11")]
 
 

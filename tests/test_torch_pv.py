@@ -34,7 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import f32, to_numpy_tree
+from torch_parity import f32, pairs_by_path, to_numpy_tree
 
 from aqlm_tpu.calib import beam_search_l2 as jbl2
 from aqlm_tpu.config import AqlmScheme as JScheme
@@ -291,28 +291,6 @@ def _jax_leaves(tree):
     return [x for x in jax.tree.leaves(tree) if x is not None]
 
 
-def _pairs_by_path(jtree, tree):
-    """(port tensor, JAX array) leaf pairs of two trees of one structure, by path."""
-    out = []
-
-    def walk(j, t):
-        if isinstance(t, dict):
-            for k in t:
-                walk(j[k], t[k])
-        elif isinstance(t, (list, tuple)):
-            for a, b in zip(j, t):
-                walk(a, b)
-        elif isinstance(t, torch.Tensor):
-            out.append((t, j))
-        elif t is not None and hasattr(t, "data_fields"):
-            for n in t.data_fields:
-                if getattr(t, n) is not None:
-                    walk(getattr(j, n), getattr(t, n))
-
-    walk(jtree, tree)
-    return out
-
-
 def test_make_distill_step_one_step():
     jcfg, cfg, (js, s), (jt, t), _, _ = _pair()
     ids = _ids(cfg.vocab_size, 2, 12)
@@ -323,7 +301,7 @@ def test_make_distill_step_one_step():
     state = trainer.init_train_state(s, configurable_adamw(1e-3, b1=0.9, b2=0.95))
     state, loss = trainer.make_distill_step(cfg, cfg)(state, t, T(ids).long())
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
-    pairs = _pairs_by_path(jstate.trainable, state.trainable)
+    pairs = pairs_by_path(jstate.trainable, state.trainable)
     assert len(pairs) == len(_jax_leaves(jstate.trainable))
     for got, want in pairs:
         np.testing.assert_allclose(f32(got), np.asarray(want, np.float32), rtol=1e-5,
@@ -357,7 +335,7 @@ def test_pv_grad_fn_matches_jax(family, chunk):
     fns = st.make_pv_step(cfg, cfg, pv, forward_fn=fwd)
     loss, (g_tr, g_st) = fns.grad_fn(state, t, T(ids).long())
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
-    tr_pairs, st_pairs = _pairs_by_path(jg_tr, g_tr), _pairs_by_path(jg_st, g_st)
+    tr_pairs, st_pairs = pairs_by_path(jg_tr, g_tr), pairs_by_path(jg_st, g_st)
     assert len(tr_pairs) == len(_jax_leaves(jg_tr)) and len(st_pairs) == len(_jax_leaves(jg_st))
     assert st_pairs  # every quantized projection has a buffer
     for got, want in tr_pairs + st_pairs:
@@ -379,8 +357,8 @@ def test_pv_apply_then_code_step_matches_jax():
         state, _ = fns.grad_step(state, t, T(ids).long())
         state = fns.code_step(state, torch.Generator().manual_seed(0))
     assert state.step == 2
-    for pairs, lr in ((_pairs_by_path(jstate.trainable, state.trainable), kw["lr"]),
-                      (_pairs_by_path(jstate.st_buffers, state.st_buffers), kw["code_lr"])):
+    for pairs, lr in ((pairs_by_path(jstate.trainable, state.trainable), kw["lr"]),
+                      (pairs_by_path(jstate.st_buffers, state.st_buffers), kw["code_lr"])):
         for got, want in pairs:
             np.testing.assert_allclose(f32(got), np.asarray(want, np.float32), rtol=1e-5,
                                        atol=2e-2 * lr)
@@ -426,11 +404,6 @@ def test_grad_accumulation_equals_one_batch():
     _, g_b = grad_fn(state, t, ids[2:])
     for full, a, b in zip(tree_leaves(g_full), tree_leaves(g_a), tree_leaves(g_b)):
         _grad_close((a + b) * 0.5, full.numpy())
-
-
-def test_scan_blocks_raises_a13():
-    with pytest.raises(NotImplementedError, match="A13"):
-        st.PVConfig(scan_blocks=True)
 
 
 def test_configurable_adamw_state_dict_round_trip_keeps_moment_dtypes():

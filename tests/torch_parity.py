@@ -86,3 +86,27 @@ def run_engine(engine, sampling_cls):
         engine.step()
     reqs = [engine.get_request(r) for r in rids]
     return [r.generated for r in reqs], [r.logprobs for r in reqs]
+
+
+def pairs_by_path(jtree, tree) -> list:
+    """(port tensor, JAX array) leaf pairs of a port tree and a JAX tree of
+    one structure (dicts, lists, weight dataclasses), matched by path; a
+    port leaf of None (a gradient autograd left out) pairs with nothing."""
+    out = []
+
+    def walk(j, t):
+        if isinstance(t, dict):
+            for k in t:
+                walk(j[k], t[k])
+        elif isinstance(t, (list, tuple)):
+            for a, b in zip(j, t):
+                walk(a, b)
+        elif isinstance(t, torch.Tensor):
+            out.append((t, j))
+        elif t is not None and hasattr(t, "data_fields"):
+            for n in t.data_fields:
+                if getattr(t, n) is not None:
+                    walk(getattr(j, n), getattr(t, n))
+
+    walk(jtree, tree)
+    return out
