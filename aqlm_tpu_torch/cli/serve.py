@@ -12,8 +12,10 @@ counterpart of ``aqlm_tpu.cli.serve``), and ``--device`` (default ``cuda``;
 
 One background thread drives ``Engine.step()`` and is the only one that
 touches the model and the card; the HTTP handler threads queue requests
-and wait. Not ported: ``--tp > 1`` (ROADMAP A14) and ``--draft_model``
-(A8); ``--no_compile_cache`` is accepted and does nothing.
+and wait. ``--draft_model`` (``--draft_mode`` defaults to ``--mode``) serves
+with speculative decoding: each engine step is one batched draft-and-verify
+round of ``--spec_k`` proposals. Not ported: ``--tp > 1`` (ROADMAP A14, with
+or without a draft); ``--no_compile_cache`` is accepted and does nothing.
 """
 
 from __future__ import annotations
@@ -46,9 +48,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv_int8", action="store_true")
     p.add_argument("--mode", choices=["reference", "codes", "int8", "int4"], default="int8")
     p.add_argument("--dtype", choices=["auto", "float32", "bfloat16"], default="bfloat16")
-    p.add_argument("--draft_model", type=str, default=None, help="speculative decoding: not ported")
-    p.add_argument("--draft_mode", choices=["reference", "codes", "int8", "int4"], default=None)
-    p.add_argument("--spec_k", type=int, default=4)
+    p.add_argument("--draft_model", type=str, default=None,
+                   help="draft model for speculative decoding (same formats as model_path)")
+    p.add_argument("--draft_mode", choices=["reference", "codes", "int8", "int4"], default=None,
+                   help="runtime mode of the draft model (defaults to --mode)")
+    p.add_argument("--spec_k", type=int, default=4, help="draft tokens proposed per verify")
     p.add_argument("--tp", type=int, default=1, help="tensor parallelism: not ported")
     p.add_argument("--decode_chunk", type=int, default=1,
                    help=">1: up to this many tokens per engine step, one host sync per chunk")
@@ -253,16 +257,19 @@ def make_server(args) -> tuple[ThreadingHTTPServer, _Server]:
     the caller runs ``httpd.serve_forever()``."""
     if args.tp > 1:
         raise not_ported("tensor-parallel serving (--tp)", "A14")
-    if args.draft_model is not None:
-        raise not_ported("speculative decoding (--draft_model)", "A8")
     dev = resolve_device(args.device)
     params, cfg, _ = resolve_model(args.model_path, dtype=dtype_from_str(args.dtype),
                                    mode=args.mode, device=dev)
+    spec_kw = {}
+    if args.draft_model is not None:
+        dparams, dcfg, _ = resolve_model(args.draft_model, dtype=dtype_from_str(args.dtype),
+                                         mode=args.draft_mode or args.mode, device=dev)
+        spec_kw = dict(draft_params=dparams, draft_cfg=dcfg, spec_k=args.spec_k)
     engine = Engine(params, cfg, ServeConfig(
         max_batch=args.max_batch, max_len=args.max_len,
         prefill_buckets=tuple(args.prefill_buckets), kv_quantized=args.kv_int8,
-        decode_chunk=args.decode_chunk), device=dev)
-    del params
+        decode_chunk=args.decode_chunk), device=dev, **spec_kw)
+    del params, spec_kw
     server = _Server(engine, load_tokenizer(args.model_path),
                      model_id=args.model_path.rstrip("/").split("/")[-1])
     return ThreadingHTTPServer((args.host, args.port), make_handler(server)), server

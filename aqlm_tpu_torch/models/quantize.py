@@ -44,13 +44,21 @@ def convert_runtime_mode(params: dict, mode: str) -> dict:
 
 
 def random_quantized_params(generator: torch.Generator, cfg: ModelConfig, scheme: AqlmScheme,
-                            mode: str = "codes", dtype=torch.bfloat16, device=None) -> dict:
+                            mode: str = "codes", dtype=torch.bfloat16, device=None,
+                            weight_scale: float | None = None) -> dict:
     """Random model (Llama, Mixtral or Falcon) whose projections are
     QuantizedLinear in ``mode``.
 
     Built directly on ``device`` (None = the card) from ``generator``, which
     must live there; no dense copy of a quantized projection is made.
-    Projections whose shape the scheme cannot tile stay dense."""
+    Projections whose shape the scheme cannot tile stay dense.
+
+    ``weight_scale`` None (the default) is the plain draw, whose quantized
+    projections have entries of std ~0.37 at any width: at Llama-2-7B's the
+    attention is then nearly an argmax and kernels that round differently
+    pick other keys. A given ``weight_scale`` draws the same numbers and
+    scales each projection (dense ones too) to std ``weight_scale *
+    in_features^-0.5``."""
     dev = resolve_device(device)
     module = family_module(cfg)
     params = module.init_random_params(generator, cfg, dtype=dtype, device=dev, dense_projs=False)
@@ -59,9 +67,12 @@ def random_quantized_params(generator: torch.Generator, cfg: ModelConfig, scheme
         for name, (out_f, in_f) in shapes.items():
             if out_f % scheme.out_group_size or in_f % scheme.in_group_size:
                 w = torch.randn((out_f, in_f), generator=generator, device=dev) * in_f ** -0.5
+                if weight_scale is not None:
+                    w = w * weight_scale
                 layer[name] = DenseLinear(weight=w.to(dtype), bias=None)
                 continue
-            w = random_aqlm_weight(generator, scheme, out_f, in_f, dtype=torch.float32, device=dev)
+            w = random_aqlm_weight(generator, scheme, out_f, in_f, dtype=torch.float32, device=dev,
+                                   weight_scale=weight_scale)
             layer[name] = QuantizedLinear.from_aqlm(w, mode=mode)
     return params
 

@@ -154,7 +154,7 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor, offsets: list) -> None:
 def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tensor, *,
                     cache: KVCache | None = None, cache_offset=0,
                     positions: torch.Tensor | None = None,
-                    use_flash_decode: bool | None = None):
+                    use_flash_decode: bool | None = None, host_offsets: list | None = None):
     """Causal LM forward over stacked layers (Llama, Mixtral or Falcon
     blocks). Returns (logits, cache).
 
@@ -166,8 +166,10 @@ def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tenso
     and either a codes-mode layer is present or max_len >= 1024. Without
     K3 a single-token step writes its rows with B8 (``kv_write``) at the
     offsets on the device, and attention is the plain head-major attention
-    over the cache; a longer step (prefill) writes them by slices at the
-    offsets read back to the host. A sparse-MoE block runs its
+    over the cache; a longer step (prefill, a speculative verify) writes them
+    by slices at the offsets read back to the host, or at ``host_offsets``
+    (the same offsets as host ints, when the caller holds them: no read-back
+    then). A sparse-MoE block runs its
     stacked experts through ``mixtral.moe_mlp_stacked_indexed`` or, left
     per expert, through the per-expert loop over layer views. A Falcon block
     is the parallel one: its LayerNorm output feeds attention and the GELU
@@ -196,11 +198,10 @@ def forward_stacked(params: dict, cfg: llama.ModelConfig, input_ids: torch.Tenso
     flash = cache is not None and t == 1 and use_flash_decode
 
     mask = None
-    host_offsets = None
     if cache is not None and not flash:
         key_pos = torch.arange(cache.max_len, device=dev)[None, :].expand(b, cache.max_len)
         mask = make_causal_mask(positions, key_pos, window=cfg.sliding_window)
-        if t > 1:
+        if t > 1 and host_offsets is None:
             host_offsets = offsets.tolist()
     elif cache is None:
         mask = make_causal_mask(positions, positions, window=cfg.sliding_window)

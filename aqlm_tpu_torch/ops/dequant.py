@@ -151,10 +151,16 @@ def random_aqlm_weight(
     dtype=torch.float32,
     with_bias: bool = False,
     device=None,
+    weight_scale: float | None = None,
 ) -> AqlmWeight:
     """Random weight (codes uniform, codebooks normal, scales in [0.5, 1.5)).
 
-    ``generator`` must live on ``device`` (``None`` means the card)."""
+    ``generator`` must live on ``device`` (``None`` means the card). A
+    dequantized entry then has std ~``group_numel^-0.5 * (13/12)^0.5`` (0.368
+    at g 8), whatever ``in_features``. ``weight_scale`` (None keeps that draw
+    bit for bit) multiplies the scales after the same draw so that the
+    entries' rms (their std: the mean is ~0) becomes ``weight_scale *
+    in_features^-0.5``, a dense layer's."""
     dev = resolve_device(device)
     scheme.check_features(out_features, in_features)
     codes = torch.randint(
@@ -166,9 +172,16 @@ def random_aqlm_weight(
         / (scheme.num_codebooks * scheme.group_numel) ** 0.5
     ).to(dtype)
     num_out_groups = out_features // scheme.out_group_size
-    scales = (
-        torch.rand((num_out_groups,), generator=generator, device=dev) + 0.5
-    ).to(dtype)
+    scales = torch.rand((num_out_groups,), generator=generator, device=dev) + 0.5
+    if weight_scale is not None:
+        # the rms of W's entries for uniform codes, from the drawn books and
+        # scales: E[(sum_k C_k[c_k])^2] at each position of a group, averaged
+        mean = codebooks.float().mean(dim=1)  # [K, og, ig]
+        sq = (codebooks.float() ** 2).mean(dim=1).sum(dim=0) + mean.sum(dim=0) ** 2 \
+            - (mean ** 2).sum(dim=0)
+        rms = (sq.mean() * (scales ** 2).mean()) ** 0.5
+        scales = scales * (weight_scale * in_features ** -0.5 / rms)
+    scales = scales.to(dtype)
     bias = (
         torch.randn((out_features,), generator=generator, device=dev).to(dtype) * 0.01
         if with_bias

@@ -8,6 +8,7 @@ from aqlm_tpu_torch.serve.fuse import (
     quantize_lm_head_int8,
 )
 from aqlm_tpu_torch.serve.sampler import SamplingParams, sample_tokens
+from aqlm_tpu_torch.serve.speculative import SpeculativeDecoder
 
 __all__ = [
     "KVCache",
@@ -22,4 +23,5 @@ __all__ = [
     "quantize_lm_head_int8",
     "SamplingParams",
     "sample_tokens",
+    "SpeculativeDecoder",
 ]

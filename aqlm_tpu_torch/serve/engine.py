@@ -11,10 +11,11 @@
 - with ``decode_chunk > 1`` one step runs up to that many forwards, each
   token sampled on the device and fed to the next, and reads the tokens
   back once per chunk: no host sync between the chunk's first forward and
-  its last.
-
-Speculative decoding is not ported yet: ``draft_params`` raises
-``NotImplementedError`` (the ``spec_*`` fields are accepted and stored).
+  its last;
+- with ``draft_params`` a step is one batched draft-and-verify round
+  (speculative decoding, ``serve.speculative``): k+1 draft forwards over
+  the slot prefix and one [bucket, k+1] target forward, with one read-back
+  per round; a draft that is accepted too rarely is dropped for good.
 """
 
 from __future__ import annotations
@@ -29,13 +30,14 @@ import torch
 from aqlm_tpu_torch.device import resolve_device
 from aqlm_tpu_torch.models import llama, mixtral
 from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache, stack_layer_params
-from aqlm_tpu_torch.ops.runtime import QuantizedLinear, not_ported
+from aqlm_tpu_torch.ops.runtime import QuantizedLinear
 from aqlm_tpu_torch.serve.fuse import (
     fuse_projections,
     fuse_projections_codes,
     quantize_lm_head_int8,
 )
 from aqlm_tpu_torch.serve.sampler import SamplingParams, sample_tokens
+from aqlm_tpu_torch.serve.speculative import spec_round
 
 __all__ = ["ServeConfig", "Engine", "Request", "serving_params"]
 
@@ -53,7 +55,9 @@ class ServeConfig:
     use_flash_decode: bool | None = None  # None = forward_stacked's rule; True/False force K3
     prefix_cache: bool = True  # reuse KV rows for shared prompt prefixes
     min_prefix: int = 16  # smallest prefix worth a copy instead of recompute
-    spec_min_acceptance: float = 0.7  # speculative decoding's (not ported: stored only)
+    # speculative decoding: drop the draft for good once spec_warmup
+    # proposals are measured and fewer than this share were accepted
+    spec_min_acceptance: float = 0.7
     spec_warmup: int = 64
     decode_chunk: int = 1  # >1: up to this many tokens per step, one host sync per chunk
 
@@ -99,12 +103,16 @@ class Engine:
     card); int8, int4 and codes projections sharing an input are fused
     (q/k/v, gate/up), the head quantized to int8 if asked, a Mixtral's int8
     or int4 experts stacked, and every layer stacked once at construction
-    (``serving_params``)."""
+    (``serving_params``).
+
+    ``draft_params`` (a Llama-family model of ``draft_cfg``, default ``cfg``,
+    with the same vocabulary) turns on speculative decoding with ``spec_k``
+    proposals a round. The draft gets the projection fusion only (no int8
+    head, no expert stacking), its own stacked params and its own KV cache."""
 
     def __init__(self, params: dict, cfg: llama.ModelConfig, serve: ServeConfig = ServeConfig(),
-                 *, device=None, draft_params: dict | None = None):
-        if draft_params is not None:
-            raise not_ported("speculative decoding", "A8")
+                 *, device=None, draft_params: dict | None = None,
+                 draft_cfg: llama.ModelConfig | None = None, spec_k: int = 4):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, engine on {self.device}")
@@ -138,6 +146,32 @@ class Engine:
         # prefix cache: per slot, the prompt whose KV occupies rows [0:len)
         self._slot_prompts: dict[int, np.ndarray] = {}
         self.prefix_stats = {"hits": 0, "tokens_reused": 0}
+
+        # ---- batched speculative decoding (continuous batching + draft) ----
+        self._spec = draft_params is not None
+        if self._spec:
+            dcfg = draft_cfg or cfg
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft vocab must match")
+            if "moe_gate" in (draft_params.get("layers") or [{}])[0]:
+                raise ValueError("MoE draft models are not supported")
+            if draft_params["embed"].device.type != self.device.type:
+                raise ValueError(f"draft params live on {draft_params['embed'].device}, "
+                                 f"engine on {self.device}")
+            dp = draft_params
+            if serve.fuse_projections:
+                donate = serve.donate_params
+                dp = fuse_projections_codes(fuse_projections(dp, dcfg, donate=donate), dcfg,
+                                            donate=donate)
+            self._dcfg = dcfg
+            self._dparams = stack_layer_params(dp, donate=serve.donate_params)
+            with torch.inference_mode():
+                self._dcache = init_kv_cache(dcfg, B, serve.max_len, quantized=serve.kv_quantized,
+                                             device=self.device)
+            self.spec_k = spec_k
+            self.spec_stats = {"proposed": 0, "accepted": 0}
+            self.spec_disabled = False  # adaptive: see spec_min_acceptance
+        self._prev_token = np.zeros(B, np.int64)  # the token at offset-1 (speculation)
 
     # ---- bucketing ---------------------------------------------------------
 
@@ -188,15 +222,23 @@ class Engine:
         logp = torch.log_softmax(last[0], dim=-1)
         return int(tok), float(logp[tok])
 
+    def _prefill_draft(self, ids: np.ndarray, slot: int, start: int) -> None:
+        """The draft's prefill of one chunk into ``slot`` at ``start`` (its
+        logits unused: the target's prefill picks the token)."""
+        forward_stacked(self._dparams, self._dcfg, self._tensor(ids, torch.long)[None, :],
+                        cache=self._dcache.rows(slot, slot + 1), cache_offset=start)
+
     def _copy_prefix(self, src: int, dst: int, rows: int) -> None:
-        for a in self.cache.tensors():
-            a[:, dst, :, :rows] = a[:, src, :, :rows]
+        caches = (self.cache, self._dcache) if self._spec else (self.cache,)
+        for cache in caches:
+            for a in cache.tensors():
+                a[:, dst, :, :rows] = a[:, src, :, :rows]
 
     # ---- public API --------------------------------------------------------
 
     def submit(self, prompt_ids, sampling: SamplingParams = SamplingParams()) -> int:
         prompt = np.asarray(prompt_ids, np.int64)
-        room = self.serve.max_len - 2
+        room = self.serve.max_len - (self.spec_k + 2 if self._spec else 2)
         if len(prompt) > room:
             raise ValueError(
                 f"prompt of {len(prompt)} tokens leaves no decode room at "
@@ -259,6 +301,12 @@ class Engine:
                 ids[:length] = req.prompt[start:start + length]
                 tok, lp = self._prefill(ids, slot, start, length, req.sampling.temperature,
                                         req.sampling.top_p)
+            if self._spec and not self.spec_disabled:
+                for start, length, bucket in self._chunks_from(reused, len(req.prompt)):
+                    ids = np.zeros(bucket, np.int64)
+                    ids[:length] = req.prompt[start:start + length]
+                    self._prefill_draft(ids, slot, start)
+                self._prev_token[slot] = req.prompt[-1]
             req.generated.append(tok)  # sampled from the final chunk's last position
             req.logprobs.append(lp)
             self._active[slot] = req
@@ -338,14 +386,88 @@ class Engine:
             self._maybe_finish(slot)
         return emitted
 
+    def _spec_round(self, prev, last, offsets, host_offsets: list, temps, top_ps, bucket: int,
+                    any_sampling: bool) -> torch.Tensor:
+        """One draft-and-verify round over slots [0, bucket) on the device,
+        with no host sync: [bucket, 2k+3] f64, each row its k proposals,
+        n_acc and the bonus token, then the proposals' and the bonus's
+        logprobs (one tensor, so the round reads back once)."""
+        outs = spec_round(self.params, self.cfg, self.cache.rows(0, bucket), self._dparams,
+                          self._dcfg, self._dcache.rows(0, bucket), prev, last, offsets,
+                          host_offsets, temps, top_ps, k=self.spec_k, top_k=self.serve.top_k,
+                          generator=self._gen, any_sampling=any_sampling,
+                          use_flash_decode=self.serve.use_flash_decode)
+        draft_toks, n_acc, bonus, lp_d, lp_bonus = outs
+        return torch.cat([draft_toks.double(), n_acc[:, None].double(), bonus[:, None].double(),
+                          lp_d.double(), lp_bonus[:, None].double()], dim=1)
+
+    def _spec_step(self) -> dict:
+        """One batched draft-and-verify round; emits up to spec_k+1 tokens
+        per active slot ({rid: [tokens]})."""
+        bucket = self._decode_bucket()
+        k = self.spec_k
+        offsets = self._offsets[:bucket].copy()
+        # an idle slot inside the bucket runs the round too; its stale offset
+        # (0, or near the cache's end) is moved so that its k+2 rows of writes
+        # stay inside the cache and past any prompt the slot still holds
+        idle = [s for s in range(bucket) if s not in self._active]
+        offsets[idle] = np.clip(offsets[idle], 1, self.serve.max_len - 1 - k)
+        ints = self._tensor(np.stack([self._prev_token[:bucket], self._last_token[:bucket],
+                                      offsets]), torch.long)
+        floats = self._tensor(np.stack([self._temps[:bucket], self._top_ps[:bucket]]),
+                              torch.float32)
+        out = self._spec_round(ints[0], ints[1], ints[2].int(), offsets.tolist(), floats[0],
+                               floats[1], bucket, bool((self._temps[:bucket] > 0).any()))
+        out = out.cpu().numpy()  # the round's one read-back
+        draft_toks, n_acc, bonus = out[:, :k], out[:, k], out[:, k + 1]
+        lp_d, lp_bonus = out[:, k + 2:2 * k + 2], out[:, 2 * k + 2]
+        emitted = {}
+        for slot, req in list(self._active.items()):
+            na = int(n_acc[slot])
+            chunk = [int(t) for t in draft_toks[slot, :na]] + [int(bonus[slot])]
+            chunk_lps = [float(l) for l in lp_d[slot, :na]] + [float(lp_bonus[slot])]
+            self.spec_stats["proposed"] += k
+            self.spec_stats["accepted"] += na
+            # the cache rows advanced by the whole accepted chunk and its bonus
+            before_last = [int(self._last_token[slot])] + chunk
+            self._offsets[slot] += na + 1
+            self._budgets[slot] -= na + 1
+            eos = req.sampling.eos_token_id
+            if eos is not None and eos in chunk:
+                chunk = chunk[: chunk.index(eos) + 1]
+                self._budgets[slot] = 0
+            if self._budgets[slot] < 0:  # the budget's truncation ends the request
+                chunk = chunk[: self._budgets[slot]]
+                self._budgets[slot] = 0
+            req.generated.extend(chunk)
+            req.logprobs.extend(chunk_lps[: len(chunk)])
+            emitted[req.rid] = chunk
+            self._last_token[slot] = before_last[len(chunk)]
+            self._prev_token[slot] = before_last[len(chunk) - 1]
+            if self._offsets[slot] >= self.serve.max_len - (k + 2):
+                self._budgets[slot] = 0
+            self._maybe_finish(slot)
+        return emitted
+
     @torch.inference_mode()
     def step(self) -> dict:
         """Admit pending requests, run one batched decode step.
         Returns {rid: new_token} for the tokens produced this step
-        ({rid: [tokens]} for a chunk when decode_chunk > 1)."""
+        ({rid: [tokens]} for a chunk when decode_chunk > 1, and for a
+        speculative round)."""
         self._admit()
         if not self._active:
             return {}
+        if self._spec and not self.spec_disabled:
+            emitted = self._spec_step()
+            # adaptive speculation: a draft that rarely agrees costs k extra
+            # forwards a round for nothing; it is dropped for good (its cache
+            # goes stale once it stops being kept)
+            st = self.spec_stats
+            if (self.serve.spec_min_acceptance > 0.0 and st["proposed"] >= self.serve.spec_warmup
+                    and st["accepted"] < self.serve.spec_min_acceptance * st["proposed"]):
+                self.spec_disabled = True
+            return emitted
         n = 1
         if self.serve.decode_chunk > 1 and not self._pending:
             # chunked decode: n steps per host sync, no more than the longest

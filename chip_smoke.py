@@ -87,7 +87,16 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    4 prompts of 64-380 tokens, 64 new tokens, greedy, with decode_chunk 1
    and 8: identical tokens, B8 once per layer per decode forward, K3 and B6
    never,
-   no synchronising call inside a chunk;
+   no synchronising call inside a chunk; then ``spec``: speculative
+   decoding (``Engine(..., draft_params=, spec_k=4)``) on Llama-2-7B in 2x8
+   codes at full width and depth, drawn well-scaled (``weight_scale=1.0``),
+   max_len 512, 4 prompts of 16-200 ids, 32 new tokens: a self-draft greedy
+   and sampled, the target's first 4 layers as the draft, and the plain
+   Engine: each greedy spec answer within 3e-2 max|logit| of the target's
+   own choice at every position (one teacher-forced forward), the
+   self-draft's acceptance >= 0.9, K1/K2/K3 launches equal to
+   ``spec_launch_formula``, no synchronising call inside a round, flash
+   decode against the plain attention at 32 layers within 3e-2 max|logit|;
 5. calibration: ``aqlm_tpu_torch.cli.quantize.main`` in-process on
    random:llama2_7b:2 (two layers at full width) in 2x8 g8 on random ids
    (16 x 512 tokens, 2 epochs of 10 AMSGrad steps, a beam sweep after each,
@@ -122,7 +131,9 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    codebook gradients); then ``convert``: ``cli.convert --to requant
    --scheme 1x8`` of the calibrated checkpoint (every projection below its
    k-means init) and ``--to 2x8`` / ``--to 2x7`` of a 2-layer 1x16
-   checkpoint, each output served as in phase 6;
+   checkpoint, each output served as in phase 6, and README's speculative
+   recipe (``cli.generate`` of the calibrated checkpoint with its 1x8
+   requant as ``--draft_model``: 32 new tokens, K1/K2/K3 only);
 6. serve the calibrated checkpoint: loaded, transcoded to codes mode and
    served by Engine.generate (4 prompts, 16 new tokens): K1, K2 and K3
    launch, B13 and B14 do not; its prefill logits within 3e-2 max|logit|
@@ -155,10 +166,13 @@ Phases, each printed as JSON lines; any failure exits non-zero:
    (``cli.serve`` on the int8 checkpoint, 8 concurrent /v1/completions
    requests, 2 streamed and 2 with logprobs: tokens identical to an Engine
    replaying the server loop's calls; requests/s, latency, time to first
-   token; then ``cli.generate --benchmark --mode codes``);
+   token; then ``cli.generate --benchmark --mode codes``; then the same
+   server with ``--draft_model`` (the canonical checkpoint in codes mode)
+   answering 4 of the requests, held to a replaying speculative Engine, and
+   ``cli.generate --draft_model ... --benchmark``);
 9. the seconds of each phase, the kernel list (launches over the engine,
-   calibration, PV-tuning, serving, training and entry-point runs, and for K1, K2,
-   int8 and int4 the launches by wrapper form), then {"ok": true,
+   speculative, calibration, PV-tuning, serving, training and entry-point
+   runs, and for K1, K2, int8 and int4 the launches by wrapper form), then {"ok": true,
    "device": {...}} as the last line.
 
 Writes chiprun_out/chip_smoke.json with every record and
@@ -1795,14 +1809,16 @@ PATH_KERNELS["int8_short"] = ("int8_matmul", "kv_write")
 
 def count_syncs(fn, *args):
     """(fn(*args), the synchronising CUDA calls it made), as
-    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (a count taken
+    inside it keeps its calls to itself)."""
+    prev = torch.cuda.get_sync_debug_mode()  # a count inside another leaves the outer one on
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn(*args)
         finally:
-            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.set_sync_debug_mode(prev)
     return out, sum("called a synchronizing" in str(w.message) for w in caught)
 SHORT_LENGTHS = [64, 150, 270, 380]  # the int8_short run's prompts
 SHORT_REPEATS = 2  # timed generate calls per decode_chunk setting
@@ -1915,6 +1931,312 @@ def int8_short_run(dev) -> dict:
     rec["tokens_identical"] = outs[1] == outs[8]  # every run, decode_chunk 1 against 8
     rec["decode_tok_s"] = rec["chunk8"]["decode_tok_s"]
     rec["ok"] = ok and rec["tokens_identical"]
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: speculative decoding at full Llama-2-7B width and depth
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_NEW = 32
+SPEC_LENGTHS = [16, 70, 130, 200]  # the spec runs' prompts
+SPEC_DRAFT_LAYERS = 4  # spec_trunc's draft: the target's first layers
+SPEC_SAMPLED = dict(temperature=0.8, top_p=0.95)
+SPEC_PROJS = 4  # launches a layer of a 2x8 codes Llama: fused qkv, o, fused gate/up, down
+SPEC_RUNS = ("spec_self", "spec_self_sampled", "spec_trunc", "spec_plain")
+for _run in SPEC_RUNS:
+    PATH_KERNELS[_run] = PATH_KERNELS["codes"]
+
+
+def spec_serve_config():
+    """ServeConfig of the spec runs: 4 slots, 512 rows, buckets of 64 and 512
+    ids; the adaptive drop off (``spec_min_acceptance`` 0), so every step of
+    a run is a round and the truncated draft's acceptance is measured over
+    the whole run."""
+    from aqlm_tpu_torch.serve import ServeConfig
+
+    return ServeConfig(max_batch=4, max_len=512, prefill_buckets=(64, 512),
+                       spec_min_acceptance=0.0)
+
+
+def spec_launch_formula(buckets: list, layers: int, draft_layers: int, target_chunks: int,
+                        draft_chunks: int, k: int = SPEC_K, projs: int = SPEC_PROJS) -> dict:
+    """K1, K2 and K3 launches of a speculative Engine run, from the code:
+    every round (``buckets``: its slot bucket b, one entry a round) runs k+1
+    single-token draft forwards (K1 on each projection of each draft layer,
+    K3 once a draft layer: max_len 512 takes flash decode) and one [b, k+1]
+    target forward, on K1 at b (k+1) <= 8 rows and on K2 past them (its
+    attention the plain one, no kernel); every prefill chunk (padded to 64
+    or 512 rows) runs K2 on each projection of the model it fills. The
+    head is dense."""
+    small = sum(1 for b in buckets if b * (k + 1) <= 8)
+    return {"lut_gemv": projs * draft_layers * (k + 1) * len(buckets) + projs * layers * small,
+            "gather_prefill": projs * (layers * target_chunks + draft_layers * draft_chunks)
+            + projs * layers * (len(buckets) - small),
+            "flash_decode_write": draft_layers * (k + 1) * len(buckets)}
+
+
+def _teacher_forced_gap(params, cfg, prompts, answers, dev) -> dict:
+    """Each emitted token's logit against its position's largest, from one
+    teacher-forced ``forward_stacked`` of the target over prompt + answer:
+    the largest gap over the answers, as a share of max|logit|."""
+    from aqlm_tpu_torch.models.stacked import forward_stacked
+
+    worst, worst_rel, argmax_same, n = 0.0, 0.0, 0, 0
+    for p, a in zip(prompts, answers):
+        ids = torch.as_tensor(np.concatenate([p, a]), device=dev)[None]
+        logits = forward_stacked(params, cfg, ids)[0][0, len(p) - 1:-1].float()
+        got = logits.gather(-1, torch.as_tensor(a, device=dev)[:, None])[:, 0]
+        gap = logits.max(-1).values - got
+        rel = float((gap / logits.abs().max(-1).values).max())
+        worst, worst_rel = max(worst, float(gap.max())), max(worst_rel, rel)
+        argmax_same += int((gap == 0).sum())
+        n += len(a)
+    return {"max_gap": worst, "max_gap_rel": worst_rel, "argmax_share": argmax_same / n,
+            "ok": worst_rel <= 3e-2, "tol": "logit(token) >= max logit - 3e-2 max|logit|, "
+            "each position"}
+
+
+def _time_steps(engine, steps: list) -> None:
+    """Wrap ``engine.step`` (an instance attribute; ``del engine.step``
+    undoes it) to append (seconds, no request admitted, tokens emitted)."""
+    inner = engine.step
+
+    def timed_step():
+        n_pending = len(engine._pending)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        emitted = inner()
+        torch.cuda.synchronize()
+        n_tok = sum(len(v) if isinstance(v, list) else 1 for v in emitted.values())
+        steps.append((time.perf_counter() - s0, len(engine._pending) == n_pending, n_tok))
+        return emitted
+
+    engine.step = timed_step
+
+
+def _decode_tok_s(steps: list) -> float:
+    """Tokens over seconds of the steps that admitted nothing."""
+    decode = [s for s in steps if s[1] and s[2] > 0]
+    return sum(s[2] for s in decode) / sum(s[0] for s in decode)
+
+
+def _spec_generate(engine, prompts, sampling) -> dict:
+    """One generate of the spec engine with every count read over it: the
+    launches, the rounds' slot buckets, the prefill chunks of each model,
+    the synchronising calls of each round (``_spec_round``: the draft loop,
+    the verify, the accept) and of each step (with its uploads and its
+    read-back), and the seconds of each step. Each round's first rejected
+    proposal of an active slot is also measured against the verify's
+    logits at its position (``rejected_gap``: how far the proposal's logit
+    lies below the position's largest, a share of max|logit|), from
+    tensors kept on the card until the run ends."""
+    from aqlm_tpu_torch.ops import _build
+    from aqlm_tpu_torch.serve import speculative
+
+    rec = {"buckets": [], "round_syncs": [], "step_syncs": [], "target_chunks": 0,
+           "draft_chunks": 0}
+    steps, verify, active = [], [], []
+    inner_accept = speculative.batched_accept
+
+    def recorded_accept(logits, q_rows, draft_toks, *args, **kw):
+        out = inner_accept(logits, q_rows, draft_toks, *args, **kw)
+        lg = logits[:, :draft_toks.shape[1]].float()
+        gap = lg.max(-1).values - lg.gather(-1, draft_toks.long()[..., None])[..., 0]
+        verify.append((gap / lg.abs().max(-1).values, out[0]))
+        return out
+
+    inner_round, inner_step = engine._spec_round, engine._spec_step
+    inner_prefill, inner_draft = engine._prefill, engine._prefill_draft
+
+    def counted_round(*args):
+        rec["buckets"].append(args[6])
+        active.append(sorted(engine._active))
+        out, n = count_syncs(inner_round, *args)
+        rec["round_syncs"].append(n)
+        return out
+
+    def counted_step():
+        out, n = count_syncs(inner_step)
+        rec["step_syncs"].append(n)
+        return out
+
+    def counted_prefill(*args):
+        rec["target_chunks"] += 1
+        return inner_prefill(*args)
+
+    def counted_draft(*args):
+        rec["draft_chunks"] += 1
+        return inner_draft(*args)
+
+    engine._spec_round, engine._spec_step = counted_round, counted_step
+    engine._prefill, engine._prefill_draft = counted_prefill, counted_draft
+    _time_steps(engine, steps)
+    speculative.batched_accept = recorded_accept
+    try:
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, sampling)
+        torch.cuda.synchronize()
+        rec["generate_s"] = time.perf_counter() - t0
+        rec["launches"] = {k: v.launches for k, v in _build.KERNELS.items()}
+    finally:
+        speculative.batched_accept = inner_accept
+        del engine._spec_round, engine._spec_step, engine._prefill, engine._prefill_draft
+        del engine.step
+    gaps = []
+    for (rel, n_acc), slots in zip(verify, active):
+        rel, n_acc = rel.cpu(), n_acc.cpu()
+        gaps += [float(rel[s, n_acc[s]]) for s in slots if n_acc[s] < rel.shape[1]]
+    rec["rejections"] = len(gaps)
+    rec["rejected_gap_max_rel"] = max(gaps, default=0.0)
+    rec["decode_tok_s"], rec["steps"] = _decode_tok_s(steps), len(steps)
+    rec["rounds"] = len(rec["buckets"])
+    return out, rec
+
+
+def spec_run(dev) -> dict:
+    """Speculative decoding on Llama-2-7B at full width and depth in 2x8
+    codes, drawn well-scaled (``weight_scale=1.0``), bf16 KV cache,
+    ``spec_serve_config()``, spec_k 4, SPEC_LENGTHS prompts, SPEC_NEW new
+    tokens each: ``spec_self`` (the draft the same params) greedy and then
+    sampled (``spec_self_sampled``, temperature 0.8, top_p 0.95),
+    ``spec_trunc`` (the target's first SPEC_DRAFT_LAYERS layers, its
+    embedding, final norm and head) greedy, and ``spec_plain``, the Engine
+    without a draft. Gates: every greedy spec answer's tokens within 3e-2
+    max|logit| of their position's largest logit in one teacher-forced
+    forward of the target; the self-draft's acceptance >= 0.9 sampled, and
+    greedy every proposal it had rejected within 3e-2 max|logit| of the
+    largest logit of the verify at its position (greedy acceptance needs the
+    draft's argmax to equal the verify's bit for bit: the draft steps run
+    K1 and K3, a verify of 20 rows K2 and the plain attention, and this
+    draw's logits, 32000 Gaussians a position, hold near-ties those routes
+    flip; the greedy acceptance is recorded); each spec run's K1/K2/K3 launches equal to
+    ``spec_launch_formula`` and nothing else launched; no synchronising
+    call inside a round and at most three a step (the two uploads of its
+    inputs, the read-back); the plain Engine's single-step logits with
+    ``use_flash_decode`` True and False within 3e-2 max|logit| (the draw at
+    32 layers, the check the tolerance gate rests on). Records tokens/s
+    (spec and plain decode), the trunc draft's acceptance, the share of
+    tokens equal to the plain Engine's and peak memory."""
+    from aqlm_tpu_torch.config import AqlmScheme
+    from aqlm_tpu_torch.models.quantize import random_quantized_params
+    from aqlm_tpu_torch.models.stacked import forward_stacked, init_kv_cache
+    from aqlm_tpu_torch.ops import _build
+    from aqlm_tpu_torch.serve import Engine, SamplingParams
+
+    cfg = model_config("llama2_7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                                     AqlmScheme.parse("2x8g8"), mode="codes", device=dev,
+                                     weight_scale=1.0)
+    draw_s = time.perf_counter() - t0
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SPEC_LENGTHS]
+    greedy = SamplingParams(max_new_tokens=SPEC_NEW)
+    sampled = SamplingParams(max_new_tokens=SPEC_NEW, **SPEC_SAMPLED)
+    serve = spec_serve_config()
+    rec = {"phase": "spec", "model": "llama2_7b", "layers": cfg.num_layers, "scheme": "2x8g8",
+           "mode": "codes", "weight_scale": 1.0, "kv": "bf16", "spec_k": SPEC_K,
+           "max_batch": serve.max_batch, "max_len": serve.max_len,
+           "prefill_buckets": list(serve.prefill_buckets), "prompt_lengths": SPEC_LENGTHS,
+           "new_tokens": SPEC_NEW, "draw_s": draw_s, "runs": {}}
+    runs, answers, ok = rec["runs"], {}, True
+    drafts = {"spec_self": (params, cfg),
+              "spec_trunc": ({**params, "layers": params["layers"][:SPEC_DRAFT_LAYERS]},
+                             dataclasses.replace(cfg, num_layers=SPEC_DRAFT_LAYERS))}
+    for name, (dparams, dcfg) in drafts.items():
+        t0 = time.perf_counter()
+        engine = Engine(params, cfg, serve, draft_params=dparams, draft_cfg=dcfg, spec_k=SPEC_K)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        engine.generate(prompts[:1], SamplingParams(max_new_tokens=SPEC_K + 2))  # first calls
+        for run, sampling in ((name, greedy),) + (((f"{name}_sampled", sampled),)
+                                                    if name == "spec_self" else ()):
+            engine.spec_stats = {"proposed": 0, "accepted": 0}
+            out, r = _spec_generate(engine, prompts, sampling)
+            st = engine.spec_stats
+            want = spec_launch_formula(r["buckets"], cfg.num_layers, dcfg.num_layers,
+                                       r["target_chunks"], r["draft_chunks"])
+            r.update(build_s=build_s, draft_layers=dcfg.num_layers, spec_stats=dict(st),
+                     acceptance=st["accepted"] / max(st["proposed"], 1), launch_formula=want,
+                     sampling=dataclasses.asdict(sampling), first_tokens=[o[:4] for o in out],
+                     tokens_per_round=sum(len(o) - 1 for o in out) / max(r["rounds"], 1))
+            r["launches_as_formula"] = (
+                all(r["launches"][k] == n for k, n in want.items())
+                and all(n == 0 for k, n in r["launches"].items() if k not in want))
+            r["syncs_ok"] = (max(r["round_syncs"]) == 0 and max(r["step_syncs"]) <= 3)
+            r["tokens_ok"] = all(len(o) == SPEC_NEW and all(0 <= t < cfg.vocab_size for t in o)
+                                 for o in out)
+            run_ok = r["launches_as_formula"] and r["syncs_ok"] and r["tokens_ok"]
+            if sampling.temperature == 0:
+                with torch.inference_mode():
+                    r["exactness"] = _teacher_forced_gap(engine.params, cfg, prompts, out, dev)
+                run_ok = run_ok and r["exactness"]["ok"]
+                answers[run] = out
+            if name == "spec_self":
+                # sampled: acceptance; greedy: every rejection a near-tie of
+                # the verify's logits (a random draw's logits hold many;
+                # routes that round apart flip them, see spec_run)
+                run_ok = run_ok and (r["acceptance"] >= 0.9 if sampling.temperature > 0
+                                     else r["rejected_gap_max_rel"] <= 3e-2)
+            r["ok"] = run_ok
+            runs[run] = r
+            ok = ok and run_ok
+        del engine
+        torch.cuda.empty_cache()
+
+    # the plain Engine on the same prompts, and flash decode against the plain
+    # attention at this depth
+    engine = Engine(params, cfg, serve)
+    del params, drafts
+    engine.generate(prompts[:1], SamplingParams(max_new_tokens=2))
+    steps = []
+    _time_steps(engine, steps)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    plain = engine.generate(prompts, greedy)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    del engine.step
+    runs["spec_plain"] = {"generate_s": gen_s,
+                          "launches": {k: v.launches for k, v in _build.KERNELS.items()},
+                          "decode_tok_s": _decode_tok_s(steps),
+                          "first_tokens": [o[:4] for o in plain]}
+    runs["spec_plain"]["ok"] = (all(runs["spec_plain"]["launches"][k] > 0
+                                    for k in PATH_KERNELS["spec_plain"])
+                                and all(n == 0 for k, n in runs["spec_plain"]["launches"].items()
+                                        if k not in PATH_KERNELS["spec_plain"]))
+    ok = ok and runs["spec_plain"]["ok"]
+    rec["same_as_plain"] = {run: sum(a == b for o, p in zip(out, plain) for a, b in zip(o, p))
+                            / sum(len(p) for p in plain) for run, out in answers.items()}
+    with torch.inference_mode():
+        cache = init_kv_cache(cfg, len(prompts), serve.max_len, device=dev)
+        last = []
+        for b, p in enumerate(prompts):
+            lg, _ = forward_stacked(engine.params, cfg, torch.as_tensor(p, device=dev)[None],
+                                    cache=cache.rows(b, b + 1), cache_offset=0)
+            last.append(int(lg[0, -1].argmax()))
+        toks = torch.as_tensor(last, device=dev)[:, None]
+        offs = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+        flash = forward_stacked(engine.params, cfg, toks, cache=cache, cache_offset=offs,
+                                use_flash_decode=True)[0][:, -1].float()
+        plain_attn = forward_stacked(engine.params, cfg, toks, cache=cache, cache_offset=offs,
+                                     use_flash_decode=False)[0][:, -1].float()
+    err, scale = float((flash - plain_attn).abs().max()), float(plain_attn.abs().max())
+    rec["flash_vs_plain"] = {"max_abs_err": err, "max_rel_err": err / scale,
+                             "argmax_agree": float((flash.argmax(-1) == plain_attn.argmax(-1))
+                                                   .float().mean()),
+                             "ok": bool(torch.isfinite(flash).all()) and err <= 3e-2 * scale,
+                             "tol": "max|flash - plain| <= 3e-2 max|plain|, 32 layers"}
+    ok = ok and rec["flash_vs_plain"]["ok"]
+    del engine, cache
+    torch.cuda.empty_cache()
+    rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["ok"] = ok
     return rec
 
 
@@ -2574,6 +2896,41 @@ def serve_check(dev, path: str, run: str) -> dict:
             "ok": tokens_ok and ran and others and logits_ok and ref_b13 > 0}
 
 
+PATH_KERNELS["convert_spec"] = PATH_KERNELS["serve_calibrated"]
+
+
+def spec_recipe(dev, target: str, draft: str) -> dict:
+    """README's speculative recipe: ``cli.generate TARGET --mode codes
+    --draft_model DRAFT --spec_k 4 --max_new_tokens 32`` (the calibrated
+    checkpoint and its 1x8 requant). Both keep f32 embeddings and heads, and
+    the codes kernels take bf16 activations, so each is first saved again
+    with its dense parts in bf16 (``_dense_to``). Gates: 32 new tokens,
+    acceptance in [0, 1], K1, K2 and K3 launched and nothing else; the
+    acceptance recorded."""
+    from aqlm_tpu_torch.io import load_quantized_model, save_quantized_model
+
+    paths = []
+    for src in (target, draft):
+        params, cfg = load_quantized_model(src, device=dev)
+        paths.append(src.rstrip("/") + "_bf16")
+        save_quantized_model(paths[-1], _dense_to(params, torch.bfloat16), cfg)
+        del params
+    argv = [paths[0], "--mode", "codes", "--draft_model", paths[1], "--spec_k", "4",
+            "--max_new_tokens", "32", "--device", dev.type]
+    try:
+        gen, rec = _generate_cli(argv, PATH_KERNELS["convert_spec"])
+    finally:
+        for path in paths:
+            shutil.rmtree(path, ignore_errors=True)
+    line = json.loads(rec["lines"][-1])
+    rec.update(acceptance=line["acceptance"], stats=gen["stats"],
+               ok=(line["new_tokens"] == 32 and 0.0 <= line["acceptance"] <= 1.0
+                   and all(rec["launches"][k] > 0 for k in PATH_KERNELS["convert_spec"])
+                   and all(n == 0 for k, n in rec["launches"].items()
+                           if k not in PATH_KERNELS["convert_spec"])))
+    return rec
+
+
 def _config_of(path: str) -> dict:
     with open(os.path.join(path, "config.json")) as f:
         return json.load(f)
@@ -2628,6 +2985,7 @@ def convert_run(dev) -> dict:
         "ok": len(fits) == 14 and all(np.isfinite(f) and f < i for f, i in zip(fits, inits))
         and cfg_out["requantized_to"] == "1x8" and cfg_out["worst_rel_mse"] == max(fits)}
     runs["convert_requant"] = serve_check(dev, dst, "convert_requant")
+    runs["convert_spec"] = spec_recipe(dev, CALIB_DIR, dst)
     shutil.rmtree(dst)
 
     from aqlm_tpu_torch.models.llama import ModelConfig
@@ -3216,40 +3574,21 @@ def _completion(port, i, prompt, out):
     out[i] = (ans, time.perf_counter() - t0, first)
 
 
-def cli_serve_run(dev, paths) -> dict:
-    """``cli.serve`` over the materialized int8 checkpoint (``--max_batch 4
-    --kv_int8 --decode_chunk 8``, 127.0.0.1, port 0), in-process: 8
-    concurrent /v1/completions requests of 64-1500 prompt ids, 64 greedy new
-    tokens each, 2 streamed (SSE) and 2 with logprobs. Gates: every answer's
-    tokens equal those of an in-process ``Engine`` on the same params (the
-    canonical checkpoint transcoded to int8 at load, its serving tensors
-    equal to the served engine's bit for bit) and prompts, replaying the
-    server loop's own sequence of submits and steps (so the batches match),
-    the logprobs within 1e-5 of its (the answer rounds them to 6 decimals);
-    the int8 kernel and K3 launched, nothing else. Records
-    requests/s, mean and p99 latency and the streams' time to first token.
-    Then ``cli.generate --benchmark --mode codes`` on the canonical
-    checkpoint, its printed lines kept."""
-    import contextlib
-    import io
+def _serve_requests(argv, prompts) -> dict:
+    """``cli.serve`` built from ``argv`` in-process and served on a thread:
+    ``prompts`` as concurrent /v1/completions requests (``_completion``),
+    every launch count read over them. Returns the answers, the launches,
+    the server loop's recorded engine calls, the served engine and the
+    seconds."""
     import threading
 
-    from aqlm_tpu_torch.cli import generate as cli_generate
     from aqlm_tpu_torch.cli import serve as cli_serve
-    from aqlm_tpu_torch.cli.common import resolve_model
     from aqlm_tpu_torch.ops import _build
-    from aqlm_tpu_torch.serve import Engine
 
-    argv = [paths["int8"], "--host", "127.0.0.1", "--port", "0", "--max_batch", "4", "--kv_int8",
-            "--decode_chunk", "8", "--mode", "int8", "--device", dev.type]
-    cfg = entry_config()
-    rng = np.random.default_rng(7)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENGTHS]
     t0 = time.perf_counter()
     httpd, server = cli_serve.make_server(cli_serve.build_parser().parse_args(argv))
     load_s = time.perf_counter() - t0
     recorder = server.engine = _RecordingEngine(server.engine)
-    serve_cfg = recorder.engine.serve
     port = httpd.server_address[1]
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
@@ -3264,27 +3603,30 @@ def cli_serve_run(dev, paths) -> dict:
         for c in clients:
             c.join(240)
         wall_s = time.perf_counter() - t0
-        _sync(dev)
+        torch.cuda.synchronize()
         rec = _launch_record()
     finally:
         httpd.shutdown()
         httpd.server_close()
         server.stop()
-    calls, served_engine = recorder.calls, recorder.engine
-    del recorder, server, httpd
-    served = sorted(answers) == list(range(len(prompts)))
+    return {"answers": answers, "launch_rec": rec, "calls": recorder.calls,
+            "engine": recorder.engine, "load_s": load_s, "wall_s": wall_s}
 
-    # the replay: a fresh engine on the same params (the canonical checkpoint
-    # transcoded to int8 at load, the layout `convert --to int8` wrote: the
-    # served engine's tensors, bit for bit), the server loop's calls in order
-    t0 = time.perf_counter()
-    params, _, _ = resolve_model(paths["canonical"], mode="int8", device=dev)
-    engine = Engine(params, cfg, serve_cfg, device=dev)
-    del params
-    replay_load_s = time.perf_counter() - t0
-    mine, theirs = list(_tensor_leaves(engine.params)), list(_tensor_leaves(served_engine.params))
-    same_params = len(mine) == len(theirs) and all(torch.equal(a, b) for a, b in zip(mine, theirs))
-    del mine, theirs, served_engine
+
+def _replay(engine, served_engine, calls, prompts, answers) -> dict:
+    """The server loop's engine calls replayed on ``engine`` (built on the
+    same params): whether its serving tensors equal the served engine's bit
+    for bit, the requests whose tokens differ, and the largest logprob
+    difference of the requests that asked for them."""
+    pairs = [(engine.params, served_engine.params)]
+    if getattr(engine, "_spec", False):
+        pairs.append((engine._dparams, served_engine._dparams))
+    same = True
+    for a, b in pairs:
+        mine, theirs = list(_tensor_leaves(a)), list(_tensor_leaves(b))
+        same = same and len(mine) == len(theirs) and all(torch.equal(x, y)
+                                                         for x, y in zip(mine, theirs))
+    del served_engine, pairs
     torch.cuda.empty_cache()
     rid_of = {}
     for call in calls:
@@ -3305,46 +3647,158 @@ def cli_serve_run(dev, paths) -> dict:
         if i in SERVE_LOGPROBS:
             got = choice["logprobs"]["token_logprobs"]
             lp_err = max(lp_err, max(abs(a - b) for a, b in zip(got, req.logprobs)))
-    del engine
-    torch.cuda.empty_cache()
+    return {"replay_params_identical": same, "replay_mismatch": mismatch,
+            "logprob_max_abs_err": lp_err}
+
+
+def _serve_record(argv, prompts, served, replay, replay_load_s, path_kernels) -> dict:
+    answers, rec, calls = served["answers"], served["launch_rec"], served["calls"]
     lat = [answers[i][1] for i in sorted(answers)]
     ttft = [answers[i][2] for i in SERVE_STREAMED if i in answers]
-    ran = all(rec["launches"][k] > 0 for k in PATH_KERNELS["cli_serve"])
-    others = all(n == 0 for k, n in rec["launches"].items() if k not in PATH_KERNELS["cli_serve"])
-    serve_rec = {"argv": argv, "prompt_lengths": SERVE_LENGTHS, "new_tokens": SERVE_NEW,
-                 "streamed": list(SERVE_STREAMED), "logprobs": list(SERVE_LOGPROBS),
-                 "load_s": load_s, "wall_s": wall_s, "requests_per_s": len(lat) / wall_s,
-                 "tokens_per_s": len(lat) * SERVE_NEW / wall_s,
-                 "latency_mean_s": statistics.mean(lat),
-                 "latency_p99_s": float(np.percentile(lat, 99)), "ttft_s": ttft,
-                 "engine_calls": {"submits": sum(c[0] == "submit" for c in calls),
-                                  "steps": sum(c[0] == "step" for c in calls)},
-                 **rec, "replay_load_s": replay_load_s, "replay_params_identical": same_params,
-                 "replay_mismatch": mismatch, "logprob_max_abs_err": lp_err,
-                 "tol": "tokens identical to the replaying Engine; logprobs within 1e-5"}
-    serve_ok = served and same_params and not mismatch and lp_err <= 1e-5 and ran and others
+    wall_s = served["wall_s"]
+    ran = all(rec["launches"][k] > 0 for k in path_kernels)
+    others = all(n == 0 for k, n in rec["launches"].items() if k not in path_kernels)
+    out = {"argv": argv, "prompt_lengths": [len(p) for p in prompts], "new_tokens": SERVE_NEW,
+           "streamed": [i for i in SERVE_STREAMED if i < len(prompts)],
+           "logprobs": [i for i in SERVE_LOGPROBS if i < len(prompts)],
+           "load_s": served["load_s"], "wall_s": wall_s, "requests_per_s": len(lat) / wall_s,
+           "tokens_per_s": len(lat) * SERVE_NEW / wall_s,
+           "latency_mean_s": statistics.mean(lat),
+           "latency_p99_s": float(np.percentile(lat, 99)), "ttft_s": ttft,
+           "engine_calls": {"submits": sum(c[0] == "submit" for c in calls),
+                            "steps": sum(c[0] == "step" for c in calls)},
+           **rec, **replay, "replay_load_s": replay_load_s,
+           "tol": "tokens identical to the replaying Engine; logprobs within 1e-5"}
+    out["ok"] = (sorted(answers) == list(range(len(prompts))) and replay["replay_params_identical"]
+                 and not replay["replay_mismatch"] and replay["logprob_max_abs_err"] <= 1e-5
+                 and ran and others)
+    return out
 
-    # cli.generate --benchmark: its two printed lines kept
+
+def _generate_cli(argv, path_kernels) -> dict:
+    """``cli.generate`` with ``argv``: its printed lines kept, its return and
+    the launches over it; gates: the benchmark line and the JSON line as
+    last, only ``path_kernels`` launched."""
+    import contextlib
+    import io
+
+    from aqlm_tpu_torch.cli import generate as cli_generate
+    from aqlm_tpu_torch.ops import _build
+
     _build.reset_launch_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
-    gen_argv = [paths["canonical"], "--mode", "codes", "--benchmark", "--device", dev.type]
     with contextlib.redirect_stdout(buf):
-        gen = cli_generate.main(gen_argv)
-    gen_s = time.perf_counter() - t0
+        gen = cli_generate.main(argv)
+    seconds = time.perf_counter() - t0
     lines = buf.getvalue().strip().splitlines()
     grec = _launch_record()
-    gen_ok = (gen["new_tokens"] > 1 and len(gen["tokens"]) == 128
-              and lines[0].endswith(" tokens per second>") and json.loads(lines[-1])
-              == {k: gen[k] for k in ("tokens_per_second", "new_tokens")}
-              and all(grec["launches"][k] > 0 for k in PATH_KERNELS["cli_generate"])
-              and all(n == 0 for k, n in grec["launches"].items()
-                      if k not in PATH_KERNELS["cli_generate"]))
+    ok = (("--benchmark" not in argv or lines[0].endswith(" tokens per second>"))
+          and all(grec["launches"][k] > 0 for k in path_kernels)
+          and all(n == 0 for k, n in grec["launches"].items() if k not in path_kernels))
     torch.cuda.empty_cache()
+    return gen, {"argv": argv, "lines": lines, "seconds": seconds, **grec, "ok": ok}
+
+
+SERVE_SPEC_REQUESTS = 4  # the speculative server answers the first 4 of the 8 requests
+PATH_KERNELS["cli_serve_spec"] = ("int8_matmul", "lut_gemv", "gather_prefill",
+                                  "flash_decode_write")
+PATH_KERNELS["cli_generate_spec"] = PATH_KERNELS["cli_serve_spec"]
+
+
+def cli_serve_run(dev, paths) -> dict:
+    """``cli.serve`` over the materialized int8 checkpoint (``--max_batch 4
+    --kv_int8 --decode_chunk 8``, 127.0.0.1, port 0), in-process: 8
+    concurrent /v1/completions requests of 64-1500 prompt ids, 64 greedy new
+    tokens each, 2 streamed (SSE) and 2 with logprobs. Gates: every answer's
+    tokens equal those of an in-process ``Engine`` on the same params (the
+    canonical checkpoint transcoded to int8 at load, its serving tensors
+    equal to the served engine's bit for bit) and prompts, replaying the
+    server loop's own sequence of submits and steps (so the batches match),
+    the logprobs within 1e-5 of its (the answer rounds them to 6 decimals);
+    the int8 kernel and K3 launched, nothing else. Records
+    requests/s, mean and p99 latency and the streams' time to first token.
+    Then ``cli.generate --benchmark --mode codes`` on the canonical
+    checkpoint, its printed lines kept. Then the same server with
+    ``--draft_model`` (the canonical checkpoint in codes mode: an int8
+    target and a codes draft of one AQLM weight, ``--spec_k 4``) answers the
+    first SERVE_SPEC_REQUESTS requests, held to a replaying speculative
+    Engine by the same gates, the int8 kernel, K1, K2 and K3 launched and
+    nothing else; then ``cli.generate --draft_model ... --benchmark`` with
+    the same pair, its JSON line kept."""
+    from aqlm_tpu_torch.cli.common import resolve_model
+    from aqlm_tpu_torch.serve import Engine
+
+    base = ["--host", "127.0.0.1", "--port", "0", "--max_batch", "4", "--kv_int8",
+            "--decode_chunk", "8", "--mode", "int8", "--device", dev.type]
+    argv = [paths["int8"], *base]
+    cfg = entry_config()
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENGTHS]
+    served = _serve_requests(argv, prompts)
+    serve_cfg = served["engine"].serve
+    # the replay: a fresh engine on the same params (the canonical checkpoint
+    # transcoded to int8 at load, the layout `convert --to int8` wrote: the
+    # served engine's tensors, bit for bit), the server loop's calls in order
+    t0 = time.perf_counter()
+    params, _, _ = resolve_model(paths["canonical"], mode="int8", device=dev)
+    engine = Engine(params, cfg, serve_cfg, device=dev)
+    del params
+    replay_load_s = time.perf_counter() - t0
+    replay = _replay(engine, served.pop("engine"), served["calls"], prompts, served["answers"])
+    del engine
+    torch.cuda.empty_cache()
+    serve_rec = _serve_record(argv, prompts, served, replay, replay_load_s,
+                              PATH_KERNELS["cli_serve"])
+    served_runs = [served["launch_rec"]]
+    serve_ok = serve_rec.pop("ok")
+
+    # cli.generate --benchmark: its two printed lines kept
+    gen_argv = [paths["canonical"], "--mode", "codes", "--benchmark", "--device", dev.type]
+    gen, grec = _generate_cli(gen_argv, PATH_KERNELS["cli_generate"])
+    grec["ok"] = grec["ok"] and (gen["new_tokens"] > 1 and len(gen["tokens"]) == 128
+                                 and json.loads(grec["lines"][-1])
+                                 == {k: gen[k] for k in ("tokens_per_second", "new_tokens")})
+
+    # the same server with a codes draft of the same weight
+    draft_args = ["--draft_model", paths["canonical"], "--draft_mode", "codes", "--spec_k", "4"]
+    sargv = argv + draft_args
+    sprompts = prompts[:SERVE_SPEC_REQUESTS]
+    served = _serve_requests(sargv, sprompts)
+    served_engine = served.pop("engine")
+    spec_state = {"spec_stats": dict(served_engine.spec_stats),
+                  "spec_disabled": served_engine.spec_disabled}
+    t0 = time.perf_counter()
+    params, _, _ = resolve_model(paths["int8"], mode="int8", device=dev)
+    dparams, dcfg, _ = resolve_model(paths["canonical"], mode="codes", device=dev)
+    engine = Engine(params, cfg, served_engine.serve, device=dev, draft_params=dparams,
+                    draft_cfg=dcfg, spec_k=4)
+    del params, dparams
+    replay_load_s = time.perf_counter() - t0
+    replay = _replay(engine, served_engine, served["calls"], sprompts, served["answers"])
+    del served_engine
+    spec_state["replay_spec_stats"] = dict(engine.spec_stats)
+    del engine
+    torch.cuda.empty_cache()
+    spec_rec = {**_serve_record(sargv, sprompts, served, replay, replay_load_s,
+                                PATH_KERNELS["cli_serve_spec"]), **spec_state}
+    served_runs.append(served["launch_rec"])
+    spec_rec["ok"] = spec_rec["ok"] and spec_state["replay_spec_stats"] == spec_state["spec_stats"]
+
+    sgen_argv = [paths["int8"], "--mode", "int8", *draft_args, "--benchmark", "--device", dev.type]
+    sgen, sgrec = _generate_cli(sgen_argv, PATH_KERNELS["cli_generate_spec"])
+    line = json.loads(sgrec["lines"][-1])
+    sgrec["ok"] = sgrec["ok"] and (sorted(line) == ["acceptance", "new_tokens",
+                                                    "tokens_per_second"]
+                                   and line["new_tokens"] == len(sgen["tokens"]) == 128
+                                   and 0.0 <= line["acceptance"] <= 1.0)
+    sgrec["stats"] = sgen["stats"]
+    ok = serve_ok and grec["ok"] and spec_rec["ok"] and sgrec["ok"]
     return {"phase": "cli_serve", "serve": serve_rec, "serve_ok": serve_ok,
-            "generate": {"argv": gen_argv,
-                         "lines": lines, "seconds": gen_s, **grec, "ok": gen_ok},
-            "runs": {"cli_serve": rec, "cli_generate": grec}, "ok": serve_ok and gen_ok}
+            "generate": grec, "serve_spec": spec_rec, "generate_spec": sgrec,
+            "runs": {"cli_serve": served_runs[0], "cli_generate": grec,
+                     "cli_serve_spec": served_runs[1], "cli_generate_spec": sgrec},
+            "ok": ok}
 
 
 def main() -> int:
@@ -3425,6 +3879,16 @@ def main() -> int:
     if not runs["int8_short"]["ok"]:
         print("chip_smoke: the int8_short engine run failed its checks", file=sys.stderr)
         return 4
+
+    starting("spec")
+    t0 = time.perf_counter()
+    rec = spec_run(dev)
+    phase_s["spec"] = rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    runs.update(rec["runs"])
+    if not rec["ok"]:
+        print("chip_smoke: the speculative decoding runs failed their checks", file=sys.stderr)
+        return 16
 
     # calibration runs with autograd: outside inference mode
     starting("calibration")

@@ -294,8 +294,7 @@ UNPORTED = [
     (convert, ["--to", "hf"], "A10"),
     (convert, ["--to", "int8", "--from_format", "legacy"], "A10"),
     (convert, ["--to", "int8", "--from_format", "legacy_fsdp"], "A10"),
-    (generate, ["--draft_model", "random:tiny"], "A8"),
-    (serve, ["--tp", "2"], "A14"), (serve, ["--draft_model", "random:tiny"], "A8"),
+    (serve, ["--tp", "2"], "A14"), (serve, ["--tp", "2", "--draft_model", "random:tiny"], "A14"),
 ]
 
 

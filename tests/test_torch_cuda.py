@@ -2306,3 +2306,73 @@ def test_tiny_scanned_pv_pass_matches_the_cpu(dev, window):
     assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
     for g, w in zip(grads, want_grads):
         assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max()) + 1e-30
+
+
+# --------------------------------------------------------------------------- speculative decoding
+
+
+def _spec_engine(dev, draft_layers):
+    """A 2-layer 2x8 codes Llama (hidden 256, well-scaled draw) and its
+    speculative Engine, drafted by its first ``draft_layers`` layers with the
+    same embedding, final norm and head; max_len 128, so the draft's steps
+    take K3."""
+    cfg = llama.ModelConfig.tiny(num_layers=2, hidden_size=256, intermediate_size=256,
+                                 num_heads=4, num_kv_heads=2)
+    params = random_quantized_params(torch.Generator(device=dev).manual_seed(0), cfg, SCHEME_2X8,
+                                     weight_scale=1.0)
+    dcfg = dataclasses.replace(cfg, num_layers=draft_layers)
+    draft = {**params, "layers": params["layers"][:draft_layers]}
+    engine = Engine(params, cfg, ServeConfig(max_batch=4, max_len=128, prefill_buckets=(16, 64)),
+                    draft_params=draft, draft_cfg=dcfg, spec_k=3)
+    return cfg, params, engine
+
+
+@pytest.mark.parametrize("draft_layers", [2, 1])
+def test_spec_engine_on_the_card_is_exact_within_tolerance(dev, draft_layers):
+    """Greedy answers of the speculative Engine (self-draft and a 1-layer
+    draft) against one teacher-forced ``forward_stacked`` of the target over
+    prompt + answer: every emitted token's logit within 3e-2 max|logit| of
+    its position's largest; K1, K2 and K3 launched, nothing else; the
+    self-draft accepts at least 90% of its proposals."""
+    from aqlm_tpu_torch.models.stacked import forward_stacked
+
+    cfg, params, engine = _spec_engine(dev, draft_layers)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 17, 40, 9)]
+    _build.reset_launch_counts()
+    out = engine.generate(prompts, SamplingParams(max_new_tokens=12))
+    counts = {k: v.launches for k, v in _build.KERNELS.items() if v.launches}
+    assert sorted(counts) == sorted(CODES_KERNELS), counts
+    assert [len(o) for o in out] == [12] * 4
+    for p, o in zip(prompts, out):
+        ids = torch.as_tensor(np.concatenate([p, o]), device=dev)[None]
+        logits = forward_stacked(engine.params, cfg, ids)[0][0, len(p) - 1:-1].float()
+        got = logits.gather(-1, torch.as_tensor(o, device=dev)[:, None])[:, 0]
+        gap = float((logits.max(-1).values - got).max())
+        assert gap <= 3e-2 * float(logits.abs().max()), gap
+    st = engine.spec_stats
+    assert st["proposed"] > 0 and (draft_layers == 1 or st["accepted"] >= 0.9 * st["proposed"])
+
+
+def test_spec_round_makes_no_sync(dev):
+    """A round (k+1 draft forwards, the verify, the accept) issues no
+    synchronising call, greedy or with a sampled row; the step reads back
+    once after it."""
+    cfg, _, engine = _spec_engine(dev, 1)
+    inner = engine._spec_round
+
+    def strict(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    engine._spec_round = strict
+    rng = np.random.default_rng(1)
+    engine.submit(rng.integers(0, cfg.vocab_size, 20), SamplingParams(max_new_tokens=10))
+    engine.submit(rng.integers(0, cfg.vocab_size, 30),
+                  SamplingParams(max_new_tokens=10, temperature=0.8, top_p=0.9))
+    while engine._pending or engine._active:
+        engine.step()
+    assert engine.spec_stats["proposed"] > 0
